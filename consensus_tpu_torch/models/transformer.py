@@ -1,0 +1,407 @@
+"""Decoder-only transformer runtime (Gemma-2 / Llama-3 families), PyTorch port.
+
+Counterpart of ``consensus_tpu/models/transformer.py``.  Parameters are a
+plain dict: ``embed`` (V, D), ``final_norm`` (D,), optional ``lm_head``
+(V, D), and ``layers``, a list with one dict per layer whose matmul weights
+keep the JAX layout (d_in, d_out).  Weights may be int8
+:class:`~consensus_tpu_torch.models.quant.QTensor`s.
+
+* ``forward`` with no cache attends through the hand-written flash kernel
+  when ``config.use_flash_attention`` is set (``ops/flash_attention.py``);
+  the Gemma-2 local/global choice is a Python branch per layer where the
+  JAX package used ``lax.cond``.
+* ``forward`` with a cache is the einsum path of the JAX package
+  (``transformer.py:329-341``): the cache is written IN PLACE at
+  ``write_index`` (the JAX version returns a new cache; here the same
+  object comes back updated, which saves a copy per step).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from consensus_tpu_torch.models.config import ModelConfig
+from consensus_tpu_torch.models.quant import (
+    QTensor,
+    gather_target_logits,
+    head_matmul,
+    matmul,
+    quantize,
+    slice_rows,
+    take_rows,
+)
+from consensus_tpu_torch.ops.flash_attention import flash_attention
+
+Params = Dict[str, Any]
+
+MASK_FILL = -1e9  # finite fill: pad query rows softmax to uniform, not NaN
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization
+# ---------------------------------------------------------------------------
+
+
+def init_params(
+    config: ModelConfig,
+    generator: torch.Generator,
+    device: torch.device | str,
+    dtype: torch.dtype = torch.float32,
+    int8: bool = False,
+) -> Params:
+    """Random-normal parameters drawn on ``device`` from ``generator``.
+
+    The distributions follow the JAX ``init_params`` (normal weights scaled
+    by d_in^-0.5, embedding x0.02, lm_head x d_model^-0.5, norms at their
+    identity values); the numbers differ, since the generators do.  With
+    ``int8`` every matmul weight is quantized as soon as it is drawn, so the
+    full-precision tree never exists at once (llama3-8b in bf16 is 16 GB)."""
+    c = config
+    device = torch.device(device)
+
+    def normal(*shape, scale: float) -> torch.Tensor:
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def dense(d_in: int, d_out: int):
+        w = normal(d_in, d_out, scale=d_in ** -0.5)
+        return quantize(w, contract_axis=0) if int8 else w
+
+    def norm() -> torch.Tensor:
+        fill = 0.0 if c.rmsnorm_style == "gemma" else 1.0
+        return torch.full((c.d_model,), fill, dtype=dtype, device=device)
+
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    layers = []
+    for _ in range(c.n_layers):
+        layer = {
+            "attn_norm": norm(),
+            "wq": dense(c.d_model, h * hd),
+            "wk": dense(c.d_model, kv * hd),
+            "wv": dense(c.d_model, kv * hd),
+            "wo": dense(h * hd, c.d_model),
+            "ffn_norm": norm(),
+            "w_gate": dense(c.d_model, c.ffn_hidden),
+            "w_up": dense(c.d_model, c.ffn_hidden),
+            "w_down": dense(c.ffn_hidden, c.d_model),
+        }
+        if c.use_post_norms:
+            layer["post_attn_norm"] = norm()
+            layer["post_ffn_norm"] = norm()
+        layers.append(layer)
+
+    embed = normal(c.vocab_size, c.d_model, scale=0.02)
+    params: Params = {
+        "embed": quantize(embed, contract_axis=-1) if int8 else embed,
+        "layers": layers,
+        "final_norm": norm(),
+    }
+    if not c.tie_lm_head:
+        head = normal(c.vocab_size, c.d_model, scale=c.d_model ** -0.5)
+        params["lm_head"] = quantize(head, contract_axis=-1) if int8 else head
+    return params
+
+
+def params_dtype(params: Params) -> torch.dtype:
+    embed = params["embed"]
+    return embed.compute_dtype if isinstance(embed, QTensor) else embed.dtype
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, style: str) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    normed = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    w32 = weight.to(torch.float32)
+    scale = (1.0 + w32) if style == "gemma" else w32
+    return (normed * scale).to(x.dtype)
+
+
+def _rope_angles(
+    positions: torch.Tensor,
+    head_dim: int,
+    theta: float,
+    scaling: Optional[Tuple[float, float, float, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    half = head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exponent)
+    if scaling is not None:
+        # Llama-3.1 "llama3" rope scaling: long wavelengths are divided by
+        # ``factor``, short ones kept, the mid band interpolated.
+        factor, low_freq_factor, high_freq_factor, original_max = scaling
+        wavelen = 2.0 * math.pi / freq
+        low_freq_wavelen = original_max / low_freq_factor
+        high_freq_wavelen = original_max / high_freq_factor
+        smooth = (original_max / wavelen - low_freq_factor) / (
+            high_freq_factor - low_freq_factor
+        )
+        interp = (1.0 - smooth) * freq / factor + smooth * freq
+        freq = torch.where(
+            wavelen > low_freq_wavelen,
+            freq / factor,
+            torch.where(wavelen < high_freq_wavelen, freq, interp),
+        )
+    angles = positions[..., None].to(torch.float32) * freq  # (..., half)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of (B, S, H, hd) by (B, S, 1, half) angles."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def apply_rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    scaling: Optional[Tuple[float, float, float, int]] = None,
+) -> torch.Tensor:
+    """Rotate (B, S, H, hd) by per-token positions (B, S). Half-split layout."""
+    cos, sin = _rope_angles(positions, x.shape[-1], theta, scaling)
+    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor  # (L, B, T, KV, hd)
+    v: torch.Tensor  # (L, B, T, KV, hd)
+    key_positions: torch.Tensor  # (B, T) int32
+    key_valid: torch.Tensor  # (B, T) bool
+
+
+def make_cache(
+    config: ModelConfig,
+    batch: int,
+    max_len: int,
+    dtype: torch.dtype,
+    device: torch.device | str,
+) -> KVCache:
+    c = config
+    shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        key_positions=torch.zeros((batch, max_len), dtype=torch.int32, device=device),
+        key_valid=torch.zeros((batch, max_len), dtype=torch.bool, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Forward pass
+# ---------------------------------------------------------------------------
+
+
+def _attention_masks(
+    config: ModelConfig,
+    q_positions: torch.Tensor,  # (B, S)
+    q_valid: torch.Tensor,  # (B, S)
+    k_positions: torch.Tensor,  # (B, T)
+    k_valid: torch.Tensor,  # (B, T)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(global_mask, local_mask), each (B, 1, S, T) boolean."""
+    qp = q_positions[:, :, None]
+    kp = k_positions[:, None, :]
+    causal = (kp <= qp) & k_valid[:, None, :] & q_valid[:, :, None]
+    global_mask = causal[:, None, :, :]
+    if config.sliding_window is not None:
+        local_mask = (causal & (qp - kp < config.sliding_window))[:, None, :, :]
+    else:
+        local_mask = global_mask
+    return global_mask, local_mask
+
+
+def forward(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (B, S) int
+    positions: torch.Tensor,  # (B, S) int RoPE positions
+    valid: torch.Tensor,  # (B, S) bool -- real (non-pad) tokens
+    cache: Optional[KVCache] = None,
+    write_index: int = 0,
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the transformer -> (logits (B, S, V) float32, cache).
+
+    Without a cache, attention runs over this call's own keys.  With a
+    cache, this call's k/v are written into it at ``write_index`` (the same
+    slot for every row -- callers left-pad prompts) and attention runs over
+    the whole cache buffer.  ``return_hidden=True`` returns the final-norm
+    hidden states (B, S, D) instead of logits."""
+    c = config
+    batch, span = tokens.shape
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    reps = h // kv
+
+    x = take_rows(params["embed"], tokens)
+    if c.scale_embeddings:
+        x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
+
+    if cache is None:
+        k_positions, k_valid = positions, valid
+    else:
+        cache.key_positions[:, write_index : write_index + span] = positions
+        cache.key_valid[:, write_index : write_index + span] = valid
+        k_positions, k_valid = cache.key_positions, cache.key_valid
+
+    use_flash = c.use_flash_attention and cache is None
+    if use_flash:
+        # One contiguous valid span per row, as the kernel's masking model
+        # needs: start = first valid column, length = valid count.
+        lengths = valid.to(torch.int32).sum(dim=1, dtype=torch.int32)
+        starts = valid.to(torch.int32).argmax(dim=1).to(torch.int32)
+    else:
+        global_mask, local_mask = _attention_masks(c, positions, valid, k_positions, k_valid)
+
+    cos, sin = _rope_angles(positions, hd, c.rope_theta, c.rope_scaling)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+
+    for layer, lp in enumerate(params["layers"]):
+        is_local = c.layer_is_local(layer)
+        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
+        q = matmul(attn_in, lp["wq"]).reshape(batch, span, h, hd)
+        k = matmul(attn_in, lp["wk"]).reshape(batch, span, kv, hd)
+        v = matmul(attn_in, lp["wv"]).reshape(batch, span, kv, hd)
+        q = _rotate(q, cos, sin)
+        k = _rotate(k, cos, sin)
+
+        if cache is None:
+            keys, values = k, v
+        else:
+            cache.k[layer, :, write_index : write_index + span] = k
+            cache.v[layer, :, write_index : write_index + span] = v
+            keys, values = cache.k[layer], cache.v[layer]
+
+        if use_flash:
+            window = c.sliding_window if is_local else None
+            attn = flash_attention(
+                q, keys, values, lengths, starts,
+                scale=c.q_scale, softcap=c.attn_softcap, window=window, causal=True,
+            ).to(x.dtype)
+        else:
+            qg = q.reshape(batch, span, kv, reps, hd)
+            logits = torch.einsum("bsgrd,btgd->bgrst", qg, keys).to(torch.float32)
+            logits = _softcap(logits * c.q_scale, c.attn_softcap)
+            mask = local_mask if is_local else global_mask
+            logits = logits.masked_fill(~mask[:, :, None], MASK_FILL)
+            weights = torch.softmax(logits, dim=-1).to(x.dtype)
+            attn = torch.einsum("bgrst,btgd->bsgrd", weights, values)
+        attn = matmul(attn.reshape(batch, span, h * hd), lp["wo"])
+        if c.use_post_norms:
+            attn = rms_norm(attn, lp["post_attn_norm"], c.rms_eps, c.rmsnorm_style)
+        x = x + attn
+
+        ffn_in = rms_norm(x, lp["ffn_norm"], c.rms_eps, c.rmsnorm_style)
+        gate = matmul(ffn_in, lp["w_gate"])
+        if c.activation == "geglu":
+            gate = F.gelu(gate, approximate="tanh")
+        else:
+            gate = F.silu(gate)
+        ffn = matmul(gate * matmul(ffn_in, lp["w_up"]), lp["w_down"])
+        if c.use_post_norms:
+            ffn = rms_norm(ffn, lp["post_ffn_norm"], c.rms_eps, c.rmsnorm_style)
+        x = x + ffn
+
+    x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
+    if return_hidden:
+        return x, cache
+    return project_logits(params, c, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced scoring
+# ---------------------------------------------------------------------------
+
+
+def project_logits(params: Params, config: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """Head-project hidden states (..., D) -> float32 logits (..., V), with
+    the model's final softcap."""
+    head = params["embed"] if config.tie_lm_head else params["lm_head"]
+    return _softcap(head_matmul(hidden, head), config.final_softcap)
+
+
+def _score_positions(valid: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.cumsum(valid.to(torch.int32), dim=1) - 1, min=0)
+
+
+def token_logprobs(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (B, S) right-padded
+    valid: torch.Tensor,  # (B, S)
+) -> torch.Tensor:
+    """Per-position logprob of tokens[:, t] given tokens[:, :t] -> (B, S)
+    float32; position 0 gets 0.0.  Materializes the full (B, S, V) logits;
+    use :func:`token_logprobs_streamed` for large vocabularies."""
+    logits, _ = forward(params, config, tokens, _score_positions(valid), valid)
+    logprobs = torch.log_softmax(logits, dim=-1)
+    gathered = torch.gather(logprobs[:, :-1, :], 2, tokens[:, 1:, None].long())[..., 0]
+    return F.pad(gathered, (1, 0))
+
+
+def token_logprobs_streamed(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,
+    valid: torch.Tensor,
+    vocab_chunk: int = 8192,
+) -> torch.Tensor:
+    """:func:`token_logprobs` without a (B, S, V) tensor: a streaming
+    logsumexp over vocab tiles plus a direct gather of the target logits."""
+    x, _ = forward(
+        params, config, tokens, _score_positions(valid), valid, return_hidden=True
+    )
+    gathered = _streamed_target_logprobs(
+        params, config, x[:, :-1, :], tokens[:, 1:], vocab_chunk
+    )
+    return F.pad(gathered, (1, 0))
+
+
+def _streamed_target_logprobs(
+    params: Params,
+    config: ModelConfig,
+    x: torch.Tensor,  # (B, S, D) final-norm hidden states
+    targets: torch.Tensor,  # (B, S)
+    vocab_chunk: int,
+) -> torch.Tensor:
+    c = config
+    head = params["embed"] if c.tie_lm_head else params["lm_head"]
+    vocab = head.shape[0]
+    x32 = x.to(torch.float32)
+    run_max = torch.full(targets.shape, -math.inf, dtype=torch.float32, device=x.device)
+    run_sum = torch.zeros(targets.shape, dtype=torch.float32, device=x.device)
+    for start in range(0, vocab, vocab_chunk):
+        rows, row_scales = slice_rows(head, start, min(vocab_chunk, vocab - start))
+        tile = torch.matmul(x32, rows.to(torch.float32).t())
+        if row_scales is not None:
+            tile = tile * row_scales[:, 0]
+        tile = _softcap(tile, c.final_softcap)
+        new_max = torch.maximum(run_max, tile.amax(dim=-1))
+        run_sum = run_sum * torch.exp(run_max - new_max) + torch.exp(
+            tile - new_max[..., None]
+        ).sum(dim=-1)
+        run_max = new_max
+    lse = run_max + torch.log(run_sum)
+    target_logits = _softcap(gather_target_logits(x, head, targets.long()), c.final_softcap)
+    return target_logits - lse
