@@ -10,7 +10,11 @@ config) and runs each protocol call as padded device batches:
 * ``score`` -- right-padded teacher-forced forward (``_score_impl``,
   ``tpu.py:1253-1338``) with the same row and width buckets, truncation
   rules and streamed-vocab threshold; its attention is the hand-written
-  flash kernel when ``use_flash_attention`` is set.
+  flash kernel when ``use_flash_attention`` is set;
+* ``open_fused_token_search`` -- :class:`TorchTokenSearchSession`, the
+  incremental KV-cache search session of beam search and finite lookahead
+  (``tpu.py:1731-1739, 2140-2398, 2644-2687``); its step attends through the
+  hand-written decode kernel when ``use_decode_attention`` is set.
 
 No ``score_matrix`` method yet: best-of-N's utility matrix goes through the
 per-call fallback (``backends/score_matrix.py``).  Options that select a
@@ -40,9 +44,15 @@ from consensus_tpu_torch.backends.base import (
     ScoreRequest,
     ScoreResult,
 )
+from consensus_tpu_torch.backends.session import (
+    FusedSessionUnavailable,
+    ScoredCandidate,
+    SearchSpec,
+)
 from consensus_tpu_torch.models.config import ModelConfig, get_model_config
 from consensus_tpu_torch.models.generate import generate_tokens
 from consensus_tpu_torch.models.quant import is_quantized, quantize_params
+from consensus_tpu_torch.models.stepper import search_prefill, search_step, suffix_propose
 from consensus_tpu_torch.models.tokenizer import get_tokenizer
 from consensus_tpu_torch.models.transformer import (
     init_params,
@@ -60,8 +70,33 @@ _STREAMED_VOCAB_THRESHOLD = 32_768
 _ACTIVATION_RESERVE_BYTES = 3 * 1024**3
 #: Budget on the CPU, which has no device-memory query: effectively none.
 _CPU_BUDGET_BYTES = 1 << 40
+#: Live search-session caches: at most this much, at least the floor, else
+#: what is free after the weights and the activation reserve.
+_SESSION_CACHE_BYTES_CAP = 8 * 1024**3
+_SESSION_MIN_BUDGET_BYTES = 1 * 1024**3
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class _SessionBudget:
+    """Device-memory budget for LIVE session caches (``tpu.py:94-114``).
+    Opening a session blocks until its cache fits; closing releases it."""
+
+    def __init__(self, cap_bytes: int):
+        self.cap = cap_bytes
+        self.used = 0
+        self._cond = threading.Condition()
+
+    def acquire(self, nbytes: int) -> None:
+        with self._cond:
+            while self.used + nbytes > self.cap:
+                self._cond.wait()
+            self.used += nbytes
+
+    def release(self, nbytes: int) -> None:
+        with self._cond:
+            self.used -= nbytes
+            self._cond.notify_all()
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -131,10 +166,6 @@ class TorchBackend:
             raise _not_ported(
                 "kv_quant=True", "shared-trunk, segmented and int8-KV generation"
             )
-        if use_decode_attention:
-            raise _not_ported(
-                "use_decode_attention=True", "the other methods (token-level search, kernel K2)"
-            )
         if tp != 1 or (dp is not None and dp != 1) or mesh is not None:
             raise _not_ported("tp/dp/mesh", "multi-GPU")
         if checkpoint is not None:
@@ -148,6 +179,8 @@ class TorchBackend:
         self.config = config if config is not None else get_model_config(model)
         if use_flash_attention and not self.config.use_flash_attention:
             self.config = dataclasses.replace(self.config, use_flash_attention=True)
+        if use_decode_attention and not self.config.use_decode_attention:
+            self.config = dataclasses.replace(self.config, use_decode_attention=True)
         self.model_name = model
         family = "llama" if "llama" in self.config.name else "gemma"
         self.tokenizer = get_tokenizer(tokenizer, family=family)
@@ -179,10 +212,23 @@ class TorchBackend:
             )
 
         self._bias_id_cache: Dict[str, Tuple[int, ...]] = {}
-        self.call_counts = {"generate": 0, "score": 0, "score_batches": 0}
+        self.call_counts = {
+            "generate": 0, "score": 0, "score_batches": 0, "search_advances": 0,
+        }
         self.token_counts = {"generated": 0, "scored": 0}
         self._unseeded_calls = 0
         self._nonce_lock = threading.Lock()
+        # Live-session budget (``tpu.py:412-419``), read from what the device
+        # has free once the weights are resident instead of a fixed HBM size.
+        self._session_budget = _SessionBudget(
+            min(
+                _SESSION_CACHE_BYTES_CAP,
+                max(
+                    _SESSION_MIN_BUDGET_BYTES,
+                    self._free_device_bytes() - _ACTIVATION_RESERVE_BYTES,
+                ),
+            )
+        )
 
     # -- helpers -------------------------------------------------------------
 
@@ -495,6 +541,14 @@ class TorchBackend:
             )
         return results
 
+    # -- token-search sessions -----------------------------------------------
+
+    def open_fused_token_search(self, spec: SearchSpec) -> "TorchTokenSearchSession":
+        """Incremental KV-cache search session (``models/stepper.py``): one
+        fused step per emitted token.  Raises :class:`FusedSessionUnavailable`
+        when its caches would not fit the session budget."""
+        return TorchTokenSearchSession(self, spec)
+
     # -- not ported yet ------------------------------------------------------
 
     def next_token_logprobs(self, requests):
@@ -503,3 +557,235 @@ class TorchBackend:
     def embed(self, texts):
         raise _not_ported("embed", "evaluation")
 
+
+class TorchTokenSearchSession:
+    """Incremental token search over persistent per-(slot x role) KV tails
+    (``TPUTokenSearchSession``, ``tpu.py:2140-2398, 2644-2687``).
+
+    Rows are slot-major: slot b occupies rows [b*(1+A), (b+1)*(1+A)) with
+    role 0 = reference policy and roles 1..A = agent policies.  The prefix
+    trunk is prefilled once per role; each ``advance_and_propose`` is one
+    step of ``models/stepper.py``: gather surviving parents' tails, append
+    the chosen token id, forward one position, Gumbel-top-k the reference
+    rows and gather the proposal ids from the agents' log-softmax.  Each
+    call makes one packed device-to-host fetch.
+
+    State is token *ids*; the decoded strings in returned candidates are for
+    host-side semantics (EOS sets, dedup, display).  Gumbel noise for family
+    f (0 = trunk steps, 1 = suffix trees), step or salt i and slot s comes
+    from a ``torch.Generator`` seeded with a fold of (session seed, f, i, s).
+    """
+
+    def __init__(self, backend: TorchBackend, spec: SearchSpec):
+        if spec.speculative:
+            raise _not_ported("SearchSpec.speculative", "the other methods (MCTS and its rollouts)")
+        self.backend = backend
+        self.spec = spec
+        tok = backend.tokenizer
+        prefixes = [tok.raw_prompt(spec.ref_user, spec.ref_system)] + [
+            tok.raw_prompt(a_user, a_system) for a_system, a_user in spec.agent_prompts
+        ]
+        token_lists = [tok.encode(p, add_bos=True) for p in prefixes]
+        max_prefix = backend.max_context - spec.max_steps
+        if max_prefix < 16:
+            raise ValueError(
+                f"max_steps={spec.max_steps} leaves no prefix room inside "
+                f"max_context={backend.max_context}"
+            )
+        token_lists = [ids[-max_prefix:] for ids in token_lists]
+        self._tokens, self._valid = backend._left_pad_batch(token_lists)
+        self._w0 = int(self._tokens.shape[1])
+        self.n_roles = len(prefixes)
+        c = backend.config
+        n_rows = spec.n_slots * self.n_roles
+        itemsize = torch.finfo(params_dtype(backend.params)).bits // 8
+        # Trunk once per role + per-(slot x role) tails.  Trunk sessions
+        # (n_slots=1) reserve 2x: every tree level materializes one
+        # trunk+tail scratch copy (stepper._scratch_cache).
+        cache_bytes = (
+            2 * c.n_layers * (self.n_roles * self._w0 + n_rows * spec.max_steps)
+            * c.n_kv_heads * c.head_dim * itemsize
+        )
+        if spec.n_slots == 1:
+            cache_bytes *= 2
+        if cache_bytes > backend._session_budget.cap:
+            raise FusedSessionUnavailable(
+                f"{n_rows}-row x {self._w0 + spec.max_steps}-wide session cache "
+                f"(~{cache_bytes / 1e9:.1f} GB) over the "
+                f"{backend._session_budget.cap / 1e9:.1f} GB session budget"
+            )
+        # Recorded only after acquire succeeds, so close() never releases
+        # bytes that were not granted.
+        backend._session_budget.acquire(cache_bytes)
+        self._budget_bytes = cache_bytes
+        self._step = 0
+        self._state = None
+        #: Device steps launched by this session (prefill, advances, levels).
+        self.dispatch_count = 0
+        bias = backend._bias_vector(spec.bias_against_tokens, spec.bias_value)
+        self._ref_bias = backend._to_device(bias) if bias is not None else None
+        if spec.seed is None:
+            with backend._nonce_lock:
+                backend._unseeded_calls += 1
+                self._seed_parts = ("search", "unseeded", backend._unseeded_calls)
+        else:
+            self._seed_parts = ("search", spec.seed)
+
+    # -- protocol ------------------------------------------------------------
+
+    def propose(self) -> List[List[ScoredCandidate]]:
+        """Root proposals (every slot starts with the empty sequence)."""
+        self._check_open()
+        spec = self.spec
+        # k candidates x (n_roles - 1) agent evaluations per slot.
+        self.backend.token_counts["scored"] += spec.n_slots * spec.k * (self.n_roles - 1)
+        self.dispatch_count += 1
+        out = search_prefill(
+            self.backend.params, self.backend.config, self._tokens, self._valid,
+            spec.n_slots, self.n_roles, spec.temperature, spec.k, spec.sample,
+            spec.max_steps, ref_bias=self._ref_bias,
+            generators=self._generators(0, 0, spec.n_slots),
+        )
+        return self._finish(out)
+
+    def advance_and_propose(
+        self, parents: Sequence[int], chosen: Sequence[ScoredCandidate]
+    ) -> List[List[ScoredCandidate]]:
+        """Advance slot i to ``parents[i]``'s sequence + ``chosen[i]``, then
+        propose and score for the new state of every slot."""
+        self._check_open()
+        spec = self.spec
+        if len(parents) != spec.n_slots or len(chosen) != spec.n_slots:
+            raise ValueError(
+                f"expected {spec.n_slots} (parent, token) pairs, got "
+                f"{len(parents)}/{len(chosen)}"
+            )
+        if self._state is None:
+            raise ValueError("call propose() before advance_and_propose()")
+        if self._step >= spec.max_steps:
+            raise ValueError(f"session exhausted its {spec.max_steps} steps")
+        self._step += 1
+        self.backend.token_counts["generated"] += spec.n_slots
+        self.backend.token_counts["scored"] += spec.n_slots * spec.k * (self.n_roles - 1)
+        self.backend.call_counts["search_advances"] += 1
+        self.dispatch_count += 1
+        out = search_step(
+            self.backend.params, self.backend.config, self._state,
+            [int(p) for p in parents], [c.token_id for c in chosen], self._step - 1,
+            spec.n_slots, self.n_roles, spec.temperature, spec.k, spec.sample,
+            ref_bias=self._ref_bias,
+            generators=self._generators(0, self._step, spec.n_slots),
+        )
+        return self._finish(out)
+
+    def propose_suffixes(
+        self, suffixes: Sequence[Sequence[ScoredCandidate]], salt: int
+    ) -> List[List[ScoredCandidate]]:
+        """Propose + score k candidates for each tree path (a suffix of
+        candidates hanging off the trunk), sharing the trunk cache across
+        all paths (``stepper.suffix_propose``).  Trunk sessions only
+        (n_slots == 1); the trunk itself advances via advance_and_propose."""
+        self._check_open()
+        if self.spec.n_slots != 1:
+            raise ValueError("propose_suffixes requires an n_slots=1 session")
+        if self._state is None:
+            raise ValueError("call propose() before propose_suffixes()")
+        if not suffixes:
+            return []
+        if any(len(s) == 0 for s in suffixes):
+            raise ValueError("suffixes must be non-empty")
+        # One uniform suffix length per step: mixed lengths are grouped by
+        # span, one call per span, results re-ordered.  A single span keeps
+        # the caller's salt; with several, each group folds its span in.
+        groups: Dict[int, List[int]] = {}
+        for i, suffix in enumerate(suffixes):
+            groups.setdefault(len(suffix), []).append(i)
+        multi = len(groups) > 1
+        results: List[Optional[List[ScoredCandidate]]] = [None] * len(suffixes)
+        for span, idxs in groups.items():
+            group_salt = (salt ^ (span << 20)) if multi else salt
+            rows = self._propose_suffix_group([suffixes[i] for i in idxs], span, group_salt)
+            for i, row in zip(idxs, rows):
+                results[i] = row
+        return results
+
+    def _propose_suffix_group(
+        self, suffixes: Sequence[Sequence[ScoredCandidate]], span: int, salt: int
+    ) -> List[List[ScoredCandidate]]:
+        """One ``suffix_propose`` call over equal-length suffixes, the path
+        count padded to a bucket by repeating row 0."""
+        spec = self.spec
+        # Each path re-evaluates its span under every agent and proposes k
+        # scored candidates.
+        self.backend.token_counts["scored"] += len(suffixes) * (span + spec.k) * (self.n_roles - 1)
+        n_paths = _bucket(len(suffixes), minimum=4)
+        tokens = np.zeros((n_paths, span), np.int32)
+        for i, suffix in enumerate(suffixes):
+            tokens[i] = [c.token_id for c in suffix]
+        tokens[len(suffixes):] = tokens[0]
+        self.dispatch_count += 1
+        packed = suffix_propose(
+            self.backend.params, self.backend.config, self._state, self._step,
+            self.backend._to_device(tokens), self.n_roles, spec.temperature, spec.k,
+            spec.sample, ref_bias=self._ref_bias,
+            generators=self._generators(1, salt, n_paths),
+        )
+        return self._unpack(packed.cpu().numpy()[: len(suffixes)])
+
+    def rollout_from(self, suffix, depth: int, salt: int):
+        raise _not_ported("rollout_from", "the other methods (MCTS and its rollouts)")
+
+    def rollout_many(self, suffixes, depth: int, salts):
+        raise _not_ported("rollout_many", "the other methods (MCTS and its rollouts)")
+
+    def close(self) -> None:
+        """Drop the device caches and release the session's budget.
+        Idempotent; also runs at garbage collection as a safety net."""
+        # getattr: the constructor may raise before the reservation exists.
+        if getattr(self, "_budget_bytes", 0):
+            self._state = None
+            self.backend._session_budget.release(self._budget_bytes)
+            self._budget_bytes = 0
+
+    def __del__(self):
+        self.close()
+
+    # -- internals -----------------------------------------------------------
+
+    def _check_open(self) -> None:
+        if not getattr(self, "_budget_bytes", 0):
+            raise ValueError("session is closed")
+
+    def _generators(self, family: int, index: int, n: int) -> Optional[List[torch.Generator]]:
+        """One Gumbel generator per slot (or path) for one step; None when
+        the proposals are deterministic top-k."""
+        if not self.spec.sample:
+            return None
+        generators = []
+        for slot in range(n):
+            g = torch.Generator(device=self.backend.device)
+            g.manual_seed(self.backend._fold_seed(*self._seed_parts, family, index, slot))
+            generators.append(g)
+        return generators
+
+    def _finish(self, out) -> List[List[ScoredCandidate]]:
+        self._state = out.state
+        return self._unpack(out.packed.cpu().numpy())
+
+    def _unpack(self, packed: np.ndarray) -> List[List[ScoredCandidate]]:
+        tok = self.backend.tokenizer
+        results = []
+        for row in range(packed.shape[0]):
+            row_out = []
+            for j in range(self.spec.k):
+                token_id = int(packed[row, j, 0])
+                row_out.append(
+                    ScoredCandidate(
+                        token=tok.token_str(token_id),
+                        token_id=token_id,
+                        ref_logprob=float(packed[row, j, 1]),
+                        agent_logprobs=tuple(float(v) for v in packed[row, j, 2:]),
+                    )
+                )
+            results.append(row_out)
+        return results

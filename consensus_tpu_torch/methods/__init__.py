@@ -1,8 +1,10 @@
 """Decoding methods (PyTorch port of ``consensus_tpu/methods``).
 
-This slice ports the methods that need only ``generate`` and ``score``:
-``best_of_n``, ``zero_shot`` and ``predefined``.  ``get_method_generator``
-raises ``NotImplementedError`` for the other methods of the JAX package.
+Ported: the methods that need only ``generate`` and ``score``
+(``best_of_n``, ``zero_shot``, ``predefined``) and the token-level searches
+over a fused session (``beam_search``, ``finite_lookahead``).
+``get_method_generator`` raises ``NotImplementedError`` for the other
+methods of the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from typing import Any, Dict, Optional, Type
 from consensus_tpu_torch.backends.base import Backend
 from consensus_tpu_torch.methods.anytime import AnytimeResult, BudgetClock, BudgetExpired
 from consensus_tpu_torch.methods.base import BaseGenerator
+from consensus_tpu_torch.methods.beam_search import BeamSearchGenerator
 from consensus_tpu_torch.methods.best_of_n import BestOfNGenerator
+from consensus_tpu_torch.methods.finite_lookahead import FiniteLookaheadGenerator
 from consensus_tpu_torch.methods.predefined import PredefinedStatementGenerator
 from consensus_tpu_torch.methods.zero_shot import ZeroShotGenerator
 
@@ -21,10 +25,12 @@ GENERATOR_MAP: Dict[str, Type[BaseGenerator]] = {
     "best_of_n": BestOfNGenerator,
     "zero_shot": ZeroShotGenerator,
     "predefined": PredefinedStatementGenerator,
+    "beam_search": BeamSearchGenerator,
+    "finite_lookahead": FiniteLookaheadGenerator,
 }
 
 #: Methods of the JAX package that wait for a later slice.
-NOT_PORTED = ("beam_search", "finite_lookahead", "habermas_machine", "mcts")
+NOT_PORTED = ("habermas_machine", "mcts")
 
 
 def get_method_generator(
@@ -51,9 +57,11 @@ def get_method_generator(
 __all__ = [
     "AnytimeResult",
     "BaseGenerator",
+    "BeamSearchGenerator",
     "BestOfNGenerator",
     "BudgetClock",
     "BudgetExpired",
+    "FiniteLookaheadGenerator",
     "GENERATOR_MAP",
     "PredefinedStatementGenerator",
     "ZeroShotGenerator",

@@ -14,6 +14,12 @@ keep the JAX layout (d_in, d_out).  Weights may be int8
   (``transformer.py:329-341``): the cache is written IN PLACE at
   ``write_index`` (the JAX version returns a new cache; here the same
   object comes back updated, which saves a copy per step).
+* ``forward_trunk_tail`` is the body of every fused token-search step: one
+  position per (slot x role) row over a trunk shared by the slots plus
+  per-row tails, attending through the hand-written decode kernel
+  (``ops/decode_attention.py``) when ``config.use_decode_attention`` is set.
+  ``forward_shared_trunk`` runs lookahead path suffixes over the same
+  shared trunk (einsum attention, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from consensus_tpu_torch.models.quant import (
     slice_rows,
     take_rows,
 )
+from consensus_tpu_torch.ops.decode_attention import decode_attention
 from consensus_tpu_torch.ops.flash_attention import flash_attention
 
 Params = Dict[str, Any]
@@ -254,9 +261,7 @@ def forward(
     h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
     reps = h // kv
 
-    x = take_rows(params["embed"], tokens)
-    if c.scale_embeddings:
-        x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
+    x = _embed(params, c, tokens)
 
     if cache is None:
         k_positions, k_valid = positions, valid
@@ -307,26 +312,214 @@ def forward(
             logits = logits.masked_fill(~mask[:, :, None], MASK_FILL)
             weights = torch.softmax(logits, dim=-1).to(x.dtype)
             attn = torch.einsum("bgrst,btgd->bsgrd", weights, values)
-        attn = matmul(attn.reshape(batch, span, h * hd), lp["wo"])
-        if c.use_post_norms:
-            attn = rms_norm(attn, lp["post_attn_norm"], c.rms_eps, c.rmsnorm_style)
-        x = x + attn
-
-        ffn_in = rms_norm(x, lp["ffn_norm"], c.rms_eps, c.rmsnorm_style)
-        gate = matmul(ffn_in, lp["w_gate"])
-        if c.activation == "geglu":
-            gate = F.gelu(gate, approximate="tanh")
-        else:
-            gate = F.silu(gate)
-        ffn = matmul(gate * matmul(ffn_in, lp["w_up"]), lp["w_down"])
-        if c.use_post_norms:
-            ffn = rms_norm(ffn, lp["post_ffn_norm"], c.rms_eps, c.rmsnorm_style)
-        x = x + ffn
+        x = _finish_layer(c, lp, x, attn.reshape(batch, span, h * hd))
 
     x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
     if return_hidden:
         return x, cache
     return project_logits(params, c, x), cache
+
+
+def _finish_layer(c: ModelConfig, lp, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """Output projection + residual, then the gated FFN + residual, with
+    Gemma-2's post-norms; ``attn`` is the attention output (..., H * hd)."""
+    attn = matmul(attn, lp["wo"])
+    if c.use_post_norms:
+        attn = rms_norm(attn, lp["post_attn_norm"], c.rms_eps, c.rmsnorm_style)
+    x = x + attn
+    ffn_in = rms_norm(x, lp["ffn_norm"], c.rms_eps, c.rmsnorm_style)
+    gate = matmul(ffn_in, lp["w_gate"])
+    if c.activation == "geglu":
+        gate = F.gelu(gate, approximate="tanh")
+    else:
+        gate = F.silu(gate)
+    ffn = matmul(gate * matmul(ffn_in, lp["w_up"]), lp["w_down"])
+    if c.use_post_norms:
+        ffn = rms_norm(ffn, lp["post_ffn_norm"], c.rms_eps, c.rmsnorm_style)
+    return x + ffn
+
+
+def _embed(params: Params, c: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = take_rows(params["embed"], tokens)
+    if c.scale_embeddings:
+        x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def forward_trunk_tail(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (Rows,) int -- one new token per (slot x role) row
+    positions: torch.Tensor,  # (Rows,) int32 -- RoPE position of the new token
+    trunk: KVCache,  # (L, R, W0, ...) shared read-only prefix, R = n_roles
+    tail_k: torch.Tensor,  # (L, Rows, Ts, KV, hd) per-row generated keys
+    tail_v: torch.Tensor,
+    tail_positions: torch.Tensor,  # (Rows, Ts) int32
+    write_col: int,  # tail column of this step's token, a host int
+    n_slots: int,
+    n_roles: int,
+    use_decode_kernel: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode step where every search slot shares ONE trunk cache
+    (``transformer.py:404-694`` of the JAX package).
+
+    The prefix lives once per role and every (slot x role) row attends it
+    plus its own tail, whose columns ``<= write_col`` are visible (this
+    step's token is written there first).  This step's k/v are written
+    into ``tail_k`` / ``tail_v`` IN PLACE at ``write_col``; the JAX version
+    returns new tails from donated buffers.
+
+    Attention goes through the decode kernel when ``config.use_decode_attention``
+    and ``use_decode_kernel`` are both set; that masking model needs each
+    trunk row valid on ``[start_r, W0)`` with positions ``c - start_r`` and a
+    query position uniform across slots, which the session call sites give.
+    Otherwise it is the einsum path, masked by ``trunk.key_valid`` and
+    ``tail_positions``.  Frozen blocks and int8 tails or trunks (segmented
+    and int8-KV decode) wait for ROADMAP queue A2.
+
+    Returns (final-norm hidden (Rows, D), tail_k, tail_v)."""
+    c = config
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    reps = h // kv
+    rows = tokens.shape[0]
+    t_tail = tail_k.shape[2]
+    w0 = trunk.k.shape[2]
+    x = _embed(params, c, tokens)  # (Rows, D)
+
+    use_kernel = c.use_decode_attention and use_decode_kernel
+    if use_kernel:
+        # Trunk spans from key_valid (left-padded prefills); query positions
+        # from slot 0's rows, uniform across slots.
+        starts = trunk.key_valid.to(torch.int32).argmax(dim=1).to(torch.int32)
+        qpos_r = positions.reshape(n_slots, n_roles)[0]
+    else:
+        qp = positions.reshape(n_slots, n_roles)[:, :, None]
+        trunk_mask = trunk.key_valid[None].expand(n_slots, n_roles, w0)
+        tail_fill = (torch.arange(t_tail, device=x.device) <= write_col)[None, None, :]
+        tail_mask = tail_fill.expand(n_slots, n_roles, t_tail)
+        if c.sliding_window is not None:
+            tail_kp = tail_positions.reshape(n_slots, n_roles, t_tail)
+            trunk_local = trunk_mask & (qp - trunk.key_positions[None] < c.sliding_window)
+            tail_local = tail_fill & (qp - tail_kp < c.sliding_window)
+        else:
+            trunk_local, tail_local = trunk_mask, tail_mask
+        global_mask = torch.cat([trunk_mask, tail_mask], dim=-1)[:, :, None, None]
+        local_mask = torch.cat([trunk_local, tail_local], dim=-1)[:, :, None, None]
+
+    cos, sin = _rope_angles(positions[:, None], hd, c.rope_theta, c.rope_scaling)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+
+    for layer, lp in enumerate(params["layers"]):
+        is_local = c.layer_is_local(layer)
+        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
+        q = _rotate(matmul(attn_in, lp["wq"]).reshape(rows, 1, h, hd), cos, sin)
+        k = _rotate(matmul(attn_in, lp["wk"]).reshape(rows, 1, kv, hd), cos, sin)
+        v = matmul(attn_in, lp["wv"]).reshape(rows, kv, hd)
+        tail_k[layer, :, write_col] = k[:, 0]
+        tail_v[layer, :, write_col] = v
+
+        if use_kernel:
+            attn = decode_attention(
+                q[:, 0], trunk.k[layer], trunk.v[layer], tail_k[layer], tail_v[layer],
+                starts, qpos_r, write_col, n_slots, n_roles, scale=c.q_scale,
+                softcap=c.attn_softcap, window=c.sliding_window if is_local else None,
+            ).to(x.dtype)
+        else:
+            qg = q.reshape(n_slots, n_roles, kv, reps, hd)
+            tail_kg = tail_k[layer].reshape(n_slots, n_roles, t_tail, kv, hd)
+            tail_vg = tail_v[layer].reshape(n_slots, n_roles, t_tail, kv, hd)
+            logits = torch.cat(
+                [
+                    torch.einsum("prgmd,rtgd->prgmt", qg, trunk.k[layer]).to(torch.float32),
+                    torch.einsum("prgmd,prtgd->prgmt", qg, tail_kg).to(torch.float32),
+                ],
+                dim=-1,
+            )
+            logits = _softcap(logits * c.q_scale, c.attn_softcap)
+            mask = local_mask if is_local else global_mask
+            logits = logits.masked_fill(~mask, MASK_FILL)
+            weights = torch.softmax(logits, dim=-1).to(x.dtype)
+            attn = torch.einsum(
+                "prgmt,rtgd->prgmd", weights[..., :w0], trunk.v[layer]
+            ) + torch.einsum("prgmt,prtgd->prgmd", weights[..., w0:], tail_vg)
+        x = _finish_layer(c, lp, x, attn.reshape(rows, h * hd))
+
+    x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
+    return x, tail_k, tail_v
+
+
+def forward_shared_trunk(
+    params: Params,
+    config: ModelConfig,
+    suffix_tokens: torch.Tensor,  # (P, L) int -- per-path suffix token ids
+    cache: KVCache,  # R-row trunk cache (one row per role), read-only
+    cur_pos: torch.Tensor,  # (R,) int32 -- last written trunk position per role
+) -> torch.Tensor:
+    """Forward P path suffixes over ONE shared R-row trunk cache
+    (``transformer.py:697-824`` of the JAX package): the trunk keeps its
+    (R, T, ...) shape and broadcasts against the (P, R, ...) suffix queries
+    inside the attention einsums, so the only per-path state is the suffix
+    itself.  The cache is not written.  Returns the final-norm hidden states
+    of the LAST suffix position, (P, R, D)."""
+    c = config
+    n_paths, span = suffix_tokens.shape
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    reps = h // kv
+    n_roles = cache.key_valid.shape[0]
+    t_len = cache.k.shape[2]
+    device = suffix_tokens.device
+
+    x = _embed(params, c, suffix_tokens)  # (P, L, D)
+    x = x[:, None].expand(n_paths, n_roles, span, x.shape[-1])
+
+    # Suffix positions continue each role's trunk: (R, L).  Masks are
+    # path-independent: every suffix position sees every valid trunk key
+    # (trunk positions precede the suffix); the suffix is causal.
+    positions = cur_pos[:, None] + 1 + torch.arange(span, device=device)[None, :]
+    qp = positions[:, :, None]
+    trunk_mask = cache.key_valid[:, None, :].expand(n_roles, span, t_len)
+    suffix_causal = (
+        torch.arange(span, device=device)[:, None] >= torch.arange(span, device=device)[None, :]
+    )[None].expand(n_roles, span, span)
+    if c.sliding_window is not None:
+        trunk_local = trunk_mask & (qp - cache.key_positions[:, None, :] < c.sliding_window)
+        suffix_local = suffix_causal & (qp - positions[:, None, :] < c.sliding_window)
+    else:
+        trunk_local, suffix_local = trunk_mask, suffix_causal
+    global_mask = torch.cat([trunk_mask, suffix_causal], dim=-1)[None, :, None, None]
+    local_mask = torch.cat([trunk_local, suffix_local], dim=-1)[None, :, None, None]
+
+    cos, sin = _rope_angles(positions.repeat(n_paths, 1), hd, c.rope_theta, c.rope_scaling)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+
+    for layer, lp in enumerate(params["layers"]):
+        is_local = c.layer_is_local(layer)
+        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
+        flat = attn_in.reshape(n_paths * n_roles, span, -1)
+        q = _rotate(matmul(flat, lp["wq"]).reshape(n_paths * n_roles, span, h, hd), cos, sin)
+        ks = _rotate(matmul(flat, lp["wk"]).reshape(n_paths * n_roles, span, kv, hd), cos, sin)
+        vs = matmul(flat, lp["wv"]).reshape(n_paths, n_roles, span, kv, hd)
+        qg = q.reshape(n_paths, n_roles, span, kv, reps, hd)
+        ks = ks.reshape(n_paths, n_roles, span, kv, hd)
+
+        logits = torch.cat(
+            [
+                torch.einsum("prsgmd,rtgd->prgmst", qg, cache.k[layer]).to(torch.float32),
+                torch.einsum("prsgmd,prtgd->prgmst", qg, ks).to(torch.float32),
+            ],
+            dim=-1,
+        )
+        logits = _softcap(logits * c.q_scale, c.attn_softcap)
+        mask = local_mask if is_local else global_mask
+        logits = logits.masked_fill(~mask, MASK_FILL)
+        weights = torch.softmax(logits, dim=-1).to(x.dtype)
+        attn = torch.einsum(
+            "prgmst,rtgd->prsgmd", weights[..., :t_len], cache.v[layer]
+        ) + torch.einsum("prgmst,prtgd->prsgmd", weights[..., t_len:], vs)
+        x = _finish_layer(c, lp, x, attn.reshape(n_paths, n_roles, span, h * hd))
+
+    x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
+    return x[:, :, -1, :]
 
 
 # ---------------------------------------------------------------------------

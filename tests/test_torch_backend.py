@@ -144,8 +144,7 @@ def test_experiment_results_csv(backends, tmp_path):
 
 @pytest.mark.parametrize(
     "option",
-    ["shared_context_scoring", "shared_trunk_generation", "segmented_decode",
-     "kv_quant", "use_decode_attention"],
+    ["shared_context_scoring", "shared_trunk_generation", "segmented_decode", "kv_quant"],
 )
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
