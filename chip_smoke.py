@@ -6,14 +6,18 @@ JSON line each; any failure exits non-zero:
 
 1. ``device``  -- the card (nvidia-smi name and power limit), torch and CUDA.
 2. ``build``   -- every hand-written kernel (flash_attention, decode_attention)
-   built from ``consensus_tpu_torch/csrc`` with nvcc, one nvcc process per
-   source, started together from threads.
+   built from ``consensus_tpu_torch/csrc`` with nvcc, together with the
+   three deliberately broken builds below: one nvcc process per source, all
+   started together from threads.  Per kernel function: registers and
+   spill bytes from ptxas.
 3. ``kernels`` -- each kernel against its plain PyTorch version on the card,
    case by case, with kernel / plain / library (SDPA) / bound times and the
-   least atol each case needed.  Two ``mutant`` lines follow: the same
-   comparison must catch a deliberately broken build of each kernel
-   (flash_attention with one middle key tile skipped; decode_attention with
-   every tail row reading the neighbouring slot's tail).
+   least atol each case needed; kernel and SDPA are timed as calls captured
+   in a CUDA graph.  Three ``mutant`` lines follow: the same comparison
+   must catch each broken build (flash_attention with one middle key tile
+   skipped; flash_attention with every key tile taken as interior, so no
+   mask is applied; decode_attention with every tail row reading the
+   neighbouring slot's tail).
 4. ``main_path`` -- the best-of-N config (llama3-8b at full width, random
    weights, bf16 + int8) through ``consensus_tpu_torch.experiment.Experiment``:
    best_of_n, zero_shot and predefined to a results.csv, with every kernel
@@ -116,23 +120,41 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_mutant(name: str, line: str, replacement: str):
-    """Build ``csrc/<name>.cu`` with ``line`` replaced -> (loaded library,
-    build seconds)."""
-    import ctypes
-
+def build_mutant(tag: str, name: str, line: str, replacement: str):
+    """Build ``csrc/<name>.cu`` with ``line`` replaced, as
+    ``_build/mutant/<tag>.so`` -> (library path, build seconds)."""
     from consensus_tpu_torch.ops import build
 
     source = (build.CSRC_DIR / f"{name}.cu").read_text()
     if source.count(line) != 1:
         fail(f"mutant: the line {line!r} is not where chip_smoke.py expects it in {name}.cu")
-    mutant = build.BUILD_DIR / "mutant" / f"{name}_mutant.cu"
+    mutant = build.BUILD_DIR / "mutant" / f"{tag}.cu"
     mutant.parent.mkdir(parents=True, exist_ok=True)
     mutant.write_text(source.replace(line, replacement))
     t0 = time.perf_counter()
     library = mutant.with_suffix(".so")
     build.compile_library(mutant, library)
-    return ctypes.CDLL(str(library)), time.perf_counter() - t0
+    return library, time.perf_counter() - t0
+
+
+def ptxas_report(log: str):
+    """Per kernel function in nvcc's ``-Xptxas -v`` output: registers and
+    spill bytes."""
+    import re
+
+    functions, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = {"function": entry.group(1)}
+            functions.append(current)
+        elif current is not None and "spill stores" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line).groups()
+            current["spill_bytes"] = int(stores) + int(loads)
+        elif current is not None and "registers" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return functions
 
 
 # -- flash attention ----------------------------------------------------------
@@ -232,11 +254,11 @@ def flash_case(name, batch, seq, heads, kv_heads, hd, lengths, starts, seed,
         "ok": within and launched == 1, "launches": launched,
     }
     eff_scale = scale if scale is not None else hd ** -0.5
-    row["kernel_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, lens, sts, **kw), reps=20)
+    row["kernel_ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, lens, sts, **kw), reps=20)
     row["plain_ms"] = cuda_ms(
         lambda: fa.flash_attention_reference(q, k, v, lens, sts, **kw), reps=3, warmup=1
     )
-    row["library_ms"] = cuda_ms(sdpa_call(q, k, v, lens, sts, eff_scale, window), reps=10)
+    row["library_ms"] = graph_ms(sdpa_call(q, k, v, lens, sts, eff_scale, window), reps=10)
     row["bound_ms"], row["bound_by"] = flash_bound(q, k, lengths, True, window)
     del q, k, v, out, plain
     torch.cuda.empty_cache()
@@ -272,37 +294,59 @@ def kernel_cases():
     return rows
 
 
-#: The broken build: skip key tile 4 (keys 256-319) of every query tile
-#: whose keys reach past 512, inserted at the top of the kernel's k loop.
-MUTANT_LOOP = "for (int k0 = (k_lo / BLOCK_K) * BLOCK_K; k0 < k_hi; k0 += BLOCK_K) {"
-MUTANT_SKIP = "\n      if (k0 == 4 * BLOCK_K && k_hi > 8 * BLOCK_K) continue;"
+#: The broken builds, by tag: (kernel, line of its source, replacement, what
+#: it breaks).  Each line must occur exactly once in the source.
+MUTANTS = {
+    "flash_skip_tile": (
+        "flash_attention", "if (!empty) {",
+        "if (!empty && !(k0 == 256 && kt_hi * BK > 512)) {",
+        "skip the key tile that starts at key 256 where the block's keys reach past 512",
+    ),
+    "flash_no_mask": (
+        "flash_attention",
+        "const bool interior = full_rows && k0 >= lo_max && k0 + BK <= hi_min;",
+        "const bool interior = true;",
+        "every key tile taken as interior: no span, causal or window mask",
+    ),
+    "decode_neighbour_tail": (
+        "decode_attention", "const size_t tail_row = (size_t)p * a.R + r;",
+        "const size_t tail_row = (size_t)((p + 1) % a.P) * a.R + r;",
+        "tail rows of slot p read slot (p + 1) % P's tail",
+    ),
+}
 
 
-def mutant_check():
-    """Build the kernel with one middle key tile skipped and hold it against
-    the plain version exactly as the real kernel is held: the comparison
-    must fail, or the tolerance is too loose to catch a lost tile."""
+def mutant_row(tag, build_s, shape, out, plain):
+    within, max_err, atol_needed = compare(out, plain)
+    kernel, _, _, mutation = MUTANTS[tag]
+    return {
+        "phase": "mutant", "kernel": kernel, "mutation": mutation, "shape": shape,
+        "build_s": build_s, "max_abs_err": max_err, "atol_needed": atol_needed,
+        "tolerance": f"atol {ATOL} + rtol {RTOL}", "caught": not within, "ok": not within,
+    }
+
+
+def mutant_check(tag, library, build_s):
+    """Hold a broken flash_attention build against the plain version
+    exactly as the real kernel is held, at the scoring case's shape: the
+    comparison must fail, or the tolerance (or the cases) could not tell."""
+    import ctypes
+
     import numpy as np
     import torch
     from consensus_tpu_torch.ops import flash_attention as fa
 
-    lib, build_s = build_mutant("flash_attention", MUTANT_LOOP, MUTANT_LOOP + MUTANT_SKIP)
     s = 768
     lens = ragged(np.random.default_rng(0), 32, s, s // 4)
     q, k, v, lengths, starts = flash_inputs(32, s, 32, 8, 128, lens, [0] * 32, seed=1)
     out = torch.empty_like(q)
-    fa.launch_kernel(lib, q, k, v, out, lengths, starts, 128 ** -0.5, None, None, True)
+    fa.launch_kernel(ctypes.CDLL(str(library)), q, k, v, out, lengths, starts, 128 ** -0.5,
+                     None, None, True)
     plain = fa.flash_attention_reference(q, k, v, lengths, starts)
-    within, max_err, atol_needed = compare(out, plain)
+    row = mutant_row(tag, build_s, [32, s, 32, 8, 128], out, plain)
     del q, k, v, out, plain
     torch.cuda.empty_cache()
-    return {
-        "phase": "mutant", "kernel": "flash_attention",
-        "mutation": "skip key tile 4 (keys 256-319) where keys reach past 512",
-        "shape": [32, s, 32, 8, 128], "build_s": build_s, "max_abs_err": max_err,
-        "atol_needed": atol_needed, "tolerance": f"atol {ATOL} + rtol {RTOL}",
-        "caught": not within, "ok": not within,
-    }
+    return row
 
 
 # -- decode attention ---------------------------------------------------------
@@ -432,42 +476,40 @@ def decode_cases():
                             window=256))
     rows.append(decode_case("W0=700 not a tile multiple, one role's span one column", 4, 3, 32,
                             8, 128, 700, 50, [0, 350, 699], 37, seed=26))
+    # Wide beams: 16 slots put 64 (llama3-8b) or 32 (gemma2-9b) query rows
+    # in a (role, kv head) group, four or two 16-row tiles.
+    rows.append(decode_case("llama3-8b, 16 slots (64 rows per group)", 16, 6, 32, 8, 128, 1024,
+                            200, DECODE_STARTS, 150, seed=28))
+    rows.append(decode_case("gemma2-9b, 16 slots, softcap 50, window 256", 16, 6, 16, 8, 256,
+                            1024, 200, DECODE_STARTS, 150, seed=29, scale=224 ** -0.5,
+                            softcap=50.0, window=256))
     return rows
 
 
-#: The broken build: every tail block reads the neighbouring slot's tail.
-DECODE_MUTANT_LINE = "const size_t tail_row = (size_t)p * R + r;"
-DECODE_MUTANT = "const size_t tail_row = (size_t)((p + 1) % P) * R + r;"
+def decode_mutant_check(library, build_s):
+    """Hold the neighbour-tail decode_attention build against the plain
+    version as the real kernel is held, at the beam shape: the comparison
+    must fail."""
+    import ctypes
 
-
-def decode_mutant_check():
-    """Build decode_attention with tail rows reading the neighbouring
-    slot's tail and hold it against the plain version as the real kernel is
-    held, at the beam shape: the comparison must fail."""
     import torch
     from consensus_tpu_torch.ops import decode_attention as da
 
-    lib, build_s = build_mutant("decode_attention", DECODE_MUTANT_LINE, DECODE_MUTANT)
     write_col = 100
     q, tk, tv, lk, lv = decode_inputs(4, 6, 32, 8, 128, 1024, 200, seed=21)
     sts = torch.tensor(DECODE_STARTS, dtype=torch.int32, device="cuda")
     qps = torch.tensor([1024 - s + write_col for s in DECODE_STARTS], dtype=torch.int32,
                        device="cuda")
     out = torch.empty_like(q)
-    da.launch_kernel(lib, q, tk, tv, lk, lv, sts, qps, write_col, out, 4, 6, 128 ** -0.5,
-                     None, None)
+    da.launch_kernel(ctypes.CDLL(str(library)), q, tk, tv, lk, lv, sts, qps, write_col, out,
+                     4, 6, 128 ** -0.5, None, None)
     plain = da.decode_attention_reference(q, tk, tv, lk, lv, sts, qps, write_col, 4, 6,
                                           128 ** -0.5)
-    within, max_err, atol_needed = compare(out, plain)
+    row = mutant_row("decode_neighbour_tail", build_s, [4, 6, 32, 8, 128, 1024, 200], out,
+                     plain)
     del q, tk, tv, lk, lv, out, plain
     torch.cuda.empty_cache()
-    return {
-        "phase": "mutant", "kernel": "decode_attention",
-        "mutation": "tail rows of slot p read slot (p + 1) % P's tail",
-        "shape": [4, 6, 32, 8, 128, 1024, 200], "build_s": build_s, "max_abs_err": max_err,
-        "atol_needed": atol_needed, "tolerance": f"atol {ATOL} + rtol {RTOL}",
-        "caught": not within, "ok": not within,
-    }
+    return row
 
 
 # -- main path ----------------------------------------------------------------
@@ -835,19 +877,28 @@ def main() -> int:
     })
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        logs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    with ThreadPoolExecutor(len(KERNELS) + len(MUTANTS)) as pool:
+        builds = {name: pool.submit(build.build, name) for name in KERNELS}
+        mutant_builds = {
+            tag: pool.submit(build_mutant, tag, *spec[:3]) for tag, spec in MUTANTS.items()
+        }
+        ptxas = {name: ptxas_report(job.result()) for name, job in builds.items()}
+        mutant_libs = {tag: job.result() for tag, job in mutant_builds.items()}
     emit({
-        "phase": "build", "kernels": list(KERNELS), "seconds": time.perf_counter() - t0,
-        "ptxas": {
-            name: [line for line in log.splitlines() if "registers" in line or "spill" in line]
-            for name, log in logs.items()
-        },
+        "phase": "build", "kernels": list(KERNELS), "mutants": list(MUTANTS),
+        "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+        "hd128_spill_free": all(
+            any("ILi128E" in f["function"] for f in functions)
+            and all(f.get("spill_bytes") == 0 for f in functions if "ILi128E" in f["function"])
+            for functions in ptxas.values()
+        ),
     })
 
     flash_cases = kernel_cases()
     decode_cases_ = decode_cases()
-    mutants = [mutant_check(), decode_mutant_check()]
+    mutants = [
+        mutant_check(tag, *mutant_libs[tag]) for tag in ("flash_skip_tile", "flash_no_mask")
+    ] + [decode_mutant_check(*mutant_libs["decode_neighbour_tail"])]
     kernels_ok = all(c["ok"] for c in flash_cases + decode_cases_)
     emit({"phase": "kernels", "flash_attention": flash_cases,
           "decode_attention": decode_cases_, "ok": kernels_ok})

@@ -13,233 +13,345 @@
 // What bounds it on an H100 (SXM data sheet: 989 TFLOP/s dense bf16,
 // 3.35 TB/s): the larger of the causal FLOPs over the bf16 rate and the
 // bytes over the HBM rate, counting o in full but q and GQA k, v only over
-// each row's span (no tile outside it is read).  At the llama3-8b scoring
-// shape (B=32, S=768, H=32, KV=8, hd=128) with full rows that is
-// 2*B*H*S^2*hd ~ 1.5e11 FLOPs (~0.16 ms) against ~0.5 GB (~0.15 ms); with
-// K/V repeated to 32 heads, as the JAX call passes them, ~0.8 GB
-// (~0.24 ms).  Ragged rows shrink both; chip_smoke.py computes the bound
-// from each run's lengths.  This first version sits far above it, limited
-// by how it feeds the tensor cores (WMMA through shared memory, no
-// copy/compute overlap).
+// each row's span (no tile outside it is read).  At the best-of-N path's
+// shape (B=32, S=1024, H=32, KV=8, hd=128, ragged spans) that is bytes,
+// ~0.14 ms, most of it the output; the causal FLOPs alone take ~0.08 ms at
+// the dense rate.  chip_smoke.py computes the bound from each run's
+// lengths.
 //
-// Design (simple and correct first; wgmma/TMA come later):
-//  * one block of 4 warps per (batch*head, 64-query tile); the TPU grid's
-//    sequential k axis becomes a loop inside the block, with the running
-//    max, sum and fp32 accumulator held in shared memory;
-//  * the loop runs only over key tiles that can hold a valid key for this
-//    query tile: it starts at the span start (or the window's lower edge)
-//    and stops at the span end and the causal edge;
-//  * Q K^T and P V run on the tensor cores through WMMA (16x16x16 bf16
-//    fragments, fp32 accumulators); each warp owns 16 query rows and keeps
-//    its Q fragments in registers; the online softmax runs in fp32 with
-//    one warp per row group; P is rounded to bf16 for the P V product.
-//  * no padding copy: tiles past S load as zeros and are masked.
+// Design (FlashAttention-2 on mma.sync; see sm90_mma.cuh):
+//  * one block of 4 warps per (batch*head, query tile); at hd=128 each
+//    warp owns 32 query rows (two 16-row MMA tiles, so every K and V
+//    fragment loaded from shared memory feeds two MMAs), at hd=256 16 rows.
+//    Query tiles launch longest-causal first (blockIdx.y reversed).
+//  * Q.K^T and P.V run on mma.sync m16n8k16 with ldmatrix operands (.trans
+//    for V).  The logits, the running max and sum and the output
+//    accumulator stay in registers for the whole key loop; P goes from the
+//    logit accumulators to bf16 A fragments without touching shared
+//    memory.  The softmax runs in base 2 with log2(e) folded into the
+//    scale; a row's max and sum reduce over its quad of lanes.
+//  * K and V tiles of 32 keys come through a two-stage ring filled by
+//    cp.async: tile j+1 is in flight while tile j is multiplied.  Shared
+//    memory is Q plus two (K, V) stages, 68 KB at hd=128 and 99 KB at
+//    hd=256; registers (up to 255 a thread, no spills) allow two blocks of
+//    4 warps per SM.  (32-key tiles measured faster than 64-key ones, whose
+//    logits no longer fit beside the accumulators without spilling; see
+//    PERF.md.)
+//  * The loop covers only key tiles that can hold a valid key for the
+//    block's rows.  Each warp classifies each tile once: empty (skipped),
+//    interior (every key valid for every row: no mask), or edge (span
+//    ends, causal diagonal or window edge: per-element mask).
+//  * The normalised tile goes back through the warp's own Q rows in shared
+//    memory, so the output is written in 16-byte coalesced stores; rows
+//    past S are not written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "sm90_mma.cuh"
+
+using namespace sm90;
 
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_K = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory layout.  Leading dimensions are padded against bank
-// conflicts while keeping every WMMA fragment pointer 32-byte aligned.
+// Per head_dim: warps per block, 16-row MMA tiles per warp (MT) and keys
+// per K/V tile (BK).
 template <int HD>
-struct Layout {
-  static constexpr int LDQ = HD + 8;       // bf16 Q/K/V rows
-  static constexpr int LDS = BLOCK_K + 4;  // fp32 logits
-  static constexpr int LDP = BLOCK_K + 8;  // bf16 probabilities
-  static constexpr int LDO = HD + 4;       // fp32 accumulator
-  static constexpr size_t Q_BYTES = (size_t)BLOCK_Q * LDQ * 2;
-  static constexpr size_t KV_BYTES = (size_t)BLOCK_K * LDQ * 2;
-  static constexpr size_t S_BYTES = (size_t)BLOCK_Q * LDS * 4;
-  static constexpr size_t P_BYTES = (size_t)BLOCK_Q * LDP * 2;
-  static constexpr size_t O_BYTES = (size_t)BLOCK_Q * LDO * 4;
-  static constexpr size_t ML_BYTES = (size_t)2 * BLOCK_Q * 4;
-  static constexpr size_t BYTES =
-      Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES + O_BYTES + ML_BYTES;
+struct Tiles;
+template <>
+struct Tiles<128> {
+  static constexpr int WARPS = 4, MT = 2, BK = 32;
+};
+template <>
+struct Tiles<256> {
+  static constexpr int WARPS = 4, MT = 1, BK = 32;
 };
 
-// Copy rows [row0, row0 + 64) of head `head` of a (B, S, NH, HD) tensor into
-// shared memory, 16 bytes per thread per step; rows past S become zeros.
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
-                                          int b, int row0, int S, int nheads,
-                                          int head) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = HD / VEC;
-  constexpr int LD = Layout<HD>::LDQ;
-  for (int i = threadIdx.x; i < BLOCK_K * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) {
-      val = *reinterpret_cast<const uint4*>(
-          src + (((size_t)b * S + s) * nheads + head) * HD + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+struct Layout {
+  static constexpr int WARPS = Tiles<HD>::WARPS;
+  static constexpr int MT = Tiles<HD>::MT;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int WQ = 16 * MT;        // query rows per warp
+  static constexpr int BQ = WQ * WARPS;     // query rows per block
+  static constexpr int BK = Tiles<HD>::BK;  // keys per tile
+  static constexpr int LD = HD + 8;         // bf16 per shared-memory row
+  static constexpr int Q_ELEMS = BQ * LD;
+  static constexpr int KV_ELEMS = BK * LD;  // one K or one V tile
+  // Q, then stage 0 (K, V), then stage 1 (K, V).
+  static constexpr size_t BYTES = (size_t)(Q_ELEMS + 4 * KV_ELEMS) * sizeof(bf16);
+};
+
+// The keys [lo, hi) that query position q may see; empty (lo == hi) when q
+// lies outside the span.
+__device__ __forceinline__ void key_range(int q, int start, int end, int causal,
+                                          int window, int& lo, int& hi) {
+  lo = start;
+  hi = end;
+  if (q < start || q >= end) {
+    hi = lo;
+    return;
   }
+  if (causal) hi = min(hi, q + 1);
+  if (window > 0) lo = max(lo, q - window + 1);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Layout<HD>::THREADS, 2)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  const int* __restrict__ lengths, const int* __restrict__ starts,
                  int S, int H, int KV, float scale, float softcap, int window,
                  int causal) {
   using L = Layout<HD>;
+  constexpr int MT = L::MT;
+  constexpr int BK = L::BK;
+  constexpr int LD = L::LD;
+  constexpr int NS = BK / 8;  // 8-key logit tiles per key tile
+  constexpr int NO = HD / 8;  // 8-column output tiles
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::Q_BYTES);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::Q_BYTES + L::KV_BYTES);
-  float* sS = reinterpret_cast<float*>(smem + L::Q_BYTES + 2 * L::KV_BYTES);
-  bf16* sP = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(sS) + L::S_BYTES);
-  float* sO = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sP) + L::P_BYTES);
-  float* sM = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sO) + L::O_BYTES);
-  float* sL = sM + BLOCK_Q;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / KV);
-  const int q0 = blockIdx.y * BLOCK_Q;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;  // longest causal tiles first
   const int start = starts[b];
   const int end = start + lengths[b];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
 
-  // Query rows of this tile inside the span, and the keys they can see.
-  const int q_lo = max(q0, start);
-  const int q_hi = min(q0 + BLOCK_Q, end);
-  int k_lo = start;
-  int k_hi = end;
-  if (causal) k_hi = min(k_hi, q_hi);
-  if (window > 0) k_lo = max(k_lo, q_lo - window + 1);
+  const size_t q_stride = (size_t)H * HD;
+  const size_t kv_stride = (size_t)KV * HD;
+  const bf16* q_base = q + (size_t)b * S * q_stride + (size_t)h * HD;
+  const bf16* k_base = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const bf16* v_base = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
 
-  for (int i = threadIdx.x; i < BLOCK_Q * L::LDO; i += THREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < BLOCK_Q; i += THREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
-
-  if (q_lo < q_hi && k_lo < k_hi) {  // uniform across the block
-    load_tile<HD>(sQ, q, b, q0, S, H, h);
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HD / 16];
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-    }
-
-    for (int k0 = (k_lo / BLOCK_K) * BLOCK_K; k0 < k_hi; k0 += BLOCK_K) {
-      __syncthreads();  // every warp is done with the previous K/V tile
-      load_tile<HD>(sK, k, b, k0, S, KV, kvh);
-      load_tile<HD>(sV, v, b, k0, S, KV, kvh);
-      __syncthreads();
-
-      // Logits of this warp's 16 query rows against the 64 keys.
-#pragma unroll
-      for (int n = 0; n < BLOCK_K / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, sK + n * 16 * L::LDQ + kk * 16, L::LDQ);
-          wmma::mma_sync(acc, qf[kk], kf, acc);
-        }
-        wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, acc, L::LDS,
-                                wmma::mem_row_major);
+  // Key tiles that can hold a valid key for some row of the block: the
+  // ranges grow with the query position, so the first and last rows of
+  // the tile inside the span bound them.
+  int kt_lo = 0, kt_hi = 0;
+  {
+    const int qa = max(q0, start);
+    const int qb = min(q0 + L::BQ, end) - 1;
+    if (qa <= qb) {
+      int lo, hi, unused;
+      key_range(qa, start, end, causal, window, lo, unused);
+      key_range(qb, start, end, causal, window, unused, hi);
+      if (lo < hi) {
+        kt_lo = lo / BK;
+        kt_hi = (hi + BK - 1) / BK;
       }
-      __syncwarp();
-
-      // Online softmax, one row at a time, two key columns per lane.
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = warp * 16 + rr;
-        const int qpos = q0 + r;
-        const bool q_ok = qpos >= start && qpos < end;
-        float x[2];
-        bool ok[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = lane + 32 * j;
-          const int kpos = k0 + c;
-          float val = sS[r * L::LDS + c] * scale;
-          if (softcap > 0.f) val = softcap * tanhf(val / softcap);
-          const bool valid = q_ok && kpos >= start && kpos < end &&
-                             (!causal || kpos <= qpos) &&
-                             (window <= 0 || qpos - kpos < window);
-          x[j] = valid ? val : NEG_INF;
-          ok[j] = valid;
-        }
-        float mx = fmaxf(x[0], x[1]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        }
-        const float m_prev = sM[r];
-        const float m_new = fmaxf(m_prev, mx);
-        const float p0 = ok[0] ? expf(x[0] - m_new) : 0.f;
-        const float p1 = ok[1] ? expf(x[1] - m_new) : 0.f;
-        float sum = p0 + p1;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        }
-        const float alpha = expf(m_prev - m_new);
-        sP[r * L::LDP + lane] = __float2bfloat16(p0);
-        sP[r * L::LDP + lane + 32] = __float2bfloat16(p1);
-        for (int d = lane; d < HD; d += 32) sO[r * L::LDO + d] *= alpha;
-        __syncwarp();  // every lane has read sM[r] before lane 0 rewrites it
-        if (lane == 0) {
-          sM[r] = m_new;
-          sL[r] = sL[r] * alpha + sum;
-        }
-      }
-      __syncwarp();
-
-      // Accumulator += P V for this warp's rows.
-#pragma unroll
-      for (int dn = 0; dn < HD / 16; ++dn) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, sO + warp * 16 * L::LDO + dn * 16, L::LDO,
-                               wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BLOCK_K / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(pf, sP + warp * 16 * L::LDP + kk * 16, L::LDP);
-          wmma::load_matrix_sync(vf, sV + kk * 16 * L::LDQ + dn * 16, L::LDQ);
-          wmma::mma_sync(acc, pf, vf, acc);
-        }
-        wmma::store_matrix_sync(sO + warp * 16 * L::LDO + dn * 16, acc, L::LDO,
-                                wmma::mem_row_major);
-      }
-      __syncwarp();
     }
   }
-  __syncthreads();
 
-  // Normalize and write the tile; rows with no valid key have l == 0 and a
-  // zero accumulator, so they come out as 0.
-  for (int i = threadIdx.x; i < BLOCK_Q * HD; i += THREADS) {
-    const int r = i / HD;
-    const int d = i % HD;
-    const int s = q0 + r;
-    if (s >= S) continue;
-    const float val = sO[r * L::LDO + d] / fmaxf(sL[r], 1e-30f);
-    o[(((size_t)b * S + s) * H + h) * HD + d] = __float2bfloat16(val);
+  // This warp's rows: bounds for the per-tile classification, and the key
+  // ranges of the rows (g, g + 8 of each 16-row tile) this lane holds.
+  const int wq0 = q0 + warp * L::WQ;
+  const int wa = max(wq0, start);
+  const int wb = min(wq0 + L::WQ, end) - 1;
+  const bool has_rows = wa <= wb;
+  const bool full_rows = wa == wq0 && wb == wq0 + L::WQ - 1;
+  int lo_min = 0, lo_max = 0, hi_min = 0, hi_max = 0;
+  if (has_rows) {
+    key_range(wa, start, end, causal, window, lo_min, hi_min);
+    key_range(wb, start, end, causal, window, lo_max, hi_max);
+  }
+  int row_lo[MT][2], row_hi[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      key_range(wq0 + mt * 16 + half * 8 + g, start, end, causal, window, row_lo[mt][half],
+                row_hi[mt][half]);
+    }
+  }
+
+  const bool capped = softcap > 0.f;
+  const float scale_log2 = scale * LOG2E;
+  const float cap_in = capped ? scale / softcap : 0.f;
+  const float cap_out = softcap * LOG2E;
+
+  float acc[MT][NO][4];
+  float m_run[MT][2], l_run[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+    m_run[mt][0] = m_run[mt][1] = -INFINITY;
+    l_run[mt][0] = l_run[mt][1] = 0.f;
+  }
+
+  if (kt_lo < kt_hi) {
+    load_rows<HD, L::BQ, L::THREADS>(sQ, q_base, q_stride, q0, S);
+    bf16* sK0 = sQ + L::Q_ELEMS;
+    load_rows<HD, BK, L::THREADS>(sK0, k_base, kv_stride, kt_lo * BK, S);
+    load_rows<HD, BK, L::THREADS>(sK0 + L::KV_ELEMS, v_base, kv_stride, kt_lo * BK, S);
+    cp_async_commit();
+  }
+
+  const bf16* q_frag = sQ + warp * L::WQ * LD + a_offset<LD>(lane);
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    const bf16* sK = sQ + L::Q_ELEMS + stage * 2 * L::KV_ELEMS;
+    const bf16* sV = sK + L::KV_ELEMS;
+    if (kt + 1 < kt_hi) {  // prefetch tile kt + 1 into the other stage
+      bf16* nK = sQ + L::Q_ELEMS + (stage ^ 1) * 2 * L::KV_ELEMS;
+      load_rows<HD, BK, L::THREADS>(nK, k_base, kv_stride, (kt + 1) * BK, S);
+      load_rows<HD, BK, L::THREADS>(nK + L::KV_ELEMS, v_base, kv_stride, (kt + 1) * BK, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and tile kt have landed (for this thread)
+    __syncthreads();     // ... and for every thread
+
+    const int k0 = kt * BK;
+    const bool empty = !has_rows || k0 >= hi_max || k0 + BK <= lo_min;
+    const bool interior = full_rows && k0 >= lo_max && k0 + BK <= hi_min;
+    if (!empty) {
+      // S = Q K^T for this warp's rows against the tile's keys; each K
+      // fragment feeds all MT row tiles.
+      float s[MT][NS][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+      }
+      const bf16* k_frag = sK + kt_offset<LD>(lane);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], q_frag + mt * 16 * LD + kk * 16);
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, k_frag + n * 8 * LD + kk * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][n], a[mt], bk[0], bk[1]);
+            mma_bf16(s[mt][n + 1], a[mt], bk[2], bk[3]);
+          }
+        }
+      }
+
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // Scale (and cap) into base-2 logits; mask only on edge tiles.
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = capped ? cap_out * tanhf(s[mt][n][e] * cap_in) : s[mt][n][e] * scale_log2;
+            if (!interior) {
+              const int key = k0 + n * 8 + 2 * t + (e & 1);
+              if (key < row_lo[mt][e >> 1] || key >= row_hi[mt][e >> 1]) x = -INFINITY;
+            }
+            s[mt][n][e] = x;
+          }
+        }
+
+        // Online softmax: new row max over the quad, rescale, exponentiate.
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          mx0 = fmaxf(mx0, fmaxf(s[mt][n][0], s[mt][n][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[mt][n][2], s[mt][n][3]));
+        }
+        mx0 = fmaxf(m_run[mt][0], quad_max(mx0));
+        mx1 = fmaxf(m_run[mt][1], quad_max(mx1));
+        const float base0 = mx0 == -INFINITY ? 0.f : mx0;  // a row with no key yet
+        const float base1 = mx1 == -INFINITY ? 0.f : mx1;
+        const float alpha0 = fast_exp2(m_run[mt][0] - base0);
+        const float alpha1 = fast_exp2(m_run[mt][1] - base1);
+        m_run[mt][0] = mx0;
+        m_run[mt][1] = mx1;
+        l_run[mt][0] *= alpha0;
+        l_run[mt][1] *= alpha1;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[mt][n][0] *= alpha0;
+          acc[mt][n][1] *= alpha0;
+          acc[mt][n][2] *= alpha1;
+          acc[mt][n][3] *= alpha1;
+        }
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          s[mt][n][0] = fast_exp2(s[mt][n][0] - base0);
+          s[mt][n][1] = fast_exp2(s[mt][n][1] - base0);
+          s[mt][n][2] = fast_exp2(s[mt][n][2] - base1);
+          s[mt][n][3] = fast_exp2(s[mt][n][3] - base1);
+          l_run[mt][0] += s[mt][n][0] + s[mt][n][1];
+          l_run[mt][1] += s[mt][n][2] + s[mt][n][3];
+        }
+      }
+
+      // acc += P V, P rounded to bf16 straight from the logit registers;
+      // each V fragment feeds all MT row tiles.
+      const bf16* v_frag = sV + v_offset<LD>(lane);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, v_frag + kk * 16 * LD + n * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][n], a[mt], bv[0], bv[1]);
+            mma_bf16(acc[mt][n + 1], a[mt], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+
+  // Normalise; a row with no valid key has l == 0 and a zero accumulator.
+  // Every copy has landed and every warp has left the loop, and no other
+  // warp reads this warp's Q rows: stage the bf16 tile there.
+  bf16* tile = sQ + warp * L::WQ * LD;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float l0 = quad_sum(l_run[mt][0]);
+    const float l1 = quad_sum(l_run[mt][1]);
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    bf16* rows = tile + (mt * 16 + g) * LD;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(rows + col) =
+          pack_bf16(acc[mt][n][0] * inv0, acc[mt][n][1] * inv0);
+      *reinterpret_cast<uint32_t*>(rows + 8 * LD + col) =
+          pack_bf16(acc[mt][n][2] * inv1, acc[mt][n][3] * inv1);
+    }
+  }
+  __syncwarp();
+  constexpr int CHUNKS = HD / 8;
+#pragma unroll
+  for (int it = 0; it < L::WQ * CHUNKS / 32; ++it) {
+    const int i = it * 32 + lane;
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const int s = wq0 + r;
+    if (s < S) {
+      *reinterpret_cast<uint4*>(o + (size_t)b * S * q_stride + (size_t)s * q_stride +
+                                (size_t)h * HD + c) =
+          *reinterpret_cast<const uint4*>(tile + r * LD + c);
+    }
   }
 }
 
@@ -248,13 +360,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
            const int* lengths, const int* starts, int B, int S, int H, int KV,
            float scale, float softcap, int window, int causal,
            cudaStream_t stream) {
-  const size_t smem = Layout<HD>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(B * H), (unsigned)((S + BLOCK_Q - 1) / BLOCK_Q));
-  flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  using L = Layout<HD>;
+  // Once per instantiation (a thread-safe static), so that a launch holds
+  // only stream work and can be captured into a CUDA graph.
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  dim3 grid((unsigned)(B * H), (unsigned)((S + L::BQ - 1) / L::BQ));
+  flash_fwd_kernel<HD><<<grid, L::THREADS, L::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lengths, starts, S,
       H, KV, scale, softcap, window, causal);

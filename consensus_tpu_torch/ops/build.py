@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``.  The build happens at first use,
 from the sources in this checkout only, into ``consensus_tpu_torch/_build/``
 (listed in ``.gitignore``); the library's file name carries a hash of its
-source and flags, so an edited source never loads a stale build.  Nothing is
-compiled when a module is imported.
+source, of every shared header ``csrc/*.cuh`` and of the flags, so an edited
+source or header never loads a stale build.  Sources include their headers
+through ``-I csrc``, so a copy compiled elsewhere (``chip_smoke.py``'s
+mutant builds) finds them too.  Nothing is compiled when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -47,6 +50,12 @@ def find_nvcc() -> str:
     )
 
 
+def nvcc_args(source: pathlib.Path, target: pathlib.Path) -> list:
+    """nvcc's arguments (after the program) to build ``source`` into
+    ``target``."""
+    return [*NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(target), str(source)]
+
+
 def compile_library(source: pathlib.Path, target: pathlib.Path) -> str:
     """nvcc ``source`` into the shared library ``target``; returns what
     nvcc and ptxas printed (registers, shared memory, spills).  Raises with
@@ -54,7 +63,7 @@ def compile_library(source: pathlib.Path, target: pathlib.Path) -> str:
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [find_nvcc(), *nvcc_args(source, tmp)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode != 0:
@@ -64,11 +73,11 @@ def compile_library(source: pathlib.Path, target: pathlib.Path) -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.blake2b(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode(), digest_size=8
-    ).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.blake2b(digest_size=8)
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()}.so"
 
 
 def build(name: str) -> str:

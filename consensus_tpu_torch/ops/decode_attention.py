@@ -21,8 +21,8 @@ applies before the mask; a row with no valid key comes out as 0.
 
 Dispatch: a CPU tensor runs :func:`decode_attention_reference`, the plain
 PyTorch version; a CUDA tensor launches the kernel (bf16, head_dim 128 or
-256, at most 32 query rows per (role, kv head)) or raises.  There is no
-fallback from one to the other.
+256, any number of slots) or raises.  There is no fallback from one to the
+other.
 
 What bounds the kernel on an H100 (3.35 TB/s, 989 TFLOP/s dense bf16): the
 bytes -- q and out once, each role's trunk K/V over its valid span once
@@ -42,9 +42,8 @@ import torch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128, 256)
-#: Query rows one (role, kv head) block holds: n_slots * (H // KV).
-KERNEL_MAX_ROWS = 32
-#: Trunk keys per block of the kernel's first pass (the key split).
+#: Keys per block of the kernel's first pass: the trunk and each slot's
+#: tail columns 0..write_col split into chunks of this many keys.
 KEY_CHUNK = 256
 
 
@@ -154,7 +153,7 @@ def _check_shapes(q, trunk_k, trunk_v, tail_k, tail_v, n_slots, n_roles) -> None
         )
 
 
-def _check_cuda_inputs(q, trunk_k, trunk_v, tail_k, tail_v, n_slots) -> None:
+def _check_cuda_inputs(q, trunk_k, trunk_v, tail_k, tail_v) -> None:
     for name, t in (("q", q), ("trunk_k", trunk_k), ("trunk_v", trunk_v),
                     ("tail_k", tail_k), ("tail_v", tail_v)):
         if t.device != q.device:
@@ -168,12 +167,6 @@ def _check_cuda_inputs(q, trunk_k, trunk_v, tail_k, tail_v, n_slots) -> None:
     hd = q.shape[2]
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"decode_attention kernel supports head_dim {KERNEL_HEAD_DIMS}, got {hd}")
-    rows_per_group = n_slots * (q.shape[1] // trunk_k.shape[2])
-    if rows_per_group > KERNEL_MAX_ROWS:
-        raise ValueError(
-            f"decode_attention kernel holds at most {KERNEL_MAX_ROWS} query rows per "
-            f"(role, kv head); n_slots x (H // KV) = {rows_per_group}"
-        )
 
 
 def decode_attention(
@@ -209,7 +202,7 @@ def decode_attention(
     if not 0 <= write_col < tail_k.shape[1]:
         raise ValueError(f"decode_attention: write_col {write_col} outside the tail")
     q = q.contiguous()
-    _check_cuda_inputs(q, trunk_k, trunk_v, tail_k, tail_v, n_slots)
+    _check_cuda_inputs(q, trunk_k, trunk_v, tail_k, tail_v)
     starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
     qpos = torch.as_tensor(qpos).to(device=q.device, dtype=torch.int32).expand(n_roles).contiguous()
     out = torch.empty_like(q)
@@ -231,7 +224,7 @@ def _kernel_call(lib: ctypes.CDLL):
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 9
+            + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -242,27 +235,30 @@ def launch_kernel(lib: ctypes.CDLL, q, trunk_k, trunk_v, tail_k, tail_v, starts,
                   write_col: int, out, n_slots: int, n_roles: int, scale: float,
                   softcap, window) -> None:
     """One launch of ``lib``'s kernel on checked CUDA tensors, writing
-    ``out``; raises on a launch error.  The first pass splits the trunk into
-    ``ceil(W0 / KEY_CHUNK)`` key ranges and writes fp32 partials to scratch
-    allocated here; the second pass combines them.  Counts nothing: callers
-    other than :func:`decode_attention` (a check of a deliberately broken
-    build) must not move the launch counter."""
+    ``out``; raises on a launch error.  The first pass splits the trunk and
+    the tail columns ``0..write_col`` into ``KEY_CHUNK``-key chunks and
+    writes fp32 partials to scratch allocated here; the second pass merges
+    them.  Counts nothing: callers other than :func:`decode_attention` (a
+    check of a deliberately broken build) must not move the launch
+    counter."""
     rows, heads, hd = q.shape
     _, w0, kv, _ = trunk_k.shape
     ts = tail_k.shape[1]
     group_rows = n_slots * (heads // kv)
-    n_chunks = -(-w0 // KEY_CHUNK)
+    n_trunk = -(-w0 // KEY_CHUNK)
+    n_tail = -(-(write_col + 1) // KEY_CHUNK)
+    n_splits = n_trunk + n_tail
     part_ml = torch.empty(
-        (n_roles * kv, n_chunks + 1, group_rows, 2), dtype=torch.float32, device=q.device
+        (n_roles * kv, n_splits, group_rows, 2), dtype=torch.float32, device=q.device
     )
     part_acc = torch.empty(
-        (n_roles * kv, n_chunks + 1, group_rows, hd), dtype=torch.float32, device=q.device
+        (n_roles * kv, n_splits, group_rows, hd), dtype=torch.float32, device=q.device
     )
     err = _kernel_call(lib)(
         q.data_ptr(), trunk_k.data_ptr(), trunk_v.data_ptr(), tail_k.data_ptr(),
         tail_v.data_ptr(), starts.data_ptr(), qpos.data_ptr(), part_ml.data_ptr(),
         part_acc.data_ptr(), out.data_ptr(),
-        n_slots, n_roles, heads, kv, hd, w0, ts, write_col, n_chunks,
+        n_slots, n_roles, heads, kv, hd, w0, ts, write_col, n_trunk, n_tail, KEY_CHUNK,
         float(scale), float(softcap or 0.0), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -1,0 +1,64 @@
+"""The kernel build's cache key and nvcc command (CPU only, no nvcc).
+
+``ops/build.py`` names each library after a hash of its source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited header must change the
+name (or a stale library would load), and nvcc must find the headers
+through ``-I csrc`` when it compiles a copy of a source made elsewhere.
+"""
+
+import pytest
+
+from consensus_tpu_torch.ops import build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    root = tmp_path / "csrc"
+    root.mkdir()
+    (root / "kernel.cu").write_text('#include "shared.cuh"\n__global__ void k() {}\n')
+    (root / "shared.cuh").write_text("// version 1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", root)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    return root
+
+
+def test_unchanged_sources_keep_the_library_path(csrc):
+    assert build.library_path("kernel") == build.library_path("kernel")
+    assert build.library_path("kernel").parent == build.BUILD_DIR
+
+
+@pytest.mark.parametrize(
+    "edit",
+    [
+        lambda root: (root / "shared.cuh").write_text("// version 2\n"),
+        lambda root: (root / "kernel.cu").write_text("__global__ void k2() {}\n"),
+        lambda root: (root / "another.cuh").write_text("// new header\n"),
+    ],
+    ids=["header-edited", "source-edited", "header-added"],
+)
+def test_an_edit_changes_the_library_path(csrc, edit):
+    before = build.library_path("kernel")
+    edit(csrc)
+    assert build.library_path("kernel") != before
+
+
+def test_other_files_do_not_change_the_library_path(csrc):
+    before = build.library_path("kernel")
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert build.library_path("kernel") == before
+
+
+def test_include_flag_points_at_csrc(csrc, tmp_path):
+    copy = tmp_path / "_build" / "mutant" / "kernel_copy.cu"
+    args = build.nvcc_args(copy, copy.with_suffix(".so"))
+    i = args.index("-I")
+    assert args[i + 1] == str(csrc)
+    assert args[-1] == str(copy) and args[args.index("-o") + 1] == str(copy.with_suffix(".so"))
+    assert "arch=compute_90a,code=sm_90a" in args
+
+
+def test_both_kernels_include_the_shared_header():
+    assert (build.CSRC_DIR / "sm90_mma.cuh") in set(build.CSRC_DIR.glob("*.cuh"))
+    for name in ("flash_attention", "decode_attention"):
+        source = (build.CSRC_DIR / f"{name}.cu").read_text()
+        assert '#include "sm90_mma.cuh"' in source

@@ -87,6 +87,30 @@ def test_gqa_wide_group():
     _check(*_both(arrays, [30, 3], 60, 9, 4, 2, 0.0884))
 
 
+def test_more_than_32_rows_per_group():
+    """Nine slots of four query heads per kv head: 36 rows per (role, kv
+    head), which the JAX kernel pads to 40; the port's kernel cuts them
+    into 16-row tiles (no cap)."""
+    arrays = _inputs(8, n_slots=9, n_roles=2, kv=1, reps=4, w0=80, ts=10)
+    _check(*_both(arrays, [30, 3], 60, 9, 9, 2, 0.0884))
+
+
+def test_cuda_input_check_accepts_wide_groups():
+    """The wrapper's checks for the kernel take 64 query rows per (role, kv
+    head): 16 slots x 4 heads per kv head, bf16, head_dim 128."""
+    rng = np.random.default_rng(9)
+    n_slots, n_roles, kv, reps, hd = 16, 2, 2, 4, 128
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+
+    rows = n_slots * n_roles
+    q, tk, tv = bf16(rows, kv * reps, hd), bf16(n_roles, 32, kv, hd), bf16(n_roles, 32, kv, hd)
+    lk, lv = bf16(rows, 8, kv, hd), bf16(rows, 8, kv, hd)
+    da._check_shapes(q, tk, tv, lk, lv, n_slots, n_roles)
+    da._check_cuda_inputs(q, tk, tv, lk, lv)
+
+
 def test_empty_trunk_span_sees_only_its_tail_column():
     """A role whose trunk span is empty, under a window of 1, attends only
     its own tail column 0: the output is that column's value, exactly."""
@@ -127,7 +151,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n_slots,heads,kv,hd,softcap,window",
-    [(4, 32, 8, 128, None, None), (1, 32, 8, 128, None, None), (4, 16, 8, 256, 50.0, 256)],
+    [(4, 32, 8, 128, None, None), (1, 32, 8, 128, None, None), (4, 16, 8, 256, 50.0, 256),
+     (16, 32, 8, 128, None, None)],
 )
 def test_kernel_matches_plain_version_on_card(cuda_device, n_slots, heads, kv, hd, softcap, window):
     """bf16 inputs; the plain version computes in fp32 from the same bf16

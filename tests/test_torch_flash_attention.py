@@ -105,18 +105,28 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,softcap,window", [(128, None, None), (256, 50.0, 256)])
-def test_kernel_matches_plain_version_on_card(cuda_device, head_dim, softcap, window):
+@pytest.mark.parametrize(
+    "head_dim,softcap,window,seq,lengths,starts",
+    [
+        (128, None, None, 300, [300, 171, 0, 64], [0, 129, 0, 0]),
+        (256, 50.0, 256, 300, [300, 171, 0, 64], [0, 129, 0, 0]),
+        # Causal tile boundaries: S = 200 is not a multiple of the 128-query
+        # tile, and left-padded spans start inside a tile.
+        (128, None, None, 200, [200, 73, 130, 1], [0, 127, 70, 199]),
+    ],
+)
+def test_kernel_matches_plain_version_on_card(cuda_device, head_dim, softcap, window, seq,
+                                              lengths, starts):
     """bf16 inputs; the plain version computes in fp32 from the same bf16
     values.  Tolerance atol 5e-3 + rtol 1e-2: bf16 output rounding (2^-8
     relative) and bf16 P in P.V, as in chip_smoke.py."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    shape_q, shape_kv = (4, 300, 8, head_dim), (4, 300, 2, head_dim)
+    shape_q, shape_kv = (4, seq, 8, head_dim), (4, seq, 2, head_dim)
     q = torch.randn(shape_q, generator=g, device=cuda_device).to(torch.bfloat16)
     k = torch.randn(shape_kv, generator=g, device=cuda_device).to(torch.bfloat16)
     v = torch.randn(shape_kv, generator=g, device=cuda_device).to(torch.bfloat16)
-    lengths = torch.tensor([300, 171, 0, 64], dtype=torch.int32, device=cuda_device)
-    starts = torch.tensor([0, 129, 0, 0], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    starts = torch.tensor(starts, dtype=torch.int32, device=cuda_device)
     kw = dict(scale=head_dim ** -0.5, softcap=softcap, window=window)
     before = fa.launches.count
     out = fa.flash_attention(q, k, v, lengths, starts, **kw)
