@@ -1,29 +1,39 @@
 """On-device model backend for the GPU: the PyTorch counterpart of
-``consensus_tpu/backends/tpu.py`` (``TPUBackend``).
+``consensus_tpu/backends/tpu.py`` (``TPUBackend``), with its defaults.
 
 It owns a resident transformer (Gemma-2 / Llama-3 family or a tiny test
 config) and runs each protocol call as padded device batches:
 
-* ``generate`` -- the classic path: left-padded batch prefill + KV-cache
-  decode with per-request temperature, logit-bias sets, EOS ids, host-side
-  stop-string truncation (``tpu.py:815-855``, ``:937-1060``);
+* ``generate`` -- routes as ``tpu.py:608-1014`` does.  A group of at least
+  four identical prompts that is the whole batch (or at least 16 rows)
+  decodes from ONE shared prompt trunk (``shared_trunk_generation``);
+  everything else takes the classic per-row path.  Budgets of at least two
+  segments decode in ``decode_segment_len``-step segments
+  (``segmented_decode``) with int8 generated KV (``kv_quant``), unless
+  ``use_decode_attention`` asks for the decode kernel, which only the
+  monolithic loops reach.  Per-request temperature, logit-bias sets, EOS
+  ids, host-side stop-string truncation (``tpu.py:815-855, 1016-1060``).
 * ``score`` -- right-padded teacher-forced forward (``_score_impl``,
   ``tpu.py:1253-1338``) with the same row and width buckets, truncation
   rules and streamed-vocab threshold; its attention is the hand-written
-  flash kernel when ``use_flash_attention`` is set;
+  flash kernel when ``use_flash_attention`` is set.  With
+  ``shared_context_scoring`` requests sharing a context prefill it once and
+  score their continuations against it (``tpu.py:1080-1251``).
+* ``score_matrix`` -- the fused (candidates x agents) utility matrix over a
+  KV page pool, reduced on the device (``tpu.py:1340-1638``); rows that
+  need the per-call truncation fall back to ``score``.
 * ``open_fused_token_search`` -- :class:`TorchTokenSearchSession`, the
   incremental KV-cache search session of beam search and finite lookahead
   (``tpu.py:1731-1739, 2140-2398, 2644-2687``); its step attends through the
   hand-written decode kernel when ``use_decode_attention`` is set.
 
-No ``score_matrix`` method yet: best-of-N's utility matrix goes through the
-per-call fallback (``backends/score_matrix.py``).  Options that select a
-path not ported yet raise ``NotImplementedError`` naming the ROADMAP item.
+Options that select a path not ported yet raise ``NotImplementedError``
+naming the ROADMAP item.
 
 Seeds: each request's seed seeds its OWN row ``torch.Generator``, so a
 request's output does not depend on which other requests share its batch.
 The generators do not reproduce the JAX package's threefry streams
-(ROADMAP queue A3), so sampled text differs from the reference; greedy
+(ROADMAP queue A1), so sampled text differs from the reference; greedy
 text and scores agree within float tolerance.
 """
 
@@ -49,14 +59,22 @@ from consensus_tpu_torch.backends.session import (
     ScoredCandidate,
     SearchSpec,
 )
+from consensus_tpu_torch.backends.score_matrix import (
+    ScoreMatrixResult,
+    fallback_score_matrix_many,
+    reduce_matrix,
+)
+from consensus_tpu_torch.models import generate as gen
+from consensus_tpu_torch.models import stepper
 from consensus_tpu_torch.models.config import ModelConfig, get_model_config
-from consensus_tpu_torch.models.generate import generate_tokens
 from consensus_tpu_torch.models.quant import is_quantized, quantize_params
 from consensus_tpu_torch.models.stepper import search_prefill, search_step, suffix_propose
 from consensus_tpu_torch.models.tokenizer import get_tokenizer
 from consensus_tpu_torch.models.transformer import (
     init_params,
     params_dtype,
+    shared_context_cont_logprobs,
+    shared_context_prefill,
     token_logprobs,
     token_logprobs_streamed,
 )
@@ -66,6 +84,16 @@ logger = logging.getLogger(__name__)
 
 #: Above this vocab size the streaming scorer replaces full-logit scoring.
 _STREAMED_VOCAB_THRESHOLD = 32_768
+#: Cap on the shared-scoring suffix attention's per-layer fp32 logits
+#: (rows x heads x span x (ctx + span) x 4 B): it has no flash kernel, so
+#: row chunks halve until it fits and larger groups score per call.
+_SHARED_SCORE_ATTN_BYTES_CAP = 1 << 31  # 2 GB
+#: Below this many identical-prompt rows the shared-trunk path is not taken.
+_SHARED_TRUNK_MIN_ROWS = 4
+#: A smaller identical-prompt group inside a larger batch decodes with the
+#: classic rows: one classic batch shares each step's weight read among all
+#: of its rows.
+_SHARED_TRUNK_SOLO_ROWS = 16
 #: Device memory kept free for activations outside the generate budget.
 _ACTIVATION_RESERVE_BYTES = 3 * 1024**3
 #: Budget on the CPU, which has no device-memory query: effectively none.
@@ -146,35 +174,36 @@ class TorchBackend:
         max_batch_rows: int = 64,
         quantization: Optional[str] = None,
         shared_context_scoring: bool = False,
-        shared_trunk_generation: bool = False,
-        segmented_decode: bool = False,
-        kv_quant: bool = False,
+        shared_trunk_generation: bool = True,
+        pin_generation_budget: bool = False,
+        segmented_decode: bool = True,
+        decode_segment_len: int = 128,
+        kv_quant: bool = True,
+        quantize_frozen_kv: Optional[bool] = None,
         mesh: Optional[Any] = None,
         device: Optional[str] = None,
     ):
-        if shared_context_scoring:
-            raise _not_ported("shared_context_scoring=True", "shared-context scoring")
-        if shared_trunk_generation:
-            raise _not_ported(
-                "shared_trunk_generation=True", "shared-trunk, segmented and int8-KV generation"
-            )
-        if segmented_decode:
-            raise _not_ported(
-                "segmented_decode=True", "shared-trunk, segmented and int8-KV generation"
-            )
-        if kv_quant:
-            raise _not_ported(
-                "kv_quant=True", "shared-trunk, segmented and int8-KV generation"
-            )
         if tp != 1 or (dp is not None and dp != 1) or mesh is not None:
             raise _not_ported("tp/dp/mesh", "multi-GPU")
         if checkpoint is not None:
             raise _not_ported("checkpoint loading", "multi-GPU (checkpoints, HF safetensors)")
+        # The reference's timing mode (whole budgets, no EOS or stop strings)
+        # and the older name of ``kv_quant``: no caller in the port yet.
+        if pin_generation_budget:
+            raise _not_ported("pin_generation_budget", "obs and tracing (timing cells)")
+        if quantize_frozen_kv is not None:
+            raise _not_ported("quantize_frozen_kv (pass kv_quant)", "obs and tracing (timing cells)")
         if quantization not in (None, "none", "int8"):
             raise ValueError(f"unknown quantization mode: {quantization!r}")
         if dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}; want one of {sorted(_DTYPES)}")
 
+        self.shared_context_scoring = bool(shared_context_scoring)
+        self.shared_trunk_generation = bool(shared_trunk_generation)
+        self.segmented_decode = bool(segmented_decode)
+        self.decode_segment_len = max(16, int(decode_segment_len))
+        self._seg_len_fallbacks: set = set()  # budgets already logged
+        self.kv_quant = bool(kv_quant)
         self.device = resolve_device(device)
         self.config = config if config is not None else get_model_config(model)
         if use_flash_attention and not self.config.use_flash_attention:
@@ -214,8 +243,11 @@ class TorchBackend:
         self._bias_id_cache: Dict[str, Tuple[int, ...]] = {}
         self.call_counts = {
             "generate": 0, "score": 0, "score_batches": 0, "search_advances": 0,
+            "score_matrix": 0,
         }
         self.token_counts = {"generated": 0, "scored": 0}
+        #: Fused utility matrices: calls, device chunks, per-call fallbacks.
+        self.matrix_stats = {"calls": 0, "chunks": 0, "fallbacks": 0}
         self._unseeded_calls = 0
         self._nonce_lock = threading.Lock()
         # Live-session budget (``tpu.py:412-419``), read from what the device
@@ -234,8 +266,8 @@ class TorchBackend:
 
     def kv_cache_identity(self) -> tuple:
         """Content-key identity for cross-request prefix KV reuse: model,
-        KV mode and tensor-parallel width (always dense KV and tp=1 here)."""
-        return (self.model_name, "dense", ("tp", 1))
+        KV mode (``tpu.py:423-436``) and tensor-parallel width (1 here)."""
+        return (self.model_name, "int8" if self.kv_quant else "dense", ("tp", 1))
 
     def _sliced(self, requests, fn, limit: Optional[int] = None):
         limit = limit or self.max_batch_rows
@@ -334,18 +366,13 @@ class TorchBackend:
         )
         return free + cached
 
-    def _generate_rows_allowed(self, prompt_width: int, max_new: int) -> int:
-        """Largest decode batch whose KV cache and prefill attention transient
-        fit in free device memory (``tpu.py:717-748``, with the budget read
-        from ``torch.cuda.mem_get_info`` instead of a fixed HBM size)."""
-        c = self.config
-        itemsize = torch.finfo(params_dtype(self.params)).bits // 8
-        columns = prompt_width + max_new
-        cache_row = 2 * c.n_layers * c.n_kv_heads * c.head_dim * itemsize * columns
-        # Prefill materializes per-layer fp32 logits and their softmax.
-        prefill_row = 2 * c.n_heads * prompt_width * columns * 4
+    def _rows_for(self, row_bytes: int) -> int:
+        """Largest batch of ``row_bytes``-per-row decode state that fits in
+        free device memory, rounded down to the {1, 1.5} x power-of-two
+        ladder (``tpu.py:717-748``, with the budget read from
+        ``torch.cuda.mem_get_info`` instead of a fixed HBM size)."""
         budget = self._free_device_bytes() - _ACTIVATION_RESERVE_BYTES
-        allowed = max(1, budget // (cache_row + prefill_row))
+        allowed = max(1, budget // max(1, row_bytes))
         bucket = 1
         while bucket * 2 <= allowed:
             bucket *= 2
@@ -353,18 +380,111 @@ class TorchBackend:
             bucket += bucket // 2
         return bucket
 
+    def _kv_bytes_per_column(self) -> int:
+        c = self.config
+        itemsize = torch.finfo(params_dtype(self.params)).bits // 8
+        return 2 * c.n_layers * c.n_kv_heads * c.head_dim * itemsize
+
+    def _generate_rows_allowed(self, prompt_width: int, max_new: int) -> int:
+        """Rows of a monolithic decode: a cache of ``prompt_width + max_new``
+        columns per row plus the prefill's per-layer fp32 logits and their
+        softmax over that cache."""
+        columns = prompt_width + max_new
+        prefill_row = 2 * self.config.n_heads * prompt_width * columns * 4
+        return self._rows_for(columns * self._kv_bytes_per_column() + prefill_row)
+
+    def _segmented_rows_allowed(self, prompt_width: int, max_new: int, seg_len: int) -> int:
+        """Rows of a SEGMENTED decode (``tpu.py:683-715``): per row the prompt
+        trunk, the frozen blocks (max_new - seg_len columns), the live tail
+        and one seg_len of compaction-gather transient.  With ``kv_quant``
+        the blocks, the tail and the per-row trunk are int8 (half the
+        bytes, plus seg_len / 4 columns for the scales), and the binding
+        moment for a wide prompt is its prefill -> quantize transient.  Plus
+        the prefill's per-layer fp32 logits over the trunk."""
+        gen_cols = (max_new - seg_len) + 2 * seg_len + seg_len
+        if self.kv_quant:
+            q_cols = (gen_cols + 1) // 2 + seg_len // 4
+            effective = max(
+                prompt_width + prompt_width // 2 + 2 * seg_len,
+                (prompt_width + 1) // 2 + prompt_width // 16 + q_cols,
+            )
+        else:
+            effective = prompt_width + gen_cols
+        prefill_row = 2 * self.config.n_heads * prompt_width * prompt_width * 4
+        return self._rows_for(effective * self._kv_bytes_per_column() + prefill_row)
+
+    def _seg_len_for(self, max_new: int) -> Optional[int]:
+        """Segment length for a decode budget, or None for one monolithic
+        loop (``tpu.py:646-681``).  Budgets under two segments stay
+        monolithic, and so does every budget with ``use_decode_attention``:
+        the decode kernel has no frozen-block variant.  The length must
+        divide the bucketed budget: 128 fits 256/384/512/768/1024, 96 the
+        192 bucket."""
+        if not self.segmented_decode or self.config.use_decode_attention:
+            return None
+        for seg_len in (self.decode_segment_len, 96, 64):
+            if max_new >= 2 * seg_len and max_new % seg_len == 0:
+                if seg_len != self.decode_segment_len and max_new not in self._seg_len_fallbacks:
+                    self._seg_len_fallbacks.add(max_new)
+                    logger.info(
+                        "segmented decode: budget %d is not a multiple of "
+                        "decode_segment_len=%d >= 2x; using seg_len=%d",
+                        max_new, self.decode_segment_len, seg_len,
+                    )
+                return seg_len
+        return None
+
     # -- generate ------------------------------------------------------------
 
     def generate(self, requests: Sequence[GenerationRequest]) -> List[GenerationResult]:
+        """Slices of up to 256 requests: the shared-trunk path prefills one
+        row, so a wide group of identical prompts decodes in one loop; the
+        classic path re-caps itself at ``max_batch_rows``."""
         if not requests:
             return []
+        return self._sliced(list(requests), self._generate_impl, limit=256)
+
+    def _generate_impl(self, requests: Sequence[GenerationRequest]) -> List[GenerationResult]:
+        """Route (``tpu.py:750-813``): a group of identical prompts takes the
+        shared-trunk decode when it has at least ``_SHARED_TRUNK_MIN_ROWS``
+        rows and is the whole batch or at least ``_SHARED_TRUNK_SOLO_ROWS``;
+        every other request takes the classic per-row path, in one batch."""
         token_lists = [
             self.tokenizer.encode(self._render_prompt(r), add_bos=True) for r in requests
         ]
-        return self._generate_classic(list(requests), token_lists)
+        if not self.shared_trunk_generation:
+            return self._generate_classic(requests, token_lists)
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        for i, ids in enumerate(token_lists):
+            groups.setdefault(tuple(ids), []).append(i)
+
+        def takes_shared_path(ids, idxs) -> bool:
+            return bool(ids) and len(idxs) >= _SHARED_TRUNK_MIN_ROWS and (
+                len(idxs) >= _SHARED_TRUNK_SOLO_ROWS or len(idxs) == len(requests)
+            )
+
+        if not any(takes_shared_path(ids, idxs) for ids, idxs in groups.items()):
+            return self._generate_classic(requests, token_lists)
+        results: List[Optional[GenerationResult]] = [None] * len(requests)
+        classic: List[int] = []
+        for ids, idxs in groups.items():
+            if takes_shared_path(ids, idxs):
+                sub = self._generate_shared([requests[i] for i in idxs], list(ids))
+                for i, result in zip(idxs, sub):
+                    results[i] = result
+            else:
+                classic.extend(idxs)
+        if classic:
+            sub = self._generate_classic(
+                [requests[i] for i in classic], [token_lists[i] for i in classic]
+            )
+            for i, result in zip(classic, sub):
+                results[i] = result
+        return results  # type: ignore[return-value]
 
     def _prep_generation_rows(self, requests: Sequence[GenerationRequest], allowed: int):
-        """Row bucketing + per-row sampling state (``tpu.py:815-855``)."""
+        """Row bucketing + per-row sampling state shared by the classic and
+        shared-trunk paths (``tpu.py:815-855``)."""
         target = min(_bucket(len(requests), minimum=min(8, allowed)), allowed)
         pad_rows = target - len(requests)
         temperatures = torch.tensor(
@@ -385,13 +505,64 @@ class TorchBackend:
         generators = self._row_generators(
             "generate", [r.seed for r in requests] + [0] * pad_rows
         )
-        eos_ids = self.tokenizer.eos_ids
+        eos_ids = torch.tensor(self.tokenizer.eos_ids, dtype=torch.int32, device=self.device)
         return (target, pad_rows, temperatures, bias_table, bias_index,
                 generators, eos_ids, rep_penalty)
+
+    def _generate_shared(
+        self, requests: Sequence[GenerationRequest], prompt_ids: List[int]
+    ) -> List[GenerationResult]:
+        """Decode every row from ONE shared prompt trunk (``tpu.py:857-935``),
+        padded to ``max_context`` columns: one trunk width for every prompt."""
+        max_new = _width_bucket(max(r.max_tokens for r in requests), minimum=16)
+        width = self.max_context
+        prompt_ids = prompt_ids[-width:]
+        seg_len = self._seg_len_for(max_new)
+        # Only the tails are per row: the trunk is one row.
+        if seg_len is not None:
+            allowed = self._segmented_rows_allowed(0, max_new, seg_len)
+        else:
+            allowed = self._generate_rows_allowed(0, max_new)
+        if len(requests) > allowed:
+            out: List[GenerationResult] = []
+            for i in range(0, len(requests), allowed):
+                out.extend(self._generate_shared(requests[i : i + allowed], prompt_ids))
+            return out
+
+        self.call_counts["generate"] += len(requests)
+        (target, pad_rows, temperatures, bias_table, bias_index, generators,
+         eos_ids, rep_penalty) = self._prep_generation_rows(requests, allowed)
+        tokens = np.full((1, width), self.tokenizer.pad_id, np.int32)
+        valid = np.zeros((1, width), bool)
+        tokens[0, width - len(prompt_ids):] = prompt_ids
+        valid[0, width - len(prompt_ids):] = True
+        # Bucket-pad rows start done: they would sample real tokens from the
+        # real prompt and hold the early exit off.
+        init_done = np.zeros((target,), bool)
+        init_done[len(requests):] = True
+        kwargs = dict(
+            generators=generators, temperature=temperatures, eos_ids=eos_ids,
+            bias_table=bias_table, bias_index=bias_index, pad_id=self.tokenizer.pad_id,
+            init_done=self._to_device(init_done), rep_penalty=rep_penalty,
+        )
+        with torch.inference_mode():
+            if seg_len is not None:
+                out = gen.generate_tokens_shared_trunk_segmented(
+                    self.params, self.config, self._to_device(tokens), self._to_device(valid),
+                    target, max_new, seg_len=seg_len, kv_quant=self.kv_quant, **kwargs,
+                )
+            else:
+                out = gen.generate_tokens_shared_trunk(
+                    self.params, self.config, self._to_device(tokens), self._to_device(valid),
+                    target, max_new, **kwargs,
+                )
+        return self._finish_generation(requests, out)
 
     def _generate_classic(
         self, requests: Sequence[GenerationRequest], token_lists: List[List[int]]
     ) -> List[GenerationResult]:
+        """Per-row prompts (``tpu.py:937-1014``): monolithic, or segmented
+        with an int8 prompt trunk under ``kv_quant``."""
         if len(requests) > self.max_batch_rows:
             out: List[GenerationResult] = []
             for i in range(0, len(requests), self.max_batch_rows):
@@ -404,7 +575,11 @@ class TorchBackend:
             return out
         width = self._batch_width(token_lists)
         max_new = _width_bucket(max(r.max_tokens for r in requests), minimum=16)
-        allowed = self._generate_rows_allowed(width, max_new)
+        seg_len = self._seg_len_for(max_new)
+        if seg_len is not None:
+            allowed = self._segmented_rows_allowed(width, max_new, seg_len)
+        else:
+            allowed = self._generate_rows_allowed(width, max_new)
         if len(requests) > allowed:
             out = []
             for i in range(0, len(requests), allowed):
@@ -419,17 +594,19 @@ class TorchBackend:
         (target, pad_rows, temperatures, bias_table, bias_index, generators,
          eos_ids, rep_penalty) = self._prep_generation_rows(requests, allowed)
         tokens, valid = self._left_pad_batch(list(token_lists) + [[]] * pad_rows)
+        kwargs = dict(
+            generators=generators, temperature=temperatures, eos_ids=eos_ids,
+            bias_table=bias_table, bias_index=bias_index, pad_id=self.tokenizer.pad_id,
+            rep_penalty=rep_penalty,
+        )
         with torch.inference_mode():
-            out = generate_tokens(
-                self.params, self.config, tokens, valid, max_new,
-                generators=generators,
-                temperature=temperatures,
-                eos_ids=torch.tensor(eos_ids, dtype=torch.int32, device=self.device),
-                bias_table=bias_table,
-                bias_index=bias_index,
-                pad_id=self.tokenizer.pad_id,
-                rep_penalty=rep_penalty,
-            )
+            if seg_len is not None:
+                out = gen.generate_tokens_segmented(
+                    self.params, self.config, tokens, valid, max_new, seg_len=seg_len,
+                    kv_quant=self.kv_quant, **kwargs,
+                )
+            else:
+                out = gen.generate_tokens(self.params, self.config, tokens, valid, max_new, **kwargs)
         return self._finish_generation(requests, out)
 
     def _finish_generation(self, requests: Sequence[GenerationRequest], out) -> List[GenerationResult]:
@@ -474,20 +651,138 @@ class TorchBackend:
         return prefix
 
     def score(self, requests: Sequence[ScoreRequest]) -> List[ScoreResult]:
-        """Teacher-forced scoring in ``max_batch_rows`` slices."""
+        """Teacher-forced scoring (``tpu.py:1080-1178``).  Without
+        ``shared_context_scoring``: ``max_batch_rows`` slices of the per-call
+        scorer.  With it, requests group by rendered prefix; a group of at
+        least 4 rows whose context and longest continuation fit the window
+        prefills its context ONCE and scores every continuation against it,
+        in row chunks that start at 4 x ``max_batch_rows`` and halve until the
+        suffix attention's fp32 logits fit ``_SHARED_SCORE_ATTN_BYTES_CAP``.
+        Other rows, and chunk tails under 4 rows, take the per-call scorer."""
         if not requests:
             return []
-        return self._sliced(list(requests), self._score_impl)
+        if not self.shared_context_scoring:
+            return self._sliced(list(requests), self._score_impl)
+        prepared = []
+        prefix_ids: Dict[str, List[int]] = {}
+        for request in requests:
+            prefix = self._score_prefix(request)
+            if prefix not in prefix_ids:
+                prefix_ids[prefix] = self.tokenizer.encode(prefix, add_bos=True)
+            prepared.append((prefix, prefix_ids[prefix], self.tokenizer.encode(request.continuation)))
+        by_prefix: Dict[str, List[int]] = {}
+        for i, (prefix, _, _) in enumerate(prepared):
+            by_prefix.setdefault(prefix, []).append(i)
 
-    def _score_impl(self, requests: Sequence[ScoreRequest]) -> List[ScoreResult]:
-        """Full-sequence batch scorer (``tpu.py:1253-1338``)."""
+        results: List[Optional[ScoreResult]] = [None] * len(requests)
+        legacy: List[int] = []
+        for idxs in by_prefix.values():
+            ctx_ids = prepared[idxs[0]][1]
+            conts = [prepared[i][2] for i in idxs]
+            max_cont = max(len(c) for c in conts)
+            cont_width = self._shared_cont_width(max_cont)
+            rows_cap = max(self.max_batch_rows, 128)
+            while rows_cap >= 8:
+                attn_bytes = (
+                    rows_cap * self.config.n_heads * cont_width
+                    * (self.max_context + cont_width) * 4
+                )
+                if attn_bytes <= _SHARED_SCORE_ATTN_BYTES_CAP:
+                    break
+                rows_cap //= 2
+            fits = (
+                len(idxs) >= 4
+                and all(conts)
+                and ctx_ids
+                and len(ctx_ids) + max_cont <= self.max_context
+                and attn_bytes <= _SHARED_SCORE_ATTN_BYTES_CAP
+            )
+            if not fits:
+                legacy.extend(idxs)
+                continue
+            trunk_state = None
+            for start in range(0, len(idxs), rows_cap):
+                chunk = idxs[start : start + rows_cap]
+                if len(chunk) < 4:
+                    legacy.extend(chunk)
+                    continue
+                if trunk_state is None:
+                    trunk_state = self._shared_prefill(ctx_ids)
+                self._score_shared_group(trunk_state, chunk, prepared, results, rows_cap)
+        for start in range(0, len(legacy), self.max_batch_rows):
+            chunk = legacy[start : start + self.max_batch_rows]
+            chunk_results = self._score_impl(
+                [requests[i] for i in chunk],
+                prepared=[(prepared[i][1], prepared[i][2]) for i in chunk],
+            )
+            for i, result in zip(chunk, chunk_results):
+                results[i] = result
+        return results  # type: ignore[return-value]
+
+    def _shared_cont_width(self, max_cont: int) -> int:
+        """Continuation-width bucket of a shared-context group: powers of two
+        from 64, capped at the context window."""
+        width = 64
+        while width < max_cont:
+            width *= 2
+        return min(width, self.max_context)
+
+    def _shared_prefill(self, ctx_ids: List[int]):
+        """Prefill one shared scoring context, right-padded to
+        ``max_context`` columns -> (trunk, ctx_len, last_hidden)."""
+        width = self.max_context
+        tokens = np.full((1, width), self.tokenizer.pad_id, np.int32)
+        tokens[0, : len(ctx_ids)] = ctx_ids
+        valid = np.zeros((1, width), bool)
+        valid[0, : len(ctx_ids)] = True
+        with torch.inference_mode():
+            return shared_context_prefill(
+                self.params, self.config, self._to_device(tokens), self._to_device(valid)
+            )
+
+    def _score_shared_group(self, trunk_state, idxs: List[int], prepared, results, rows_cap: int) -> None:
+        """Score one row chunk of a shared-context group against its trunk:
+        rows bucket to powers of two from 32 up to ``rows_cap``."""
+        self.call_counts["score"] += len(idxs)
+        conts = [prepared[i][2] for i in idxs]
+        n_rows = min(rows_cap, _bucket(len(idxs), minimum=32))
+        width = self._shared_cont_width(max(len(c) for c in conts))
+        tokens = np.full((n_rows, width), self.tokenizer.pad_id, np.int32)
+        valid = np.zeros((n_rows, width), bool)
+        for row, ids in enumerate(conts):
+            tokens[row, : len(ids)] = ids
+            valid[row, : len(ids)] = True
+        trunk, ctx_len, last_hidden = trunk_state
+        with torch.inference_mode():
+            logprobs = shared_context_cont_logprobs(
+                self.params, self.config, trunk, ctx_len, last_hidden,
+                self._to_device(tokens), self._to_device(valid),
+            ).cpu().numpy()
+        for row, i in enumerate(idxs):
+            ids = conts[row]
+            self.token_counts["scored"] += len(ids)
+            results[i] = ScoreResult(
+                tokens=tuple(self.tokenizer.token_str(t) for t in ids),
+                logprobs=tuple(float(v) for v in logprobs[row, : len(ids)]),
+            )
+
+    def _score_impl(
+        self,
+        requests: Sequence[ScoreRequest],
+        prepared: Optional[Sequence[Tuple[List[int], List[int]]]] = None,
+    ) -> List[ScoreResult]:
+        """Full-sequence batch scorer (``tpu.py:1253-1338``).  ``prepared``
+        carries already-encoded (context_ids, continuation_ids)."""
         self.call_counts["score"] += len(requests)
         self.call_counts["score_batches"] += 1
         rows = []
         spans = []  # (context_len, continuation_len) per row
-        for request in requests:
-            context_ids = self.tokenizer.encode(self._score_prefix(request), add_bos=True)
-            continuation_ids = self.tokenizer.encode(request.continuation)
+        for i, request in enumerate(requests):
+            if prepared is not None:
+                context_ids, continuation_ids = prepared[i]
+            else:
+                context_ids = self.tokenizer.encode(self._score_prefix(request), add_bos=True)
+                continuation_ids = self.tokenizer.encode(request.continuation)
             rows.append(context_ids + continuation_ids)
             spans.append((len(context_ids), len(continuation_ids)))
 
@@ -540,6 +835,225 @@ class TorchBackend:
                 )
             )
         return results
+
+    # -- fused (candidates x agents) utility matrix ---------------------------
+
+    #: KV page width of the fused scoring pool: everything up to the last
+    #: full page of an agent context is shared read-only by every candidate
+    #: row; only the <= 15-token tail and the candidate run per row.
+    _SCORE_PAGE_SIZE = 16
+
+    def score_matrix(self, requests) -> List[ScoreMatrixResult]:
+        """Evaluate whole (candidates x agents) utility matrices on the device
+        (``tpu.py:1348-1387``).  Each agent context's full pages prefill once
+        (deduped across agents with the same rendered prefix) and every
+        candidate row reads them through its block table; the row batch is
+        chunked under the session budget; per-row reductions and the welfare
+        fold run on the device, and only the (C, A) utilities, the (C,)
+        welfare and the moments aux come to the host.  A request with a row
+        that needs the per-call scorer's truncation falls back to it whole
+        (``matrix_stats["fallbacks"]``)."""
+        out = []
+        for request in requests:
+            self.call_counts["score_matrix"] += 1
+            self.matrix_stats["calls"] += 1
+            if not request.candidates or not request.agents:
+                out.append(reduce_matrix(request, [], path="fused"))
+                continue
+            result = self._score_matrix_fused(request)
+            if result is None:
+                self.matrix_stats["fallbacks"] += 1
+                result = fallback_score_matrix_many(self, [request])[0]
+            out.append(result)
+        return out
+
+    def _score_matrix_fused(self, request) -> Optional[ScoreMatrixResult]:
+        """The fused path of one matrix (``tpu.py:1389-1520``), or None when a
+        row needs the per-call truncation or one row's pages exceed the
+        session budget."""
+        ps = self._SCORE_PAGE_SIZE
+        c = self.config
+        n_candidates, n_agents = len(request.candidates), len(request.agents)
+        prefix_ids: Dict[str, List[int]] = {}
+        agent_prefixes: List[str] = []
+        for agent in request.agents:
+            prefix = self._score_prefix(agent.to_score_request(""))
+            if prefix not in prefix_ids:
+                prefix_ids[prefix] = self.tokenizer.encode(prefix, add_bos=True)
+            agent_prefixes.append(prefix)
+        cont_ids = [self.tokenizer.encode(text) for text in request.candidates]
+        max_cont = max(len(ids) for ids in cont_ids)
+        if any(len(ids) + max_cont > self.max_context for ids in prefix_ids.values()):
+            return None  # the per-call scorer owns truncation
+
+        # Each unique context owns the pages below its last full page
+        # boundary; its 1..ps-token tail is re-fed per row, so the hidden
+        # state at the final context position exists to teacher-force the
+        # first candidate token.
+        shared: Dict[str, Tuple[int, int, int]] = {}  # prefix -> (first, n_pages, n0)
+        next_page = 0
+        for prefix, ids in prefix_ids.items():
+            n0 = ((len(ids) - 1) // ps) * ps
+            shared[prefix] = (next_page, n0 // ps, n0)
+            next_page += n0 // ps
+        shared_total = next_page
+
+        # Candidate-major rows; the query block is the context tail plus all
+        # but the last candidate token (targets are the NEXT stream token).
+        rows = []  # (prefix, cont, q_len, n_private)
+        max_q = max_private = max_blocks = 1
+        for cont in cont_ids:
+            for prefix in agent_prefixes:
+                _, n_pages, n0 = shared[prefix]
+                q_len = (len(prefix_ids[prefix]) - n0) + max(len(cont) - 1, 0)
+                n_private = (n0 + q_len - 1) // ps - n0 // ps + 1
+                rows.append((prefix, cont, q_len, n_private))
+                max_q = max(max_q, q_len)
+                max_private = max(max_private, n_private)
+                max_blocks = max(max_blocks, n_pages + n_private)
+
+        dtype = params_dtype(self.params)
+        page_bytes = c.n_layers * ps * c.n_kv_heads * c.head_dim * 2 * (
+            torch.finfo(dtype).bits // 8
+        )
+
+        def pool_bytes(n_rows: int) -> int:
+            return (shared_total + n_rows * max_private + 1) * page_bytes
+
+        total_rows = len(rows)
+        chunk_rows = min(
+            _bucket(total_rows, minimum=8), _bucket(max(self.max_batch_rows, 64), minimum=8)
+        )
+        budget = self._session_budget.cap
+        while chunk_rows > 1 and pool_bytes(chunk_rows) > budget:
+            chunk_rows //= 2
+        if pool_bytes(chunk_rows) > budget:
+            return None  # even one row over-commits; the per-call path chunks finer
+        width = _bucket(max_q, minimum=ps)
+        num_pages = shared_total + chunk_rows * max_private
+        layout = (shared, shared_total, max_private, max_blocks, num_pages)
+
+        nbytes = pool_bytes(chunk_rows)
+        self._session_budget.acquire(nbytes)
+        try:
+            with torch.inference_mode():
+                state = stepper.make_page_state(c, num_pages, ps, dtype, self.device)
+                self._prefill_shared_pages(state, prefix_ids, shared, num_pages)
+                chunk_stats = []
+                for start in range(0, total_rows, chunk_rows):
+                    chunk = rows[start : start + chunk_rows]
+                    stats, state = self._score_matrix_chunk(
+                        state, chunk, prefix_ids, chunk_rows, width, layout
+                    )
+                    chunk_stats.append(tuple(t[: len(chunk)] for t in stats))
+                    self.matrix_stats["chunks"] += 1
+                del state
+                stats = tuple(torch.cat([cs[i] for cs in chunk_stats]) for i in range(4))
+                utilities, welfare_vals, aux = stepper.utility_matrix(
+                    stats, n_candidates, n_agents, stat=request.stat,
+                    rule=request.welfare_rule, default=request.default,
+                )
+                utilities_np = utilities.cpu().numpy()
+                welfare_np = welfare_vals.cpu().numpy()
+                aux_np = aux.cpu().numpy() if aux is not None else None
+        finally:
+            self._session_budget.release(nbytes)
+        self.token_counts["scored"] += n_agents * sum(len(ids) for ids in cont_ids)
+        return ScoreMatrixResult(
+            utilities=utilities_np,
+            welfare=welfare_np,
+            best=int(np.argmax(welfare_np)) if welfare_np.size else 0,
+            aux=aux_np,
+            cells=n_candidates * n_agents,
+            d2h_bytes=utilities_np.nbytes + welfare_np.nbytes
+            + (aux_np.nbytes if aux_np is not None else 0),
+            path="fused",
+        )
+
+    def _prefill_shared_pages(self, state, prefix_ids, shared, sink: int) -> None:
+        """Write every unique agent context's full pages (one row per unique
+        prefix, in chunks of up to 256 columns) into the pool
+        (``tpu.py:1522-1576``).  Rows that pad the batch bucket repeat row 0
+        with their writes sent to the sink."""
+        ps = self._SCORE_PAGE_SIZE
+        pre = [p for p in prefix_ids if shared[p][1] > 0]
+        if not pre:
+            return
+        n_rows = _bucket(len(pre), minimum=8)
+        max_n0 = max(shared[p][2] for p in pre)
+        chunk = min(256, _bucket(max_n0, minimum=ps))
+        tables = np.full((n_rows, max(shared[p][1] for p in pre)), -1, np.int32)
+        for r, p in enumerate(pre):
+            first, n_pages, _ = shared[p]
+            tables[r, :n_pages] = np.arange(first, first + n_pages, dtype=np.int32)
+        tables[len(pre):] = tables[0]
+        for k in range(0, max_n0, chunk):
+            tokens = np.full((n_rows, chunk), self.tokenizer.pad_id, np.int32)
+            valid = np.zeros((n_rows, chunk), bool)
+            lengths = np.zeros((n_rows,), np.int32)
+            write_pages = np.full((n_rows, chunk), sink, np.int32)
+            write_offsets = np.zeros((n_rows, chunk), np.int32)
+            for r, p in enumerate(pre):
+                first, _, n0 = shared[p]
+                hi = min(n0, k + chunk)
+                lengths[r] = hi
+                if hi <= k:
+                    continue
+                span = prefix_ids[p][k:hi]
+                valid[r, : len(span)] = True
+                tokens[r, : len(span)] = span
+                cols = np.arange(k, hi)
+                write_pages[r, : len(span)] = first + cols // ps
+                write_offsets[r, : len(span)] = cols % ps
+            tokens[len(pre):] = tokens[0]
+            valid[len(pre):] = valid[0]
+            lengths[len(pre):] = lengths[0]
+            stepper.paged_prefill_chunk(
+                self.params, self.config, *map(self._to_device, (tokens, valid)), state,
+                *map(self._to_device, (tables, lengths, write_pages, write_offsets)),
+            )
+
+    def _score_matrix_chunk(self, state, chunk, prefix_ids, n_rows: int, width: int, layout):
+        """One fused teacher-forced pass over a chunk of matrix rows
+        (``tpu.py:1578-1638``); rows past the chunk repeat row 0, write to
+        the sink and score nothing."""
+        ps = self._SCORE_PAGE_SIZE
+        shared, shared_total, max_private, max_blocks, sink = layout
+        tokens = np.full((n_rows, width), self.tokenizer.pad_id, np.int32)
+        targets = np.zeros((n_rows, width), np.int32)
+        score_mask = np.zeros((n_rows, width), bool)
+        chunk_valid = np.zeros((n_rows, width), bool)
+        tables = np.full((n_rows, max_blocks), -1, np.int32)
+        lengths = np.zeros((n_rows,), np.int32)
+        write_pages = np.full((n_rows, width), sink, np.int32)
+        write_offsets = np.zeros((n_rows, width), np.int32)
+        for r, (prefix, cont, q_len, n_private) in enumerate(chunk):
+            ids = prefix_ids[prefix]
+            first, n_pages, n0 = shared[prefix]
+            stream = ids + cont
+            tokens[r, :q_len] = stream[n0 : n0 + q_len]
+            chunk_valid[r, :q_len] = True
+            lengths[r] = n0 + q_len
+            tables[r, :n_pages] = np.arange(first, first + n_pages, dtype=np.int32)
+            base = shared_total + r * max_private
+            tables[r, n_pages : n_pages + n_private] = np.arange(
+                base, base + n_private, dtype=np.int32
+            )
+            pos = np.arange(n0, n0 + q_len)
+            write_pages[r, :q_len] = base + pos // ps - n0 // ps
+            write_offsets[r, :q_len] = pos % ps
+            has_next = pos + 1 < len(stream)
+            targets[r, :q_len][has_next] = np.asarray(stream)[pos[has_next] + 1]
+            lo = len(ids) - 1 - n0
+            score_mask[r, lo : lo + len(cont)] = bool(cont)
+        n_real = len(chunk)
+        for array in (tokens, targets, chunk_valid, lengths, tables):
+            array[n_real:] = array[0]
+        return stepper.paged_score_chunk(
+            self.params, self.config,
+            *map(self._to_device, (tokens, targets, score_mask, chunk_valid)), state,
+            *map(self._to_device, (tables, lengths, write_pages, write_offsets)),
+        )
 
     # -- token-search sessions -----------------------------------------------
 

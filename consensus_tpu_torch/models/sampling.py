@@ -6,7 +6,7 @@ A draw is ``argmax(logits / temperature + gumbel)``, the form
 ``torch.Generator`` per row -- a row's draw then depends only on its own
 generator, whatever else shares the batch -- or from an explicit ``noise``
 tensor, so tests can hand the JAX and the torch sampler the same numbers.
-The generators do not reproduce JAX's threefry bits (ROADMAP queue A3).
+The generators do not reproduce JAX's threefry bits (ROADMAP queue A1).
 """
 
 from __future__ import annotations

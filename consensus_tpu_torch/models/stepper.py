@@ -23,10 +23,16 @@ step here is one forward of one position for every row:
 Gumbel noise per (family, step, slot) comes from one ``torch.Generator``
 per slot (the session folds the seeds), or from an explicit ``noise``
 tensor so tests can hand the port JAX's numbers; the generators do not
-reproduce JAX's threefry bits (ROADMAP queue A3).  The JAX functions are
+reproduce JAX's threefry bits (ROADMAP queue A1).  The JAX functions are
 jitted and donate the tails; here ``search_step`` updates the tails of the
 state it is given in place and ``search_prefill`` / ``suffix_propose`` run
-eagerly.  The MCTS rollouts and the paged programs wait for queue A7/A4.
+eagerly.
+
+The paged programs of the fused (candidates x agents) score matrix
+(``stepper.py:647-832, 1228-1350``) follow: a page pool with a write sink,
+chunked prefill of shared context pages, and a teacher-forced scoring pass
+reduced on the device.  The MCTS rollouts wait for queue A7, the engine's
+paged decode steps for queue A8.
 """
 
 from __future__ import annotations
@@ -38,15 +44,23 @@ import torch
 from consensus_tpu_torch.models.config import ModelConfig
 from consensus_tpu_torch.models.generate import left_pad_positions
 from consensus_tpu_torch.models.sampling import gumbel_noise
+from consensus_tpu_torch.models.quant import matmul
 from consensus_tpu_torch.models.transformer import (
     KVCache,
+    _embed,
+    _finish_layer,
+    _rope_angles,
+    _rotate,
     forward,
     forward_shared_trunk,
     forward_trunk_tail,
     make_cache,
     params_dtype,
     project_logits,
+    rms_norm,
 )
+from consensus_tpu_torch.ops.decode_attention import paged_attention
+from consensus_tpu_torch.ops.welfare import DEFAULT_REWARD, WELFARE_RULES, sanitize_utilities
 
 
 class SearchState(NamedTuple):
@@ -263,3 +277,194 @@ def suffix_propose(
         params, config, hidden.reshape(n_paths * n_roles, -1), n_paths, n_roles,
         temperature, k, sample, ref_bias, generators, noise,
     )
+
+
+# ---------------------------------------------------------------------------
+# Paged programs (the fused score matrix)
+# ---------------------------------------------------------------------------
+#
+# A page pool holds every row's K/V in fixed-size pages that host-side block
+# tables name; a row's length enters as data (tables, lengths, write
+# cursors), never as a shape.  The pool has one extra SINK page at index
+# num_pages: padding rows and columns write their K/V there, nothing reads
+# it, and it is the only page that ever takes duplicate writes.
+
+
+class PagedSlotState(NamedTuple):
+    """Device page pool, (L, num_pages + 1, page_size, KV, hd) each; the
+    last page is the write sink."""
+
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+
+
+def make_page_state(
+    config: ModelConfig,
+    num_pages: int,
+    page_size: int,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> PagedSlotState:
+    c = config
+    shape = (c.n_layers, num_pages + 1, page_size, c.n_kv_heads, c.head_dim)
+    return PagedSlotState(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def _paged_forward(
+    params,
+    c: ModelConfig,
+    tokens: torch.Tensor,  # (B, S) int
+    positions: torch.Tensor,  # (B, S) int
+    state: PagedSlotState,
+    block_tables: torch.Tensor,  # (B, max_blocks) int, -1 padded
+    lengths: torch.Tensor,  # (B,) int -- INCLUDING this call's tokens
+    write_pages: torch.Tensor,  # (B, S) int -- the sink for invalid columns
+    write_offsets: torch.Tensor,  # (B, S) int
+) -> Tuple[torch.Tensor, PagedSlotState]:
+    """Write this call's K/V into the pages the cursors name (IN PLACE), then
+    attend every query through its row's block table -> (final-norm hidden
+    (B, S, D), state)."""
+    b, s = tokens.shape
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    pages, offsets = write_pages.long(), write_offsets.long()
+    x = _embed(params, c, tokens)
+    cos, sin = _rope_angles(positions, hd, c.rope_theta, c.rope_scaling)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    for layer, lp in enumerate(params["layers"]):
+        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
+        q = _rotate(matmul(attn_in, lp["wq"]).reshape(b, s, h, hd), cos, sin)
+        k = _rotate(matmul(attn_in, lp["wk"]).reshape(b, s, kv, hd), cos, sin)
+        v = matmul(attn_in, lp["wv"]).reshape(b, s, kv, hd)
+        k_pages, v_pages = state.k_pages[layer], state.v_pages[layer]
+        k_pages[pages, offsets] = k
+        v_pages[pages, offsets] = v
+        attn = paged_attention(
+            q, k_pages, v_pages, block_tables, lengths, positions, scale=c.q_scale,
+            softcap=c.attn_softcap,
+            window=c.sliding_window if c.layer_is_local(layer) else None,
+        )
+        x = _finish_layer(c, lp, x, attn.reshape(b, s, h * hd))
+    return rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style), state
+
+
+def _chunk_positions(chunk_valid: torch.Tensor, lengths: torch.Tensor):
+    """(valid count (B,), positions (B, S)): chunk column j of row b sits at
+    stream position lengths[b] - valid_count[b] + j."""
+    n_valid = chunk_valid.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    cols = torch.arange(chunk_valid.shape[1], dtype=torch.int32, device=lengths.device)
+    return n_valid, (lengths - n_valid)[:, None] + cols[None, :]
+
+
+@torch.no_grad()
+def paged_prefill_chunk(
+    params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (B, C) int -- one prompt chunk per row
+    chunk_valid: torch.Tensor,  # (B, C) bool -- real tokens of this chunk
+    state: PagedSlotState,
+    block_tables: torch.Tensor,  # (B, max_blocks)
+    lengths: torch.Tensor,  # (B,) int -- stream length AFTER this chunk
+    write_pages: torch.Tensor,  # (B, C)
+    write_offsets: torch.Tensor,  # (B, C)
+) -> Tuple[torch.Tensor, PagedSlotState]:
+    """Ingest one prompt chunk per row into the page pool (``stepper.py:787-832``):
+    each chunk token attends what the row already holds plus the chunk's
+    earlier tokens.  Returns the final-norm hidden of each row's LAST valid
+    chunk position (B, D) and the state, updated in place."""
+    n_valid, positions = _chunk_positions(chunk_valid, lengths)
+    hidden, state = _paged_forward(
+        params, config, tokens, positions, state, block_tables, lengths,
+        write_pages, write_offsets,
+    )
+    last = torch.clamp(n_valid - 1, min=0).long()
+    return hidden[torch.arange(hidden.shape[0], device=hidden.device), last], state
+
+
+@torch.no_grad()
+def paged_score_chunk(
+    params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (B, S) int -- query block per matrix row
+    targets: torch.Tensor,  # (B, S) int -- stream token AFTER each query position
+    score_mask: torch.Tensor,  # (B, S) bool -- continuation positions only
+    chunk_valid: torch.Tensor,  # (B, S) bool -- real columns of this chunk
+    state: PagedSlotState,
+    block_tables: torch.Tensor,  # (B, max_blocks) -- shared context + private pages
+    lengths: torch.Tensor,  # (B,) int -- stream length AFTER this call
+    write_pages: torch.Tensor,  # (B, S) int -- private pages / sink
+    write_offsets: torch.Tensor,  # (B, S) int
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], PagedSlotState]:
+    """Teacher-forced scoring of one (candidates x agents) row chunk over
+    shared context pages, reduced on the device (``stepper.py:1225-1311``).
+
+    A row's query block is the tail of its agent context past the last full
+    shared page (at least one token, so the hidden state at the final
+    context position exists) followed by all but the last candidate token.
+    Its block table names the agent's READ-ONLY shared pages, then the row's
+    private pages; writes land only there or in the sink.  The logprob of
+    stream token p + 1 is taken at query position p one column at a time,
+    so no (B, S, V) float32 tensor exists.  Returns the per-row reductions
+    ``(sum_lp, last_lp, sum_exp_lp, count)``, enough for every statistic,
+    and the state."""
+    b, s = tokens.shape
+    _, positions = _chunk_positions(chunk_valid, lengths)
+    hidden, state = _paged_forward(
+        params, config, tokens, positions, state, block_tables, lengths,
+        write_pages, write_offsets,
+    )
+    mask = score_mask & chunk_valid
+    device = hidden.device
+    sum_lp = torch.zeros((b,), dtype=torch.float32, device=device)
+    last_lp = torch.zeros((b,), dtype=torch.float32, device=device)
+    sum_exp = torch.zeros((b,), dtype=torch.float32, device=device)
+    counts = torch.zeros((b,), dtype=torch.int32, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    for col in range(s):
+        logprobs = torch.log_softmax(project_logits(params, config, hidden[:, col]), dim=-1)
+        t_lp = torch.gather(logprobs, 1, targets[:, col, None].long())[:, 0]
+        m = mask[:, col]
+        sum_lp = sum_lp + torch.where(m, t_lp, zero)
+        last_lp = torch.where(m, t_lp, last_lp)
+        sum_exp = sum_exp + torch.where(m, torch.exp(t_lp), zero)
+        counts = counts + m.to(torch.int32)
+    return (sum_lp, last_lp, sum_exp, counts), state
+
+
+def utility_matrix(
+    stats: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+    n_candidates: int,
+    n_agents: int,
+    stat: str = "mean",
+    rule: str = "egalitarian",
+    default: float = DEFAULT_REWARD,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Fold flattened (C*A,) per-row reductions into the (C, A) utility
+    matrix and its welfare vector on the device (``stepper.py:1314-1350``):
+    rows with no scored token take ``default``, then sanitize and the
+    welfare rule over the agent axis.  Returns ``(utilities, welfare,
+    aux)``, ``aux`` the per-cell mean probability for ``stat="moments"``
+    and None otherwise.  The caller takes the welfare argmax on the host
+    (``np.argmax``), so ties go to the first maximum."""
+    sum_lp, last_lp, sum_exp, counts = stats
+    counts_f = torch.clamp(counts, min=1).to(torch.float32)
+    if stat in ("mean", "moments"):
+        value = sum_lp / counts_f
+    elif stat == "sum":
+        value = sum_lp
+    elif stat == "last":
+        value = last_lp
+    else:
+        raise ValueError(f"unknown stat {stat!r}")
+    scored = counts > 0
+    value = torch.where(scored, value, torch.full_like(value, default))
+    utilities = value.reshape(n_candidates, n_agents)
+    welfare_vals = WELFARE_RULES[rule](sanitize_utilities(utilities), axis=1)
+    aux = None
+    if stat == "moments":
+        aux = torch.where(scored, sum_exp / counts_f, torch.zeros_like(sum_exp)).reshape(
+            n_candidates, n_agents
+        )
+    return utilities, welfare_vals, aux

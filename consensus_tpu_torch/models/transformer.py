@@ -14,12 +14,17 @@ keep the JAX layout (d_in, d_out).  Weights may be int8
   (``transformer.py:329-341``): the cache is written IN PLACE at
   ``write_index`` (the JAX version returns a new cache; here the same
   object comes back updated, which saves a copy per step).
-* ``forward_trunk_tail`` is the body of every fused token-search step: one
-  position per (slot x role) row over a trunk shared by the slots plus
-  per-row tails, attending through the hand-written decode kernel
-  (``ops/decode_attention.py``) when ``config.use_decode_attention`` is set.
-  ``forward_shared_trunk`` runs lookahead path suffixes over the same
-  shared trunk (einsum attention, as in the JAX package).
+* ``forward_trunk_tail`` is the body of every fused token-search step and
+  of every decode step of the shared-trunk and segmented generators: one
+  position per (slot x role) row over a trunk shared by the slots, frozen
+  blocks of earlier decode segments and per-row tails, any of them int8
+  (``quantize_kv``).  It attends through the hand-written decode kernel
+  (``ops/decode_attention.py``) when ``config.use_decode_attention`` is set
+  and there is no frozen or int8 block, else through einsums.
+* ``forward_shared_trunk`` runs lookahead path suffixes, and the
+  continuations of shared-context scoring (``shared_context_prefill``,
+  ``shared_context_cont_logprobs``), over one shared trunk (einsum
+  attention, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -346,65 +351,127 @@ def _embed(params: Params, c: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     return x
 
 
+def quantize_kv(arr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 over the head (last) dim, shape-agnostic:
+    (..., hd) -> (int8 same shape, float32 scale (..., 1))
+    (``transformer.py:389-402`` of the JAX package).
+
+    The one quantizer of every generated-KV surface: the per-step tail
+    writes here, and whole prompt trunks through ``generate._quantize_kv``
+    (an alias), so the per-(token, head) scale layout of a tail and of the
+    frozen block it turns into is the same.  Rounds half to even, as
+    ``jnp.round`` does."""
+    a = arr.to(torch.float32)
+    scale = a.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.round(a / torch.clamp(scale, min=1e-12))
+    return q.to(torch.int8), scale
+
+
+def _kv_values(block, dtype: torch.dtype) -> torch.Tensor:
+    """A KV block's values in the compute dtype (int8 pairs convert)."""
+    return block[0].to(dtype) if isinstance(block, tuple) else block
+
+
+def _kv_scales(block, shape) -> Optional[torch.Tensor]:
+    """Per-(row, token, head) scales of an int8 block as (P, R, KV, 1, T),
+    against logits (p, r, g, m, t); None for a dense block."""
+    if not isinstance(block, tuple):
+        return None
+    n_slots, n_roles, width, kv = shape
+    s = block[1].reshape(n_slots, n_roles, width, kv)
+    return s.permute(0, 1, 3, 2)[:, :, :, None, :]
+
+
+def _block_width(block) -> int:
+    return (block[0] if isinstance(block, tuple) else block).shape[2]
+
+
 def forward_trunk_tail(
     params: Params,
     config: ModelConfig,
     tokens: torch.Tensor,  # (Rows,) int -- one new token per (slot x role) row
     positions: torch.Tensor,  # (Rows,) int32 -- RoPE position of the new token
     trunk: KVCache,  # (L, R, W0, ...) shared read-only prefix, R = n_roles
-    tail_k: torch.Tensor,  # (L, Rows, Ts, KV, hd) per-row generated keys
-    tail_v: torch.Tensor,
+    tail_k,  # (L, Rows, Ts, KV, hd) per-row generated keys, or (int8, scale)
+    tail_v,
     tail_positions: torch.Tensor,  # (Rows, Ts) int32
     write_col: int,  # tail column of this step's token, a host int
     n_slots: int,
     n_roles: int,
+    frozen_k=(),  # sequence of (L, Rows, F_i, KV, hd) blocks, or (int8, scale)
+    frozen_v=(),
+    frozen_positions=(),  # sequence of (Rows, F_i) int32, one per block
     use_decode_kernel: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+):
     """One-token decode step where every search slot shares ONE trunk cache
     (``transformer.py:404-694`` of the JAX package).
 
     The prefix lives once per role and every (slot x role) row attends it
     plus its own tail, whose columns ``<= write_col`` are visible (this
     step's token is written there first).  This step's k/v are written
-    into ``tail_k`` / ``tail_v`` IN PLACE at ``write_col``; the JAX version
-    returns new tails from donated buffers.
+    into the tail IN PLACE at ``write_col``; the JAX version returns new
+    tails from donated buffers.
+
+    ``frozen_*`` are read-only blocks of tokens the row generated in earlier
+    decode segments (``generate.py``'s segmented decode), in chronological
+    order: attended where they lie, never concatenated, always fully visible
+    but to a sliding window.  A block, the live tail and the trunk may each
+    be an (int8 values, float32 per-(token, head) scales) pair; an int8 tail
+    is written quantized, one absmax round per step, so freezing a segment
+    is a list append.  Keys are taken in the order [trunk, frozen..., tail].
 
     Attention goes through the decode kernel when ``config.use_decode_attention``
-    and ``use_decode_kernel`` are both set; that masking model needs each
-    trunk row valid on ``[start_r, W0)`` with positions ``c - start_r`` and a
-    query position uniform across slots, which the session call sites give.
-    Otherwise it is the einsum path, masked by ``trunk.key_valid`` and
-    ``tail_positions``.  Frozen blocks and int8 tails or trunks (segmented
-    and int8-KV decode) wait for ROADMAP queue A2.
+    and ``use_decode_kernel`` are both set and there is no frozen block, no
+    int8 tail and no int8 trunk (``:542-548``).  That masking model needs
+    each trunk row valid on ``[start_r, W0)`` with positions ``c - start_r``
+    and a query position uniform across slots, which the call sites give.
+    Otherwise it is the einsum path, masked by ``trunk.key_valid`` and the
+    block positions.
 
     Returns (final-norm hidden (Rows, D), tail_k, tail_v)."""
     c = config
     h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
-    reps = h // kv
     rows = tokens.shape[0]
-    t_tail = tail_k.shape[2]
-    w0 = trunk.k.shape[2]
+    frozen_k, frozen_v = tuple(frozen_k), tuple(frozen_v)
+    tail_quantized = isinstance(tail_k, tuple)
+    trunk_quantized = isinstance(trunk.k, tuple)
+    t_tail = _block_width(tail_k)
+    w0 = _block_width(trunk.k)
     x = _embed(params, c, tokens)  # (Rows, D)
 
-    use_kernel = c.use_decode_attention and use_decode_kernel
+    use_kernel = (
+        c.use_decode_attention and use_decode_kernel
+        and not frozen_k and not tail_quantized and not trunk_quantized
+    )
     if use_kernel:
         # Trunk spans from key_valid (left-padded prefills); query positions
         # from slot 0's rows, uniform across slots.
         starts = trunk.key_valid.to(torch.int32).argmax(dim=1).to(torch.int32)
         qpos_r = positions.reshape(n_slots, n_roles)[0]
     else:
+        # Per-block (P, R, width) masks, global and sliding-window, in key
+        # order [trunk, frozen..., tail].
         qp = positions.reshape(n_slots, n_roles)[:, :, None]
         trunk_mask = trunk.key_valid[None].expand(n_slots, n_roles, w0)
         tail_fill = (torch.arange(t_tail, device=x.device) <= write_col)[None, None, :]
         tail_mask = tail_fill.expand(n_slots, n_roles, t_tail)
+        widths = [_block_width(b) for b in frozen_k]
+        global_masks = [trunk_mask]
+        global_masks += [torch.ones((n_slots, n_roles, w), dtype=torch.bool, device=x.device)
+                         for w in widths]
+        global_masks.append(tail_mask)
         if c.sliding_window is not None:
+            local_masks = [trunk_mask & (qp - trunk.key_positions[None] < c.sliding_window)]
+            local_masks += [
+                qp - fp.reshape(n_slots, n_roles, w) < c.sliding_window
+                for fp, w in zip(frozen_positions, widths)
+            ]
             tail_kp = tail_positions.reshape(n_slots, n_roles, t_tail)
-            trunk_local = trunk_mask & (qp - trunk.key_positions[None] < c.sliding_window)
-            tail_local = tail_fill & (qp - tail_kp < c.sliding_window)
+            local_masks.append(tail_fill & (qp - tail_kp < c.sliding_window))
         else:
-            trunk_local, tail_local = trunk_mask, tail_mask
-        global_mask = torch.cat([trunk_mask, tail_mask], dim=-1)[:, :, None, None]
-        local_mask = torch.cat([trunk_local, tail_local], dim=-1)[:, :, None, None]
+            local_masks = global_masks
+        global_mask = torch.cat(global_masks, dim=-1)[:, :, None, None]
+        local_mask = torch.cat(local_masks, dim=-1)[:, :, None, None]
 
     cos, sin = _rope_angles(positions[:, None], hd, c.rope_theta, c.rope_scaling)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
@@ -415,8 +482,14 @@ def forward_trunk_tail(
         q = _rotate(matmul(attn_in, lp["wq"]).reshape(rows, 1, h, hd), cos, sin)
         k = _rotate(matmul(attn_in, lp["wk"]).reshape(rows, 1, kv, hd), cos, sin)
         v = matmul(attn_in, lp["wv"]).reshape(rows, kv, hd)
-        tail_k[layer, :, write_col] = k[:, 0]
-        tail_v[layer, :, write_col] = v
+        if tail_quantized:
+            for block, new in ((tail_k, k[:, 0]), (tail_v, v)):
+                values, scales = quantize_kv(new)
+                block[0][layer, :, write_col] = values
+                block[1][layer, :, write_col] = scales
+        else:
+            tail_k[layer, :, write_col] = k[:, 0]
+            tail_v[layer, :, write_col] = v
 
         if use_kernel:
             attn = decode_attention(
@@ -425,27 +498,69 @@ def forward_trunk_tail(
                 softcap=c.attn_softcap, window=c.sliding_window if is_local else None,
             ).to(x.dtype)
         else:
-            qg = q.reshape(n_slots, n_roles, kv, reps, hd)
-            tail_kg = tail_k[layer].reshape(n_slots, n_roles, t_tail, kv, hd)
-            tail_vg = tail_v[layer].reshape(n_slots, n_roles, t_tail, kv, hd)
-            logits = torch.cat(
-                [
-                    torch.einsum("prgmd,rtgd->prgmt", qg, trunk.k[layer]).to(torch.float32),
-                    torch.einsum("prgmd,prtgd->prgmt", qg, tail_kg).to(torch.float32),
-                ],
-                dim=-1,
+            attn = _trunk_tail_attention(
+                c, q, x.dtype, layer, trunk, frozen_k, frozen_v, tail_k, tail_v,
+                n_slots, n_roles, local_mask if is_local else global_mask,
             )
-            logits = _softcap(logits * c.q_scale, c.attn_softcap)
-            mask = local_mask if is_local else global_mask
-            logits = logits.masked_fill(~mask, MASK_FILL)
-            weights = torch.softmax(logits, dim=-1).to(x.dtype)
-            attn = torch.einsum(
-                "prgmt,rtgd->prgmd", weights[..., :w0], trunk.v[layer]
-            ) + torch.einsum("prgmt,prtgd->prgmd", weights[..., w0:], tail_vg)
         x = _finish_layer(c, lp, x, attn.reshape(rows, h * hd))
 
     x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
     return x, tail_k, tail_v
+
+
+def _layer_block(block, layer: int):
+    """Layer ``layer`` of a dense (L, ...) block or an (int8, scale) pair."""
+    if isinstance(block, tuple):
+        return block[0][layer], block[1][layer]
+    return block[layer]
+
+
+def _trunk_tail_attention(
+    c: ModelConfig, q, dtype, layer, trunk, frozen_k, frozen_v, tail_k, tail_v,
+    n_slots, n_roles, mask,
+) -> torch.Tensor:
+    """The einsum route of :func:`forward_trunk_tail` for one layer: logits
+    over [trunk, frozen..., tail], int8 blocks dequantized through their
+    per-(token, head) scales (keys: on the fp32 logits; values: folded into
+    the weights), one masked softmax.  Returns (P, R, KV, reps, hd)."""
+    kv, hd = c.n_kv_heads, c.head_dim
+    reps = c.n_heads // kv
+    qg = q.reshape(n_slots, n_roles, kv, reps, hd)
+    k_trunk = _layer_block(trunk.k, layer)
+    v_trunk = _layer_block(trunk.v, layer)
+    w0 = _block_width(trunk.k)
+    # The trunk's (R, W0, KV, 1) scales broadcast over slots.
+    lt = torch.einsum("prgmd,rtgd->prgmt", qg, _kv_values(k_trunk, dtype)).to(torch.float32)
+    if isinstance(k_trunk, tuple):
+        lt = lt * k_trunk[1][..., 0].permute(0, 2, 1)[None, :, :, None, :]
+    keys = [_layer_block(b, layer) for b in frozen_k] + [_layer_block(tail_k, layer)]
+    values = [_layer_block(b, layer) for b in frozen_v] + [_layer_block(tail_v, layer)]
+    widths = [_block_width(b) for b in frozen_k] + [_block_width(tail_k)]
+    blocks = [lt]
+    for block, width in zip(keys, widths):
+        kg = _kv_values(block, dtype).reshape(n_slots, n_roles, width, kv, hd)
+        lg = torch.einsum("prgmd,prtgd->prgmt", qg, kg).to(torch.float32)
+        scales = _kv_scales(block, (n_slots, n_roles, width, kv))
+        blocks.append(lg if scales is None else lg * scales)
+    logits = _softcap(torch.cat(blocks, dim=-1) * c.q_scale, c.attn_softcap)
+    logits = logits.masked_fill(~mask, MASK_FILL)
+    weights = torch.softmax(logits, dim=-1).to(dtype)
+
+    wt = weights[..., :w0]
+    if isinstance(v_trunk, tuple):
+        sv = v_trunk[1][..., 0].permute(0, 2, 1)[None, :, :, None, :]
+        wt = (wt.to(torch.float32) * sv).to(dtype)
+    attn = torch.einsum("prgmt,rtgd->prgmd", wt, _kv_values(v_trunk, dtype))
+    offset = w0
+    for block, width in zip(values, widths):
+        w = weights[..., offset : offset + width]
+        scales = _kv_scales(block, (n_slots, n_roles, width, kv))
+        if scales is not None:
+            w = (w.to(torch.float32) * scales).to(dtype)
+        vg = _kv_values(block, dtype).reshape(n_slots, n_roles, width, kv, hd)
+        attn = attn + torch.einsum("prgmt,prtgd->prgmd", w, vg)
+        offset += width
+    return attn
 
 
 def forward_shared_trunk(
@@ -454,13 +569,17 @@ def forward_shared_trunk(
     suffix_tokens: torch.Tensor,  # (P, L) int -- per-path suffix token ids
     cache: KVCache,  # R-row trunk cache (one row per role), read-only
     cur_pos: torch.Tensor,  # (R,) int32 -- last written trunk position per role
+    return_all_positions: bool = False,
 ) -> torch.Tensor:
     """Forward P path suffixes over ONE shared R-row trunk cache
     (``transformer.py:697-824`` of the JAX package): the trunk keeps its
     (R, T, ...) shape and broadcasts against the (P, R, ...) suffix queries
     inside the attention einsums, so the only per-path state is the suffix
     itself.  The cache is not written.  Returns the final-norm hidden states
-    of the LAST suffix position, (P, R, D)."""
+    of the LAST suffix position, (P, R, D), or of every position, (P, R, L,
+    D), with ``return_all_positions`` (the shared-context scorer).  The
+    reference's ``return_suffix_kv`` serves MCTS rollouts and waits for
+    them (ROADMAP queue A7)."""
     c = config
     n_paths, span = suffix_tokens.shape
     h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
@@ -519,7 +638,7 @@ def forward_shared_trunk(
         x = _finish_layer(c, lp, x, attn.reshape(n_paths, n_roles, span, h * hd))
 
     x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
-    return x[:, :, -1, :]
+    return x if return_all_positions else x[:, :, -1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -598,3 +717,80 @@ def _streamed_target_logprobs(
     lse = run_max + torch.log(run_sum)
     target_logits = _softcap(gather_target_logits(x, head, targets.long()), c.final_softcap)
     return target_logits - lse
+
+
+# ---------------------------------------------------------------------------
+# Shared-context scoring
+# ---------------------------------------------------------------------------
+
+
+def shared_context_token_logprobs(
+    params: Params,
+    config: ModelConfig,
+    ctx_tokens: torch.Tensor,  # (1, C) int, RIGHT-padded shared context
+    ctx_valid: torch.Tensor,  # (1, C) bool
+    cont_tokens: torch.Tensor,  # (P, L) int, RIGHT-padded continuations
+    cont_valid: torch.Tensor,  # (P, L) bool
+    vocab_chunk: int = 8192,
+) -> torch.Tensor:
+    """Score P continuations of ONE shared context (``transformer.py:944-978``
+    of the JAX package): (P, L) float32 where slot [p, j] = log p(cont[p, j]
+    | ctx, cont[p, :j]); invalid slots are 0.  The context prefills once into
+    a trunk cache and only the continuations run, with the trunk broadcast
+    against every candidate (:func:`forward_shared_trunk`): O(C + P*L)
+    token forwards where :func:`token_logprobs` on the concatenation needs
+    O(P*(C + L)), with the same semantics up to summation order."""
+    trunk, ctx_len, last_hidden = shared_context_prefill(params, config, ctx_tokens, ctx_valid)
+    return shared_context_cont_logprobs(
+        params, config, trunk, ctx_len, last_hidden, cont_tokens, cont_valid, vocab_chunk
+    )
+
+
+def shared_context_prefill(
+    params: Params,
+    config: ModelConfig,
+    ctx_tokens: torch.Tensor,  # (1, C) int, RIGHT-padded shared context
+    ctx_valid: torch.Tensor,  # (1, C) bool
+) -> Tuple[KVCache, torch.Tensor, torch.Tensor]:
+    """Prefill ONE shared context into a trunk cache -> (trunk, ctx_len (1,),
+    last_hidden (1, 1, D)), so a scoring group wider than one row chunk
+    prefills its context once (``transformer.py:981-1006``).  Positions come
+    from a cumsum over the right-padded valid mask."""
+    trunk = make_cache(
+        config, 1, ctx_tokens.shape[1], params_dtype(params), ctx_tokens.device
+    )
+    hidden, trunk = forward(
+        params, config, ctx_tokens, _score_positions(ctx_valid), ctx_valid, trunk, 0,
+        return_hidden=True,
+    )
+    ctx_len = ctx_valid.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    last = (ctx_len - 1).long()[:, None, None].expand(-1, 1, hidden.shape[-1])
+    last_hidden = torch.gather(hidden, 1, last)
+    return trunk, ctx_len, last_hidden
+
+
+def shared_context_cont_logprobs(
+    params: Params,
+    config: ModelConfig,
+    trunk: KVCache,
+    ctx_len: torch.Tensor,  # (1,)
+    last_hidden: torch.Tensor,  # (1, 1, D)
+    cont_tokens: torch.Tensor,  # (P, L) int, RIGHT-padded continuations
+    cont_valid: torch.Tensor,  # (P, L) bool
+    vocab_chunk: int = 8192,
+) -> torch.Tensor:
+    """Score P continuations against an already-prefilled shared trunk
+    (``transformer.py:1009-1046``): continuation token 0 from the context's
+    last hidden state, token j > 0 from the suffix forward at j - 1."""
+    n_cont, span = cont_tokens.shape
+    first = last_hidden[:, 0].expand(n_cont, last_hidden.shape[-1])[:, None, :]
+    logprobs = _streamed_target_logprobs(params, config, first, cont_tokens[:, :1], vocab_chunk)
+    if span > 1:
+        hidden = forward_shared_trunk(
+            params, config, cont_tokens[:, :-1], trunk, ctx_len - 1, return_all_positions=True
+        )  # (P, 1, L-1, D)
+        rest = _streamed_target_logprobs(
+            params, config, hidden[:, 0], cont_tokens[:, 1:], vocab_chunk
+        )
+        logprobs = torch.cat([logprobs, rest], dim=1)
+    return torch.where(cont_valid, logprobs, torch.zeros_like(logprobs))

@@ -19,6 +19,10 @@ sliding window keeps trunk column ``c`` when ``qpos_r - (c - start_r) <
 window`` and tail column ``j`` when ``write_col - j < window``.  The softcap
 applies before the mask; a row with no valid key comes out as 0.
 
+``paged_attention`` at the end of the module (the fused score matrix's
+attention over a page pool) is plain PyTorch, as its JAX counterpart is
+plain ``jnp``: no TPU kernel stands behind it.
+
 Dispatch: a CPU tensor runs :func:`decode_attention_reference`, the plain
 PyTorch version; a CUDA tensor launches the kernel (bf16, head_dim 128 or
 256, any number of slots) or raises.  There is no fallback from one to the
@@ -264,3 +268,49 @@ def launch_kernel(lib: ctypes.CDLL, q, trunk_k, trunk_v, tail_k, tail_v, starts,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
+
+
+# ---------------------------------------------------------------------------
+# Paged attention: gather K/V through per-row block tables
+# ---------------------------------------------------------------------------
+
+
+def paged_attention(
+    q: torch.Tensor,  # (B, S, H, hd) -- S query positions per row
+    k_pages: torch.Tensor,  # (num_pages [+ sink], page_size, KV, hd)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_blocks) int, -1 padded
+    lengths: torch.Tensor,  # (B,) int -- valid tokens in the row's stream
+    q_positions: torch.Tensor,  # (B, S) int -- query RoPE positions
+    scale: float,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """GQA attention over a PAGED KV cache (``ops/decode_attention.py:281-337``
+    of the JAX package, plain ``jnp`` there too: it has no Pallas kernel).
+
+    A row's token t sits at page ``table[t // page_size]``, offset ``t %
+    page_size``, with RoPE position t (streams are contiguous from 0), so
+    causality is position arithmetic.  The gather materializes a (B,
+    max_blocks * page_size, KV, hd) view; -1 table entries gather page 0 and
+    are masked by ``lengths``, like the columns past a row's length in its
+    last page.  Returns (B, S, H, hd) in q's dtype."""
+    b, s, h, hd = q.shape
+    page_size, kv = k_pages.shape[1], k_pages.shape[2]
+    t_len = block_tables.shape[1] * page_size
+    safe_tables = block_tables.clamp(min=0).long()
+    keys = k_pages[safe_tables].reshape(b, t_len, kv, hd)
+    values = v_pages[safe_tables].reshape(b, t_len, kv, hd)
+
+    kpos = torch.arange(t_len, device=q.device)[None, :]
+    mask = (kpos[:, None, :] <= q_positions[:, :, None]) & (kpos < lengths[:, None])[:, None, :]
+    if window is not None:
+        mask = mask & (q_positions[:, :, None] - kpos[:, None, :] < window)
+
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    logits = torch.einsum("bsgrd,btgd->bgrst", qg, keys).to(torch.float32) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bgrst,btgd->bsgrd", weights, values).reshape(b, s, h, hd)

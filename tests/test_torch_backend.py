@@ -1,7 +1,9 @@
 """The slice as a whole: TorchBackend against TPUBackend on the same weights.
 
 The reference is ``TPUBackend(..., dtype="float32", use_flash_attention=True)``
-with every unported path switched off; its random weights are converted
+with the classic generation and per-call scoring paths (the defaults'
+shared-trunk, segmented and int8-KV generation and shared-context scoring
+have their own test files); its random weights are converted
 with ``params_from_jax`` into ``TorchBackend(device="cpu")``.  Tolerances:
 score logprobs and best-of-N utilities 1e-4 absolute (float32 forwards
 summed in different orders; the JAX side scores best-of-N through its fused
@@ -33,7 +35,7 @@ torch.set_num_threads(1)
 
 MODEL = "tiny-llama3"
 ATOL = 1e-4
-UNPORTED_OFF = dict(
+CLASSIC_PATHS = dict(
     shared_context_scoring=False, shared_trunk_generation=False,
     segmented_decode=False, kv_quant=False,
 )
@@ -49,12 +51,12 @@ ISSUE = "Should the city add bike lanes?"
 def backends():
     ref = TPUBackend(
         model=MODEL, dtype="float32", use_flash_attention=True, max_context=256,
-        max_batch_rows=32, **UNPORTED_OFF,
+        max_batch_rows=32, **CLASSIC_PATHS,
     )
     params = params_from_jax(jax.tree.map(np.asarray, ref.params), ref.config)
     port = TorchBackend(
         model=MODEL, dtype="float32", use_flash_attention=True, max_context=256,
-        max_batch_rows=32, params=params, device="cpu", **UNPORTED_OFF,
+        max_batch_rows=32, params=params, device="cpu", **CLASSIC_PATHS,
     )
     assert dataclasses.asdict(port.config) == dataclasses.asdict(ref.config)
     return ref, port
@@ -143,12 +145,13 @@ def test_experiment_results_csv(backends, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "option",
-    ["shared_context_scoring", "shared_trunk_generation", "segmented_decode", "kv_quant"],
+    "option, value",
+    [("tp", 2), ("dp", 2), ("mesh", "dp=1,tp=2"), ("checkpoint", "weights/"),
+     ("pin_generation_budget", True), ("quantize_frozen_kv", True)],
 )
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBackend(model=MODEL, device="cpu", **{option: True})
+        TorchBackend(model=MODEL, device="cpu", **{option: value})
 
 
 def test_unported_mesh_and_default_device():

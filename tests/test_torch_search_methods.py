@@ -5,7 +5,7 @@ The reference is ``TPUBackend(..., dtype="float32", use_decode_attention=True)``
 switched off; its random weights are converted with ``params_from_jax`` into
 ``TorchBackend(device="cpu", use_decode_attention=True)`` (the kernel's
 plain version).  Beam search and finite lookahead run at temperature 0, so
-the Gumbel noise, whose bits differ between the two (ROADMAP queue A3), is
+the Gumbel noise, whose bits differ between the two (ROADMAP queue A1), is
 scaled away; statements must match exactly, on prompts whose every
 proposal list is checked to be tie-free (gaps > 1e-3 between consecutive
 reference logprobs, against float32 differences ~1e-5).  Session-level
