@@ -25,8 +25,12 @@ JSON line each; any failure exits non-zero:
    through flash_attention.
 5. ``token_search_path`` -- the token-search config (same model, with
    ``use_decode_attention``) through ``Experiment``: beam_search and
-   finite_lookahead to a results.csv, counts zeroed just before and read
-   just after; every search step goes through decode_attention.  Then the
+   finite_lookahead to a results.csv, then finite_lookahead alone at
+   scenario 1's other two seeds (43, 44), whose sessions must advance
+   (seed 42's first pick is a terminator: an empty statement, as the
+   reference's method writes on the same draws); counts zeroed just before
+   and read just after; every search step and brushup decode step goes
+   through decode_attention.  Then the
    kernel route of a few search steps is held against the einsum route of
    the same bf16 model.
 6. ``reference_defaults_path`` -- the reference-defaults config (scenario
@@ -35,10 +39,10 @@ JSON line each; any failure exits non-zero:
    takes the classic segmented rows, best-of-N scores through the fused
    score matrix, counts zeroed just before and read just after.  The fused
    utilities are held against the same backend's per-call fallback.
-7. ``decode_route_check`` -- one fixed 256-token sequence teacher-forced
+7. ``decode_route_check`` -- one fixed 128-token sequence teacher-forced
    for 4 rows through ``forward_trunk_tail`` over one shared 1024-column
    trunk by six routes: a dense tail by einsum, the same by
-   decode_attention, frozen 128-column blocks, the classic layout (one trunk
+   decode_attention, frozen 64-column blocks, the classic layout (one trunk
    row per request), each held against the first; frozen blocks in int8
    and the classic layout with an int8 trunk, each held against its own
    bf16 layout, and checked to attend int8 values with scales.
@@ -46,6 +50,20 @@ JSON line each; any failure exits non-zero:
    requests on the reference-defaults config plus ``use_decode_attention``:
    the monolithic shared-trunk decode, every step through decode_attention,
    counts zeroed just before and read just after.
+9. ``threefry_on_card`` -- the port's threefry (bit for bit ``jax.random``
+   on the CPU, pinned by the tests) on the card equals the same calls on
+   the CPU, bit for bit; ms per decode step of split + gumbel + argmax.
+10. ``greedy_batch_invariance`` -- one greedy 200-token request of the
+   habermas-eval config decoded inside batches of 1, 8, 9 and 32 distinct
+   requests: token for token the same, or the first step that differs;
+   the backend's ``deterministic_greedy`` must match the result.
+11. ``habermas_eval_path`` -- the habermas-eval config through
+   ``run_pipeline`` (``cli/run_experiment_with_eval.py``): best_of_n,
+   habermas_machine and predefined, the resident judge's comparative
+   ranking, evaluation under gemma2-9b and llama3-8b (each at full width,
+   the gemma2-9b backend freed after its phase), aggregation; counts
+   zeroed just before and read just after; evaluation embeds through
+   flash_attention under each model.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -55,6 +73,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -76,6 +95,7 @@ ATOL, RTOL = 5e-3, 1e-2
 CONFIG = "consensus_tpu_torch/configs/llama3_8b_best_of_n.yaml"
 TOKEN_SEARCH_CONFIG = "consensus_tpu_torch/configs/llama3_8b_token_search.yaml"
 REFERENCE_CONFIG = "consensus_tpu_torch/configs/llama3_8b_reference_defaults.yaml"
+HABERMAS_CONFIG = "consensus_tpu_torch/configs/llama3_8b_habermas_eval.yaml"
 OUT_DIR = ROOT / "results" / "chip_smoke"
 KERNELS = ("flash_attention", "decode_attention")
 
@@ -767,6 +787,7 @@ def token_search_path():
 
     from consensus_tpu_torch.backends.torch_backend import TorchBackend
     from consensus_tpu_torch.experiment import Experiment
+    from consensus_tpu_torch.models import generate as gen
     from consensus_tpu_torch.ops import decode_attention as da
     from consensus_tpu_torch.ops import flash_attention as fa
 
@@ -777,41 +798,80 @@ def token_search_path():
     torch.cuda.synchronize()
     init_s = time.perf_counter() - started
 
-    sessions = []
+    sessions, opened_sessions = [], []
     open_session = backend.open_fused_token_search
 
     def opened(spec):
         session = open_session(spec)
         sessions.append(type(session).__name__)
+        opened_sessions.append(session)
         return session
 
     backend.open_fused_token_search = opened
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches.reset()
-    da.launches.reset()
-    t0 = time.perf_counter()
-    experiment = Experiment(config, backend=backend)
-    frame = experiment.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches.count, "decode_attention": da.launches.count}
-    shapes = {key: (count, args) for key, (count, args) in da.launches.shapes.items()}
-    del backend.open_fused_token_search
+    # Scenario 1 runs seeds 42-44; the config keeps the first.  Finite
+    # lookahead stops at its first pick when that is a terminator, and then
+    # writes an empty statement as the reference's method does on the same
+    # draws (tests/test_torch_search_methods.py, sampled statements).  So the
+    # method also runs at scenario 1's other two seeds, whose statements must
+    # advance its trunk session through decode_attention (P=1, R=6).
+    lookahead_config = dict(
+        config, experiment_name=config["experiment_name"] + "_lookahead_seeds",
+        seed=config["seed"] + 1, num_seeds=2, methods_to_run=["finite_lookahead"],
+    )
+    # The brushups' classic generation decodes one forward_trunk_tail per
+    # step through decode_attention, as the reference's does: counted here.
+    with Wrapped(gen, ("forward_trunk_tail",)) as decode_steps:
+        fa.launches.reset()
+        da.launches.reset()
+        t0 = time.perf_counter()
+        experiment = Experiment(config, backend=backend)
+        experiment.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lookahead = Experiment(lookahead_config, backend=backend)
+        lookahead.run()
+        torch.cuda.synchronize()
+        lookahead_wall = time.perf_counter() - t0 - wall
+        launches = {"flash_attention": fa.launches.count, "decode_attention": da.launches.count}
+        shapes = {key: (count, args) for key, (count, args) in da.launches.shapes.items()}
+    brushup_steps = decode_steps.calls["forward_trunk_tail"]
+    session_steps = [session._step for session in opened_sessions]
+    del backend.open_fused_token_search, opened_sessions
 
     on_disk = pd.read_csv(experiment.run_dir / "results.csv", keep_default_na=False)
+    seeds_on_disk = pd.read_csv(lookahead.run_dir / "results.csv", keep_default_na=False)
     methods = config["methods_to_run"]
     n_layers = backend.config.n_layers
     advances = backend.call_counts["search_advances"]
     tokens = dict(backend.token_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    statements = list(on_disk["statement"].astype(str)) + list(
+        seeds_on_disk["statement"].astype(str)
+    )
+    seed_steps = session_steps[len(methods):]
+    lookahead_launches = sum(
+        count for (q, trunk, _), (count, _) in shapes.items() if q[0] == trunk[0] == 6
+    )
     checks = {
         "one_row_per_method": list(on_disk["method"]) == methods,
-        "no_errors": bool((on_disk["error_message"] == "").all()),
-        "statements_non_empty": bool(on_disk["statement"].astype(str).str.len().gt(0).all()),
-        "fused_sessions_only": len(sessions) == len(methods)
+        "no_errors": bool((on_disk["error_message"] == "").all())
+        and bool((seeds_on_disk["error_message"] == "").all()),
+        # A statement is empty exactly when its session emitted no token.
+        "statements_non_empty": len(session_steps) == len(statements) and all(
+            (len(text) > 0) == (steps > 0) for text, steps in zip(statements, session_steps)
+        ),
+        "lookahead_seeds_advanced": list(seeds_on_disk["seed"]) == [config["seed"] + 1, config["seed"] + 2]
+        and len(seed_steps) == 2 and all(steps > 0 for steps in seed_steps)
+        and bool(seeds_on_disk["statement"].astype(str).str.len().gt(0).all()),
+        "fused_sessions_only": len(sessions) == len(methods) + 2
         and all(name == "TorchTokenSearchSession" for name in sessions),
-        "decode_launches_eq_layers_x_advances": launches["decode_attention"] == n_layers * advances > 0,
+        "decode_launches_eq_layers_x_advances_and_brushup_steps": launches["decode_attention"]
+        == n_layers * (advances + brushup_steps) and advances > 0 and brushup_steps > 0,
+        # Beam's queries are 4 x 6 rows; lookahead's trunk session 1 x 6.
+        "lookahead_launched_decode_attention_at_p1_r6": lookahead_launches
+        == n_layers * sum(session_steps[1:]) and sum(seed_steps) > 0,
     }
     agent_err, ref_err, check_launches = decode_route_check(backend, config)
     checks["k2_route_matches_einsum_route"] = (
@@ -825,7 +885,17 @@ def token_search_path():
         "quantization": backend.quantization, "methods": methods,
         "init_s": init_s, "experiment_s": wall,
         "generation_time_s": dict(zip(on_disk["method"], on_disk["generation_time_s"])),
-        "search_advances": advances, "sessions": sessions, "tokens": tokens,
+        "lookahead_seeds": {
+            "seeds": list(seeds_on_disk["seed"]), "experiment_s": lookahead_wall,
+            "generation_time_s": list(seeds_on_disk["generation_time_s"]),
+            "statement_chars": [len(t) for t in seeds_on_disk["statement"].astype(str)],
+            "session_steps": seed_steps, "decode_launches_p1_r6": lookahead_launches,
+            "results_csv": str(lookahead.run_dir.relative_to(ROOT) / "results.csv"),
+        },
+        "search_advances": advances, "brushup_decode_steps": brushup_steps,
+        "sessions": sessions, "session_steps": session_steps,
+        "statement_chars": {m: len(t) for m, t in zip(on_disk["method"], on_disk["statement"].astype(str))},
+        "tokens": tokens,
         "launches": launches,
         "decode_shapes": [
             {"q": list(q), "trunk": list(t), "tail": list(l), "launches": count}
@@ -840,7 +910,7 @@ def token_search_path():
         },
         "checks": checks, "ok": all(checks.values()),
     }
-    del backend, experiment
+    del backend, experiment, lookahead
     torch.cuda.empty_cache()
     return row, launches, shapes
 
@@ -855,28 +925,36 @@ GENERATION_ROUTES = (
 
 
 class Wrapped:
-    """Replaces module attributes by counting (or recording) wrappers for a
-    ``with`` block and restores them after."""
+    """Replaces attributes of ``obj`` (a module or a class) for a ``with``
+    block and restores them after: each of ``names`` by a wrapper that
+    counts its calls (and hands each result to ``record``), each key of
+    ``make`` by ``make[key](original)``."""
 
-    def __init__(self, module, names, record=None):
-        self.module, self.names, self.record = module, names, record
+    def __init__(self, obj, names=(), record=None, make=None):
+        self.obj, self.record = obj, record
         self.calls = {name: 0 for name in names}
+        self.make = dict(make or {}, **{name: self._counting(name) for name in names})
+
+    def _counting(self, name):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                self.calls[name] += 1
+                out = fn(*args, **kwargs)
+                if self.record is not None:
+                    self.record(name, out)
+                return out
+            return wrapper
+        return make
 
     def __enter__(self):
-        self.saved = {name: getattr(self.module, name) for name in self.names}
+        self.saved = {name: getattr(self.obj, name) for name in self.make}
         for name, fn in self.saved.items():
-            def wrapper(*args, _name=name, _fn=fn, **kwargs):
-                self.calls[_name] += 1
-                out = _fn(*args, **kwargs)
-                if self.record is not None:
-                    self.record(_name, out)
-                return out
-            setattr(self.module, name, wrapper)
+            setattr(self.obj, name, self.make[name](fn))
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
-            setattr(self.module, name, fn)
+            setattr(self.obj, name, fn)
 
 
 def reference_defaults_path():
@@ -1049,17 +1127,20 @@ def reference_defaults_path():
 #: dense tail by einsum.  Each int8 route is held against its own bf16
 #: layout (frozen_int8 vs frozen, classic_int8 vs classic), so that gap is
 #: the quantization error alone, and to INT8_ATOL.
-GEN_ROUTE_STEPS = 256
+#: 128 steps in two 64-column segments: cut from 256 steps in 128-column
+#: segments to keep the whole script well inside its time limit.
+GEN_ROUTE_STEPS = 128
 GEN_ROUTE_ROWS = 4
-GEN_SEGMENT = 128
+GEN_SEGMENT = 64
 GEN_ROUTES = ("einsum", "kernel", "frozen", "frozen_int8", "classic", "classic_int8")
 #: route -> the route it is held against.
 GEN_ROUTE_BASE = {"kernel": "einsum", "frozen": "einsum", "classic": "einsum",
                   "frozen_int8": "frozen", "classic_int8": "classic"}
-#: On the H100 the int8 routes' gaps against their own bf16 layouts
-#: measured 0.0716 (frozen) and 0.0684 (classic) at most, 0.0122 and 0.0129
-#: on average; the bf16 regroupings' 0.067-0.069 at most, 0.0063 on
-#: average.  The largest gap over 256 steps x 4 rows x every id sits near
+#: On the H100 (over 256 steps in 128-column segments) the int8 routes'
+#: gaps against their own bf16 layouts measured 0.0716 (frozen) and 0.0684
+#: (classic) at most, 0.0122 and 0.0129 on average; the bf16 regroupings'
+#: 0.067-0.069 at most, 0.0063 on average.  The largest gap over the steps
+#: x 4 rows x every id sits near
 #: 0.07 whatever perturbs this random-weight model, so the mean gap is
 #: what holds the quantization error.
 INT8_ATOL = 0.08
@@ -1078,7 +1159,7 @@ def _int8_block(block) -> bool:
 
 
 def generation_route_check(backend, config):
-    """One fixed 256-token sequence teacher-forced for 4 rows over one shared
+    """One fixed 128-token sequence teacher-forced for 4 rows over one shared
     1024-column prompt trunk by the six routes of ``GEN_ROUTES`` -> (max and
     mean |logprob diff| of each route against its ``GEN_ROUTE_BASE`` route,
     max against the einsum route; whether every tail, frozen block and trunk the
@@ -1302,6 +1383,400 @@ def summary_decode(launches, shapes, max_err):
         ],
     }, all(r["ok"] for r in by_shape)
 
+# -- threefry on the card ---------------------------------------------------------
+
+THREEFRY_VOCABS = (268, 128256, 256128)
+
+
+def threefry_on_card():
+    """The port's threefry on CUDA against the same calls on the CPU, bit
+    for bit (the chip machine has no JAX: the CPU side is pinned to
+    ``jax.random`` by tests/test_torch_threefry.py), and the cost of one
+    decode step's sampling (split the (8, 2) keys, gumbel, argmax)."""
+    import torch
+
+    from consensus_tpu_torch.utils import threefry as tf
+
+    def same(a, b):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+    checks = {}
+    for device_name in ("prng_key", "split", "fold_in"):
+        checks[device_name] = True
+    for seed in range(50):
+        cpu, gpu = tf.prng_key(seed), tf.prng_key(seed, "cuda")
+        checks["prng_key"] &= same(cpu, gpu)
+        checks["split"] &= same(tf.split(cpu, 8), tf.split(gpu, 8))
+        data = torch.arange(8) * 7919 + seed
+        checks["fold_in"] &= same(
+            tf.fold_in(tf.split(cpu, 8), data), tf.fold_in(tf.split(gpu, 8), data.cuda())
+        )
+    rng = torch.Generator().manual_seed(0)
+    step_ms = {}
+    for vocab in THREEFRY_VOCABS:
+        keys_cpu = tf.split(tf.prng_key(vocab), 8)
+        keys = keys_cpu.cuda()
+        checks[f"gumbel_8x{vocab}"] = same(tf.gumbel(keys_cpu, (vocab,)), tf.gumbel(keys, (vocab,)))
+        logits_cpu = torch.randn(8, vocab, generator=rng) * 3
+        logits = logits_cpu.cuda()
+        checks[f"categorical_8x{vocab}"] = same(
+            tf.categorical(keys_cpu, logits_cpu), tf.categorical(keys, logits)
+        )
+
+        def step(keys=keys, logits=logits, vocab=vocab):
+            pairs = tf.split(keys)
+            return torch.argmax(logits + tf.gumbel(pairs[:, 1], (vocab,)), dim=-1)
+
+        if vocab != 256128:
+            step_ms[f"8x{vocab}"] = cuda_ms(step, reps=20)
+    return {
+        "phase": "threefry_on_card", "seeds": 50, "vocabs": list(THREEFRY_VOCABS),
+        "step_ms": step_ms,
+        "step": "split (8, 2) keys + gumbel (8, V) + argmax, CUDA events, host launches included",
+        "checks": checks, "ok": all(checks.values()),
+    }
+
+
+# -- greedy batch invariance -------------------------------------------------------
+
+GREEDY_WIDTHS = (1, 8, 9, 32)
+GREEDY_TOKENS = 200
+
+
+def greedy_batch_invariance():
+    """One greedy request (a Habermas ranking prompt) decoded inside batches
+    of 1, 8, 9 and 32 distinct requests (row buckets 8, 8, 16, 32) on the
+    habermas-eval config's backend.  The Habermas Machine elides ranking
+    retries when ``deterministic_greedy`` says greedy argmax does not
+    change with batch width; the flag must match what the card does."""
+    import torch
+    import yaml
+
+    from consensus_tpu_torch.backends.base import GenerationRequest
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.methods.habermas import _ranking_prompt
+
+    config = yaml.safe_load((ROOT / HABERMAS_CONFIG).read_text())
+    backend = TorchBackend(**config["backend_options"], device="cuda")
+    scenario = config["scenario"]
+    opinions = list(scenario["agent_opinions"].values())
+    statements = [config["predefined"]["predefined_statement"]] + opinions[:3]
+
+    def request(i):
+        rotated = statements[i % 4:] + statements[: i % 4]
+        prompt = _ranking_prompt(scenario["issue"], opinions[(i // 4) % 5], rotated)
+        if i >= 20:
+            prompt += f"\n(Variant {i}.)"
+        return GenerationRequest(user_prompt=prompt, max_tokens=GREEDY_TOKENS, temperature=0.0,
+                                 seed=config["seed"] + 100_000 + i, chat=True)
+
+    target = request(0)
+    outputs, seconds = {}, {}
+    for width in GREEDY_WIDTHS:
+        batch = [request(i) for i in range(1, width)]
+        at = (width * 5) // 9
+        batch.insert(at, target)
+        t0 = time.perf_counter()
+        outputs[width] = list(backend.generate(batch)[at].token_ids)
+        torch.cuda.synchronize()
+        seconds[width] = time.perf_counter() - t0
+    first = outputs[GREEDY_WIDTHS[0]]
+    first_diff = {}
+    for width, ids in outputs.items():
+        diff = next((i for i, (a, b) in enumerate(zip(first, ids)) if a != b), None)
+        if diff is None and len(ids) != len(first):
+            diff = min(len(ids), len(first))
+        first_diff[width] = diff
+    invariant = all(d is None for d in first_diff.values())
+    flag = backend.deterministic_greedy
+    del backend
+    torch.cuda.empty_cache()
+    checks = {
+        "target_decoded": len(first) > 0,
+        "deterministic_greedy_matches_card": flag == invariant,
+    }
+    return {
+        "phase": "greedy_batch_invariance", "widths": list(GREEDY_WIDTHS),
+        "max_tokens": GREEDY_TOKENS, "tokens": {w: len(v) for w, v in outputs.items()},
+        "invariant": invariant, "first_differing_step": first_diff,
+        "deterministic_greedy": flag, "generate_s": seconds,
+        "checks": checks, "ok": all(checks.values()),
+    }
+
+
+# -- habermas + evaluation path -----------------------------------------------------
+
+
+def _evaluation_columns(agents):
+    """The evaluation_results.csv schema of the JAX package
+    (``consensus_tpu/evaluation.py``), without its ``param_*`` columns.
+    The three judge-score welfare columns appear only where some judge
+    score parsed."""
+    columns = {"method", "issue", "statement", "method_with_params", "seed",
+               "original_row_index", "evaluation_time_s"}
+    for name in agents:
+        columns |= {f"cosine_similarity_{name}", f"utility_cosine_similarity_{name}",
+                    f"avg_logprob_{name}", f"utility_avg_logprob_{name}",
+                    f"perplexity_{name}", f"judge_score_{name}"}
+    for family in ("cosine", "avg_prob", "perplexity", "judge_score"):
+        for rule in ("egalitarian", "utilitarian", "log_nash"):
+            columns.add(f"{rule}_welfare_{family}")
+    for rule in ("egalitarian", "utilitarian", "log_nash"):
+        columns |= {f"utility_{rule}_welfare_cosine", f"utility_{rule}_welfare_logprob"}
+    return columns
+
+
+def habermas_eval_path():
+    """``run_pipeline`` on the habermas-eval config -> (row, K1 launches,
+    the K1 case at gemma2-9b's last evaluation launch)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    import yaml
+
+    from consensus_tpu_torch.cli import run_experiment_with_eval as pipeline
+    from consensus_tpu_torch.evaluation import StatementEvaluator
+    from consensus_tpu_torch.methods import habermas
+    from consensus_tpu_torch.models import generate as gen
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+
+    config_path = ROOT / HABERMAS_CONFIG
+    config = yaml.safe_load(config_path.read_text())
+    overrides = {
+        "output_dir": str(OUT_DIR),
+        # Random weights never write the <answer> envelope: the method's
+        # own timing fallbacks (raw text as candidate and critique, identity
+        # ranking) make every phase run its real workload.
+        "habermas_machine": dict(config["habermas_machine"], pin_budget=True),
+    }
+    base_seed = config["seed"]
+    timers = {}
+    evaluations = {}
+    budgets = []  # (route, max_new_tokens) of every decode
+    batches = []  # habermas _generate_batch calls
+    parses = []  # every ranking parse: parsed or not
+    phases = {}
+
+    def timed(kind, record=None):
+        def make(original):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = original(*args, **kwargs)
+                torch.cuda.synchronize()
+                timers[kind] = timers.get(kind, 0.0) + time.perf_counter() - t0
+                if record is not None:
+                    record(out)
+                return out
+            return call
+        return make
+
+    def evaluation(original):
+        def call(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            entry = {"allocated_at_entry_gb": torch.cuda.memory_allocated() / 1e9}
+            before = fa.launches.count
+            t0 = time.perf_counter()
+            out = original(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            entry["seconds"] = time.perf_counter() - t0
+            entry["flash_launches"] = fa.launches.count - before
+            entry["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            c = self.backend.config
+            entry["config"] = {"name": c.name, "d_model": c.d_model, "n_layers": c.n_layers,
+                               "vocab": c.vocab_size}
+            if entry["flash_launches"]:
+                entry["last_flash"] = (fa.launches.last_shapes, tuple(
+                    t.tolist() for t in fa.launches.last_spans), c)
+            evaluations[self.evaluation_model] = entry
+            return out
+        return call
+
+    def route(name, index):
+        def make(original):
+            def call(*args, **kwargs):
+                budgets.append((name, int(args[index])))
+                return original(*args, **kwargs)
+            return call
+        return make
+
+    def generate_batch(original):
+        def call(self, prompts, seeds, temperature):
+            n_parses = len(parses)
+            out = original(self, prompts, seeds, temperature)
+            offset = seeds[0] - base_seed
+            batches.append({"phase": offset // 100_000, "attempt": offset % 10_000 // 100,
+                            "rows": len(prompts), "temperature": temperature,
+                            "non_empty": sum(bool(r.strip()) for r in out),
+                            "deterministic_greedy": self.backend.deterministic_greedy,
+                            "first_parse": n_parses})
+            return out
+        return call
+
+    def parse(original):
+        def call(*args, **kwargs):
+            ranking, explanation = original(*args, **kwargs)
+            parses.append(ranking is not None)
+            return ranking, explanation
+        return call
+
+    def phase_output(kind):
+        def record(out):
+            phases.setdefault(kind, []).append(out)
+        return record
+
+    patches = [
+        Wrapped(habermas.HabermasMachineGenerator, make={
+            "generate_statement": timed("habermas"),
+            "_generate_batch": generate_batch,
+            "_draft_candidates": timed("habermas_drafts", phase_output("candidates")),
+            "_rank_all": timed("habermas_rankings", phase_output("rankings")),
+            "_critiques": timed("habermas_critiques", phase_output("critiques")),
+            "_revisions": timed("habermas_revisions", phase_output("revisions")),
+        }),
+        Wrapped(habermas, make={"process_ranking_response": parse}),
+        Wrapped(StatementEvaluator, make={
+            "evaluate_comparative_rankings": timed("judge_ranking"),
+            "evaluate_results_file": evaluation,
+        }),
+        Wrapped(pipeline, make={"aggregate_run_dir": timed("aggregation")}),
+        Wrapped(gen, make={
+            name: route(name, 5 if "shared" in name else 4) for name in GENERATION_ROUTES
+        }),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        fa.launches.reset()
+        da.launches.reset()
+        t0 = time.perf_counter()
+        run_dir = pathlib.Path(pipeline.run_pipeline(str(config_path), config_overrides=overrides))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches.count, "decode_attention": da.launches.count}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    methods = config["methods_to_run"]
+    agents = list(config["scenario"]["agent_opinions"])
+    on_disk = pd.read_csv(run_dir / "results.csv", keep_default_na=False)
+    statements = on_disk["statement"].astype(str)
+    models = config["models"]["evaluation_models"]
+    eval_frames = {}
+    for model in models:
+        path = run_dir / "evaluation" / model / "seed_0" / "evaluation_results.csv"
+        eval_frames[model] = pd.read_csv(path) if path.exists() else None
+    expected_columns = _evaluation_columns(agents)
+    judge_welfare = {f"{rule}_welfare_judge_score" for rule in ("egalitarian", "utilitarian", "log_nash")}
+
+    def finite(frame):
+        # Judge scores are NaN where the judge's reply did not parse, as in
+        # the JAX package; every other metric is finite.
+        metric = [c for c in expected_columns
+                  if c not in ("method", "issue", "statement", "method_with_params")
+                  and "judge_score" not in c]
+        return bool(np.isfinite(frame[metric].to_numpy(dtype=np.float64)).all())
+
+    candidates = phases.get("candidates", [[]])[0]
+    rankings = phases.get("rankings", [])
+    critiques = phases.get("critiques", [[]])[0]
+    revisions = phases.get("revisions", [[]])[0]
+    hm_config = overrides["habermas_machine"]
+    ranking_batches = [b for b in batches if b["phase"] == 1]
+    counts = {
+        "candidates": len(candidates),
+        "ranking_rounds": len(rankings),
+        "rankings_parsed": sum(parses), "rankings_unparsed": len(parses) - sum(parses),
+        "ranking_attempts": len(ranking_batches),
+        "retries": sum(b["attempt"] > 0 for b in batches),
+        "critiques": sum(c is not None for c in critiques),
+        "revisions": len(revisions),
+        "generate_batches": [(b["phase"], b["attempt"], b["rows"], b["temperature"])
+                             for b in batches],
+    }
+    # The reference's ranking semantics: a first attempt over every agent;
+    # a retry of the unparsed agents only when deterministic_greedy is off
+    # (num_retries_on_error's default 1); what stays unparsed falls back to
+    # the identity ranking (the timing fallbacks), so every agent ranks.
+    retry_semantics = bool(ranking_batches)
+    for i, batch in enumerate(ranking_batches):
+        following = ranking_batches[i + 1] if i + 1 < len(ranking_batches) else None
+        if batch["attempt"] != 0:
+            continue
+        unparsed = batch["rows"] - sum(parses[batch["first_parse"]:batch["first_parse"] + batch["rows"]])
+        retried = following is not None and following["attempt"] == 1
+        expected = unparsed > 0 and not batch["deterministic_greedy"]
+        retry_semantics &= retried == expected and (not retried or following["rows"] == unparsed)
+    long_budget = 768  # 700 tokens on the {1, 1.5} x power-of-two ladder
+    long_routes = [name for name, budget in budgets if budget == long_budget]
+    judge_dir = run_dir / "evaluation" / "llm_judge" / "seed_0"
+    gemma, llama = (evaluations.get(m, {}) for m in models)
+    checks = {
+        "one_error_free_row_per_method": list(on_disk["method"]) == methods
+        and bool((on_disk["error_message"] == "").all())
+        and bool(statements.str.len().gt(0).all())
+        and not statements.str.startswith("[ERROR").any(),
+        "habermas_ran_every_phase": counts["candidates"] == hm_config["num_candidates"]
+        and counts["ranking_rounds"] == 1 + hm_config["num_rounds"]
+        and len(critiques) == len(agents)
+        and counts["revisions"] == min(hm_config["num_candidates"], 4),
+        "ranking_fallback_semantics": retry_semantics
+        and len(parses) == sum(b["rows"] for b in ranking_batches)
+        and all(all(r is not None for r in round_.values()) for round_ in rankings),
+        "evaluation_files_with_schema": all(
+            f is not None and expected_columns - judge_welfare <= set(f.columns)
+            and not (set(f.columns) - expected_columns - {c for c in f.columns if c.startswith("param_")})
+            and len(f) == len(methods)
+            for f in eval_frames.values()
+        ),
+        "evaluation_finite": all(f is not None and finite(f) for f in eval_frames.values()),
+        "judge_files": all((judge_dir / name).exists() for name in (
+            "ranking_results.csv", "ranking_reasoning.csv", "comparative_ranking_matrix.json")),
+        "aggregated_metrics": (run_dir / "evaluation" / "improved_aggregate"
+                               / "aggregated_metrics.csv").exists(),
+        "flash_launches_under_each_evaluation_model": all(
+            evaluations.get(m, {}).get("flash_launches", 0) > 0 for m in models
+        ),
+        "segmented_route_for_700_token_budgets": bool(long_routes) and all(
+            name.endswith("segmented") for name in long_routes
+        ),
+        "gemma_backend_freed": bool(gemma) and bool(llama)
+        and llama["allocated_at_entry_gb"] < gemma["allocated_at_entry_gb"] - 4.0,
+    }
+    gemma_case = None
+    if gemma.get("last_flash"):
+        (q_shape, k_shape), (lens, starts), c = gemma["last_flash"]
+        layer = c.n_layers - 1
+        gemma_case = flash_case(
+            "gemma2-9b evaluation, last launch's shape and spans", q_shape[0], q_shape[1],
+            q_shape[2], k_shape[2], q_shape[3], lens, starts, seed=31, scale=c.q_scale,
+            softcap=c.attn_softcap, window=c.sliding_window if c.layer_is_local(layer) else None,
+        )
+        checks["gemma_flash_case_within_tolerance"] = gemma_case["ok"]
+    else:
+        checks["gemma_flash_case_within_tolerance"] = False
+    for entry in evaluations.values():
+        entry.pop("last_flash", None)
+    row = {
+        "phase": "habermas_eval_path", "config": HABERMAS_CONFIG, "methods": methods,
+        "evaluation_models": models, "pipeline_s": wall,
+        "phase_s": {
+            "generation_by_method": dict(zip(on_disk["method"], on_disk["generation_time_s"])),
+            **timers,
+            **{f"evaluation_{m}": e["seconds"] for m, e in evaluations.items()},
+        },
+        "habermas_counts": counts,
+        "decode_budgets": sorted({(n, b) for n, b in budgets}),
+        "evaluations": evaluations, "launches": launches, "peak_memory_gb": peak_gb,
+        "gemma_flash_case": gemma_case,
+        "results_csv": str(run_dir.relative_to(ROOT) / "results.csv"),
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return row, launches, gemma_case
+
 
 def main() -> int:
     try:
@@ -1371,19 +1846,41 @@ def main() -> int:
         fail("shared-trunk generation launched no decode-attention kernel")
     del backend
     torch.cuda.empty_cache()
+    threefry_row = threefry_on_card()
+    emit(threefry_row)
+    greedy_row = greedy_batch_invariance()
+    emit(greedy_row)
+    habermas_row, habermas_launches, gemma_case = habermas_eval_path()
+    emit(habermas_row)
+    if gemma_case is None:
+        fail("the habermas-eval path launched no flash-attention kernel under gemma2-9b")
 
     flash_entry, flash_ok = summary_flash(
-        launches, main_shapes, main_spans, max(c["max_abs_err"] for c in flash_cases)
+        {"flash_attention": launches["flash_attention"] + habermas_launches["flash_attention"]},
+        main_shapes, main_spans,
+        max([c["max_abs_err"] for c in flash_cases] + [gemma_case["max_abs_err"]]),
     )
+    flash_entry["by_path"] = {
+        "main_path": launches["flash_attention"],
+        "habermas_eval_path": habermas_launches["flash_attention"],
+    }
+    flash_entry["gemma2_9b_evaluation"] = {
+        key: gemma_case[key] for key in ("shape", "softcap", "window", "kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    }
+    decode_shapes = dict(search_shapes)
+    for key, (count, args) in generate_shapes.items():
+        decode_shapes[key] = (decode_shapes.get(key, (0, None))[0] + count, args)
     decode_entry, decode_ok = summary_decode(
         {"decode_attention": search_launches["decode_attention"]
-         + generate_launches["decode_attention"]},
-        {**search_shapes, **generate_shapes},
+         + generate_launches["decode_attention"] + habermas_launches["decode_attention"]},
+        decode_shapes,
         max(c["max_abs_err"] for c in decode_cases_),
     )
     emit({"kernels": [flash_entry, decode_entry]})
     print(smi, flush=True)
-    phases = [main_row, search_row, reference_row, route_row, generate_row]
+    phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
+              greedy_row, habermas_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

@@ -5,10 +5,10 @@
 has one, else to :func:`fallback_score_matrix_many`: build the per-call
 ``ScoreRequest`` rows (candidate-major, agent-minor), dedup them, issue ONE
 batched ``backend.score`` call and reduce each cell with the exact host
-expressions the per-call consumers used.  ``TorchBackend`` has no
-``score_matrix`` yet, so best-of-N scores through the fallback and its
-scoring forward runs the flash-attention kernel.  The welfare telemetry
-sink of the JAX version waits for the obs port.
+expressions the per-call consumers used.  ``TorchBackend.score_matrix``
+is the fused path and falls back here per matrix; best-of-N and the
+evaluator's ``stat="moments"`` utilities both come through this seam.  The
+welfare telemetry sink of the JAX version waits for the obs port.
 """
 
 from __future__ import annotations

@@ -22,6 +22,9 @@ config) and runs each protocol call as padded device batches:
 * ``score_matrix`` -- the fused (candidates x agents) utility matrix over a
   KV page pool, reduced on the device (``tpu.py:1340-1638``); rows that
   need the per-call truncation fall back to ``score``.
+* ``embed`` -- the masked mean-pool of the final hidden states, unit norm
+  (``tpu.py:1743-1778``), through the flash kernel with
+  ``use_flash_attention``: the evaluator's cosine utilities.
 * ``open_fused_token_search`` -- :class:`TorchTokenSearchSession`, the
   incremental KV-cache search session of beam search and finite lookahead
   (``tpu.py:1731-1739, 2140-2398, 2644-2687``); its step attends through the
@@ -30,11 +33,11 @@ config) and runs each protocol call as padded device batches:
 Options that select a path not ported yet raise ``NotImplementedError``
 naming the ROADMAP item.
 
-Seeds: each request's seed seeds its OWN row ``torch.Generator``, so a
-request's output does not depend on which other requests share its batch.
-The generators do not reproduce the JAX package's threefry streams
-(ROADMAP queue A1), so sampled text differs from the reference; greedy
-text and scores agree within float tolerance.
+Seeds: each request's seed folds into its OWN row threefry key exactly as
+``tpu.py:579-603`` does (``utils/threefry.py`` is bit for bit
+``jax.random``), so a request's output does not depend on which other
+requests share its batch, and a seed draws the JAX package's tokens
+wherever both models give the same logits.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ from consensus_tpu_torch.models.quant import is_quantized, quantize_params
 from consensus_tpu_torch.models.stepper import search_prefill, search_step, suffix_propose
 from consensus_tpu_torch.models.tokenizer import get_tokenizer
 from consensus_tpu_torch.models.transformer import (
+    forward,
     init_params,
     params_dtype,
     shared_context_cont_logprobs,
@@ -78,6 +82,7 @@ from consensus_tpu_torch.models.transformer import (
     token_logprobs,
     token_logprobs_streamed,
 )
+from consensus_tpu_torch.utils import threefry
 from consensus_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -154,8 +159,6 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
 
 class TorchBackend:
     name = "torch"
-    #: Temperature-0 generation is argmax; the seed never enters it.
-    deterministic_greedy = True
 
     def __init__(
         self,
@@ -205,6 +208,14 @@ class TorchBackend:
         self._seg_len_fallbacks: set = set()  # budgets already logged
         self.kv_quant = bool(kv_quant)
         self.device = resolve_device(device)
+        #: Whether a greedy request decodes the same tokens whatever batch it
+        #: shares (the Habermas Machine then elides its no-op ranking
+        #: retries, as with ``TPUBackend``).  Not on the card: chip_smoke's
+        #: greedy_batch_invariance saw one 200-token request of llama3-8b
+        #: (int8) change at step 8 in a 9-request batch and at step 105 in
+        #: a 32-request batch against alone (NVIDIA H100 80GB HBM3): the
+        #: GEMMs of other row buckets round differently.
+        self.deterministic_greedy = self.device.type != "cuda"
         self.config = config if config is not None else get_model_config(model)
         if use_flash_attention and not self.config.use_flash_attention:
             self.config = dataclasses.replace(self.config, use_flash_attention=True)
@@ -243,7 +254,7 @@ class TorchBackend:
         self._bias_id_cache: Dict[str, Tuple[int, ...]] = {}
         self.call_counts = {
             "generate": 0, "score": 0, "score_batches": 0, "search_advances": 0,
-            "score_matrix": 0,
+            "score_matrix": 0, "embed": 0,
         }
         self.token_counts = {"generated": 0, "scored": 0}
         #: Fused utility matrices: calls, device chunks, per-call fallbacks.
@@ -330,32 +341,33 @@ class TorchBackend:
                 vector[token_id] += bias_value
         return vector
 
-    def _fold_seed(self, *parts) -> int:
-        # Stable across processes (Python's hash() is salted per process).
-        digest = hashlib.blake2b(
-            repr((self.base_seed,) + parts).encode(), digest_size=8
-        ).digest()
-        return int.from_bytes(digest, "big") % (2**63)
+    @staticmethod
+    def _fold(*parts) -> int:
+        """A 4-byte blake2b digest of ``parts`` mod 2**31 (stable across
+        processes, unlike ``hash()``), ``tpu.py:579-585``."""
+        digest = hashlib.blake2b(repr(parts).encode(), digest_size=4).digest()
+        return int.from_bytes(digest, "big") % (2**31)
 
-    def _row_generators(
-        self, kind: str, seeds: Sequence[Optional[int]]
-    ) -> List[torch.Generator]:
-        """One generator per row.  Seeded rows depend on their own seed only;
-        unseeded rows fold their row index plus a per-backend nonce so
-        identical unseeded prompts in one batch still draw distinct streams."""
-        generators = []
+    def _fold_seed(self, *parts) -> torch.Tensor:
+        """A (2,) key on the device: ``fold_in(PRNGKey(base_seed), fold)``."""
+        return threefry.fold_in(threefry.prng_key(self.base_seed, self.device), self._fold(*parts))
+
+    def _row_keys(self, kind: str, seeds: Sequence[Optional[int]]) -> torch.Tensor:
+        """(B, 2) per-row keys (``tpu.py:587-603``), made by one ``fold_in``
+        over the rows' folds.  Seeded rows fold their own seed only; unseeded
+        rows fold their row index plus a per-backend nonce, so identical
+        unseeded prompts in one batch draw distinct streams."""
+        folds = []
         for row, seed in enumerate(seeds):
             if seed is None:
                 with self._nonce_lock:
                     self._unseeded_calls += 1
                     nonce = self._unseeded_calls
-                value = self._fold_seed(kind, "unseeded", row, nonce)
+                folds.append(self._fold(kind, "unseeded", row, nonce))
             else:
-                value = self._fold_seed(kind, seed)
-            g = torch.Generator(device=self.device)
-            g.manual_seed(value)
-            generators.append(g)
-        return generators
+                folds.append(self._fold(kind, seed))
+        base = threefry.prng_key(self.base_seed, self.device)
+        return threefry.fold_in(base, torch.tensor(folds, dtype=torch.int64, device=self.device))
 
     def _free_device_bytes(self) -> int:
         if self.device.type != "cuda":
@@ -502,12 +514,10 @@ class TorchBackend:
             bias_index = torch.cat(
                 [bias_index, torch.zeros((pad_rows,), dtype=bias_index.dtype, device=self.device)]
             )
-        generators = self._row_generators(
-            "generate", [r.seed for r in requests] + [0] * pad_rows
-        )
+        keys = self._row_keys("generate", [r.seed for r in requests] + [0] * pad_rows)
         eos_ids = torch.tensor(self.tokenizer.eos_ids, dtype=torch.int32, device=self.device)
         return (target, pad_rows, temperatures, bias_table, bias_index,
-                generators, eos_ids, rep_penalty)
+                keys, eos_ids, rep_penalty)
 
     def _generate_shared(
         self, requests: Sequence[GenerationRequest], prompt_ids: List[int]
@@ -530,7 +540,7 @@ class TorchBackend:
             return out
 
         self.call_counts["generate"] += len(requests)
-        (target, pad_rows, temperatures, bias_table, bias_index, generators,
+        (target, pad_rows, temperatures, bias_table, bias_index, keys,
          eos_ids, rep_penalty) = self._prep_generation_rows(requests, allowed)
         tokens = np.full((1, width), self.tokenizer.pad_id, np.int32)
         valid = np.zeros((1, width), bool)
@@ -541,7 +551,7 @@ class TorchBackend:
         init_done = np.zeros((target,), bool)
         init_done[len(requests):] = True
         kwargs = dict(
-            generators=generators, temperature=temperatures, eos_ids=eos_ids,
+            keys=keys, temperature=temperatures, eos_ids=eos_ids,
             bias_table=bias_table, bias_index=bias_index, pad_id=self.tokenizer.pad_id,
             init_done=self._to_device(init_done), rep_penalty=rep_penalty,
         )
@@ -591,11 +601,11 @@ class TorchBackend:
             return out
 
         self.call_counts["generate"] += len(requests)
-        (target, pad_rows, temperatures, bias_table, bias_index, generators,
+        (target, pad_rows, temperatures, bias_table, bias_index, keys,
          eos_ids, rep_penalty) = self._prep_generation_rows(requests, allowed)
         tokens, valid = self._left_pad_batch(list(token_lists) + [[]] * pad_rows)
         kwargs = dict(
-            generators=generators, temperature=temperatures, eos_ids=eos_ids,
+            keys=keys, temperature=temperatures, eos_ids=eos_ids,
             bias_table=bias_table, bias_index=bias_index, pad_id=self.tokenizer.pad_id,
             rep_penalty=rep_penalty,
         )
@@ -1063,13 +1073,44 @@ class TorchBackend:
         when its caches would not fit the session budget."""
         return TorchTokenSearchSession(self, spec)
 
+    # -- embed ---------------------------------------------------------------
+
+    def embed(self, texts: Sequence[str]) -> np.ndarray:
+        """(N, d_model) unit-norm embeddings: the masked mean-pool of the
+        final hidden states (``tpu.py:1743-1766``), in ``max_batch_rows``
+        slices with rows bucketed to at least 8.  With
+        ``use_flash_attention`` the forward attends through the flash
+        kernel, as the reference's does."""
+        pieces = [
+            self._embed_impl(texts[i : i + self.max_batch_rows])
+            for i in range(0, len(texts), self.max_batch_rows)
+        ] or [np.zeros((0, self.config.d_model), np.float32)]
+        return np.vstack(pieces)
+
+    def _embed_impl(self, texts: Sequence[str]) -> np.ndarray:
+        self.call_counts["embed"] += len(texts)
+        token_lists = [self.tokenizer.encode(t, add_bos=True) for t in texts]
+        token_lists += [[]] * (_bucket(len(texts), minimum=8) - len(texts))
+        tokens, valid = self._left_pad_batch(token_lists)
+        with torch.inference_mode():
+            hidden = _embed_forward(self.params, self.config, tokens, valid)
+        hidden = hidden[: len(texts)].cpu().numpy()
+        norms = np.linalg.norm(hidden, axis=1, keepdims=True)
+        return hidden / np.maximum(norms, 1e-12)
+
     # -- not ported yet ------------------------------------------------------
 
     def next_token_logprobs(self, requests):
-        raise _not_ported("next_token_logprobs", "evaluation")
+        raise _not_ported("next_token_logprobs", "evaluation (next-token top-k)")
 
-    def embed(self, texts):
-        raise _not_ported("embed", "evaluation")
+
+def _embed_forward(params, config: ModelConfig, tokens, valid) -> torch.Tensor:
+    """Masked mean-pool of final hidden states -> (B, D) float32
+    (``tpu.py:1769-1778``)."""
+    positions = torch.clamp(torch.cumsum(valid.to(torch.int32), dim=1) - 1, min=0)
+    hidden, _ = forward(params, config, tokens, positions, valid, return_hidden=True)
+    mask = valid[..., None].to(torch.float32)
+    return (hidden.to(torch.float32) * mask).sum(1) / torch.clamp(mask.sum(1), min=1.0)
 
 
 class TorchTokenSearchSession:
@@ -1087,7 +1128,9 @@ class TorchTokenSearchSession:
     State is token *ids*; the decoded strings in returned candidates are for
     host-side semantics (EOS sets, dedup, display).  Gumbel noise for family
     f (0 = trunk steps, 1 = suffix trees), step or salt i and slot s comes
-    from a ``torch.Generator`` seeded with a fold of (session seed, f, i, s).
+    from the key ``fold_in(fold_in(fold_in(base_key, f), i), s)`` as in the
+    reference (``stepper.py:112-118``), ``base_key`` being the backend's fold
+    of ("search", seed).
     """
 
     def __init__(self, backend: TorchBackend, spec: SearchSpec):
@@ -1141,9 +1184,10 @@ class TorchTokenSearchSession:
         if spec.seed is None:
             with backend._nonce_lock:
                 backend._unseeded_calls += 1
-                self._seed_parts = ("search", "unseeded", backend._unseeded_calls)
+                nonce = backend._unseeded_calls
+            self._base_key = backend._fold_seed("search", "unseeded", nonce)
         else:
-            self._seed_parts = ("search", spec.seed)
+            self._base_key = backend._fold_seed("search", spec.seed)
 
     # -- protocol ------------------------------------------------------------
 
@@ -1158,7 +1202,7 @@ class TorchTokenSearchSession:
             self.backend.params, self.backend.config, self._tokens, self._valid,
             spec.n_slots, self.n_roles, spec.temperature, spec.k, spec.sample,
             spec.max_steps, ref_bias=self._ref_bias,
-            generators=self._generators(0, 0, spec.n_slots),
+            base_key=self._base_key,
         )
         return self._finish(out)
 
@@ -1188,7 +1232,7 @@ class TorchTokenSearchSession:
             [int(p) for p in parents], [c.token_id for c in chosen], self._step - 1,
             spec.n_slots, self.n_roles, spec.temperature, spec.k, spec.sample,
             ref_bias=self._ref_bias,
-            generators=self._generators(0, self._step, spec.n_slots),
+            base_key=self._base_key,
         )
         return self._finish(out)
 
@@ -1242,7 +1286,7 @@ class TorchTokenSearchSession:
             self.backend.params, self.backend.config, self._state, self._step,
             self.backend._to_device(tokens), self.n_roles, spec.temperature, spec.k,
             spec.sample, ref_bias=self._ref_bias,
-            generators=self._generators(1, salt, n_paths),
+            base_key=self._base_key, salt=salt,
         )
         return self._unpack(packed.cpu().numpy()[: len(suffixes)])
 
@@ -1269,18 +1313,6 @@ class TorchTokenSearchSession:
     def _check_open(self) -> None:
         if not getattr(self, "_budget_bytes", 0):
             raise ValueError("session is closed")
-
-    def _generators(self, family: int, index: int, n: int) -> Optional[List[torch.Generator]]:
-        """One Gumbel generator per slot (or path) for one step; None when
-        the proposals are deterministic top-k."""
-        if not self.spec.sample:
-            return None
-        generators = []
-        for slot in range(n):
-            g = torch.Generator(device=self.backend.device)
-            g.manual_seed(self.backend._fold_seed(*self._seed_parts, family, index, slot))
-            generators.append(g)
-        return generators
 
     def _finish(self, out) -> List[List[ScoredCandidate]]:
         self._state = out.state

@@ -93,6 +93,11 @@ class Experiment:
 
         models = config.get("models", {})
         self.generation_model: str = models.get("generation_model", "")
+        eval_models = models.get("evaluation_models")
+        if eval_models is None:
+            single = models.get("evaluation_model")
+            eval_models = [single] if single else []
+        self.evaluation_models: List[str] = list(eval_models)
         self.methods_to_run: List[str] = list(config.get("methods_to_run", []))
 
         if backend is not None:

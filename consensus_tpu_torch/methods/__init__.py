@@ -1,10 +1,10 @@
 """Decoding methods (PyTorch port of ``consensus_tpu/methods``).
 
 Ported: the methods that need only ``generate`` and ``score``
-(``best_of_n``, ``zero_shot``, ``predefined``) and the token-level searches
-over a fused session (``beam_search``, ``finite_lookahead``).
-``get_method_generator`` raises ``NotImplementedError`` for the other
-methods of the JAX package.
+(``best_of_n``, ``zero_shot``, ``predefined``, ``habermas_machine``) and the
+token-level searches over a fused session (``beam_search``,
+``finite_lookahead``).  ``get_method_generator`` raises
+``NotImplementedError`` for ``mcts``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from consensus_tpu_torch.methods.base import BaseGenerator
 from consensus_tpu_torch.methods.beam_search import BeamSearchGenerator
 from consensus_tpu_torch.methods.best_of_n import BestOfNGenerator
 from consensus_tpu_torch.methods.finite_lookahead import FiniteLookaheadGenerator
+from consensus_tpu_torch.methods.habermas import HabermasMachineGenerator
 from consensus_tpu_torch.methods.predefined import PredefinedStatementGenerator
 from consensus_tpu_torch.methods.zero_shot import ZeroShotGenerator
 
@@ -27,10 +28,11 @@ GENERATOR_MAP: Dict[str, Type[BaseGenerator]] = {
     "predefined": PredefinedStatementGenerator,
     "beam_search": BeamSearchGenerator,
     "finite_lookahead": FiniteLookaheadGenerator,
+    "habermas_machine": HabermasMachineGenerator,
 }
 
 #: Methods of the JAX package that wait for a later slice.
-NOT_PORTED = ("habermas_machine", "mcts")
+NOT_PORTED = ("mcts",)
 
 
 def get_method_generator(
@@ -63,6 +65,7 @@ __all__ = [
     "BudgetExpired",
     "FiniteLookaheadGenerator",
     "GENERATOR_MAP",
+    "HabermasMachineGenerator",
     "PredefinedStatementGenerator",
     "ZeroShotGenerator",
     "get_method_generator",

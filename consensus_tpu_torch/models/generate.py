@@ -5,11 +5,12 @@ Prompts are LEFT-padded so every row's next token writes the same cache
 column.  Rows with no valid prompt token (bucket padding) start done, and
 every decode loop exits as soon as every row has emitted an EOS id.
 
-* ``generate_tokens`` -- the classic path: the prompt batch prefills once
-  into a cache of ``S_ctx + max_new_tokens`` columns and each step decodes
-  through ``transformer.forward`` with that cache (the JAX decode attends a
-  prompt trunk plus a separate generated tail; the keys seen at each step
-  are the same set).
+* ``generate_tokens`` -- the classic path, as the reference runs it: the
+  prompt batch prefills once into a per-row trunk, then ONE
+  ``_decode_segment`` as long as the budget decodes every row over its own
+  trunk plus a fresh tail (``transformer.forward_trunk_tail`` with
+  ``n_slots=1, n_roles=B``), so with ``config.use_decode_attention`` every
+  step attends through the decode kernel.
 * ``generate_tokens_shared_trunk`` -- B rows from ONE shared prompt: the
   prompt prefills once into a one-row trunk that every row attends
   (``transformer.forward_trunk_tail`` with ``n_slots=B, n_roles=1``), so a
@@ -22,9 +23,11 @@ every decode loop exits as soon as every row has emitted an EOS id.
   batch, and with ``kv_quant`` the tails (and the per-row prompt trunk) are
   int8 with per-(token, head) scales.
 
-Each row draws its Gumbel noise from its own ``torch.Generator``, which
-moves with the row when rows compact, so a row's tokens depend on its own
-seed only, whatever else shares the batch.
+Each row carries its own threefry key ((B, 2), ``utils/threefry.py``) and
+splits it once per step exactly as ``generate.py:352-356`` does
+(``vmap(split)`` -> key, sub; sub draws the token), so a seed draws the
+JAX package's tokens.  Keys move with their rows when rows compact, so a
+row's tokens depend on its own key only, whatever else shares the batch.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from consensus_tpu_torch.models.transformer import (
     project_logits,
     quantize_kv,
 )
+from consensus_tpu_torch.utils import threefry
 
 
 class GenerateOutput(NamedTuple):
@@ -96,11 +100,10 @@ def _prefill_classic(
     config: ModelConfig,
     prompt_tokens: torch.Tensor,  # (B, S_ctx), LEFT-padded
     prompt_valid: torch.Tensor,  # (B, S_ctx) bool
-    cache_len: int,
 ):
-    """Prefill per-row prompts -> (next_logits (B, V), cache, last_pos (B,))."""
+    """Prefill per-row prompts -> (next_logits (B, V), trunk, last_pos (B,))."""
     cache = make_cache(
-        config, prompt_tokens.shape[0], cache_len, params_dtype(params),
+        config, prompt_tokens.shape[0], prompt_tokens.shape[1], params_dtype(params),
         prompt_tokens.device,
     )
     positions = left_pad_positions(prompt_valid)
@@ -119,7 +122,7 @@ def generate_tokens(
     prompt_tokens: torch.Tensor,  # (B, S_ctx) int, LEFT-padded
     prompt_valid: torch.Tensor,  # (B, S_ctx) bool
     max_new_tokens: int,
-    generators: Optional[Sequence[torch.Generator]] = None,  # one per row
+    keys: Optional[torch.Tensor] = None,  # (B, 2) per-row threefry keys
     temperature: float | torch.Tensor = 1.0,
     top_k: int = 0,
     top_p: float = 1.0,
@@ -130,50 +133,23 @@ def generate_tokens(
     pad_id: int = 0,
     rep_penalty: Optional[torch.Tensor] = None,  # (B,) float32; None = off
 ) -> GenerateOutput:
-    """Prefill + decode loop with EOS early exit (``generate.py:112-157``)."""
-    batch, width = prompt_tokens.shape
-    device = prompt_tokens.device
-    next_logits, cache, cur_pos = _prefill_classic(
-        params, config, prompt_tokens, prompt_valid, width + max_new_tokens
-    )
-    if bias_table is not None:
-        logit_bias = bias_table[bias_index.long()]
-    if eos_ids is None:
-        eos_ids = torch.zeros((0,), dtype=torch.int32, device=device)
+    """Prefill + ONE full-budget ``_decode_segment`` over per-row trunks
+    (``generate.py:112-161``).  Bucket-padding rows (no valid prompt token)
+    start done, so they never hold the EOS exit off."""
+    batch = prompt_tokens.shape[0]
+    next_logits, trunk, cur_pos = _prefill_classic(params, config, prompt_tokens, prompt_valid)
     presence = (
         _prompt_presence(prompt_tokens, prompt_valid, config.vocab_size)
         if rep_penalty is not None
         else None
     )
-    done = ~prompt_valid.any(dim=1)
-    tokens_buf = torch.full((max_new_tokens, batch), pad_id, dtype=torch.int32, device=device)
-    emitted_buf = torch.zeros((max_new_tokens, batch), dtype=torch.bool, device=device)
-    step_valid = torch.ones((batch, 1), dtype=torch.bool, device=device)
-    rows = torch.arange(batch, device=device)
-
-    for step in range(max_new_tokens):
-        if bool(done.all()):
-            break
-        token = sample_tokens(
-            next_logits, temperature=temperature, top_k=top_k, top_p=top_p,
-            logit_bias=logit_bias, presence=presence, rep_penalty=rep_penalty,
-            generators=generators,
-        )
-        token = torch.where(done, torch.full_like(token, pad_id), token)
-        if presence is not None:
-            presence[rows, token.long()] = True
-        token_is_eos = torch.isin(token, eos_ids) & ~done
-        emitted = ~done & ~token_is_eos
-        done = done | token_is_eos
-
-        cur_pos = cur_pos + 1
-        hidden, cache = forward(
-            params, config, token[:, None], cur_pos[:, None], step_valid,
-            cache, width + step, return_hidden=True,
-        )
-        next_logits = project_logits(params, config, hidden[:, -1, :])
-        tokens_buf[step] = token
-        emitted_buf[step] = emitted
+    tokens_buf, emitted_buf, *_ = _decode_segment(
+        params, config, trunk, (), (), cur_pos, 0, next_logits, keys,
+        ~prompt_valid.any(dim=1), n_slots=1, n_roles=batch, seg_len=max_new_tokens,
+        temperature=temperature, top_k=top_k, top_p=top_p, eos_ids=eos_ids,
+        logit_bias=logit_bias, bias_table=bias_table, bias_index=bias_index,
+        pad_id=pad_id, presence=presence, rep_penalty=rep_penalty,
+    )
     return _assemble_output(tokens_buf, emitted_buf, max_new_tokens, pad_id)
 
 
@@ -185,7 +161,7 @@ def generate_tokens_shared_trunk(
     prompt_valid: torch.Tensor,  # (1, S_ctx) bool
     batch: int,  # rows to decode from the shared prompt
     max_new_tokens: int,
-    generators: Optional[Sequence[torch.Generator]] = None,  # one per row
+    keys: Optional[torch.Tensor] = None,  # (B, 2) per-row threefry keys
     temperature: float | torch.Tensor = 1.0,
     top_k: int = 0,
     top_p: float = 1.0,
@@ -213,7 +189,7 @@ def generate_tokens_shared_trunk(
     )
     tokens_buf, emitted_buf, *_ = _decode_segment(
         params, c, trunk, (), (), last_pos.expand(batch), 0,
-        next_logits_1.expand(batch, -1), generators, init_done,
+        next_logits_1.expand(batch, -1), keys, init_done,
         n_slots=batch, n_roles=1, seg_len=max_new_tokens, temperature=temperature,
         top_k=top_k, top_p=top_p, eos_ids=eos_ids, bias_table=bias_table,
         bias_index=bias_index, pad_id=pad_id, presence=presence, rep_penalty=rep_penalty,
@@ -242,7 +218,7 @@ def _decode_segment(
     base_pos: torch.Tensor,  # (B,) int32 -- per-row last prompt position
     seg_start: int,  # tokens decoded before this segment
     next_logits: torch.Tensor,  # (B, V) float32
-    generators: Optional[Sequence[torch.Generator]],  # one per row
+    keys: Optional[torch.Tensor],  # (B, 2) per-row threefry keys
     done: torch.Tensor,  # (B,) bool
     n_slots: int,
     n_roles: int,
@@ -264,8 +240,11 @@ def _decode_segment(
     ``quantize_tail``) after the frozen blocks of earlier segments, one
     ``forward_trunk_tail`` per step, exiting once every row is done.
     Serves both layouts: shared trunk (n_slots=B, n_roles=1) and per-row
-    trunks (n_slots=1, n_roles=B).  Returns (tokens (seg_len, B), emitted
-    (seg_len, B), next_logits, tail_k, tail_v, done, presence)."""
+    trunks (n_slots=1, n_roles=B).  Every step splits each row's key (key,
+    sub) and samples with sub, as the reference does; a decode that is
+    greedy in every row needs no keys.  Returns (tokens (seg_len, B),
+    emitted (seg_len, B), next_logits, tail_k, tail_v, done, keys,
+    presence)."""
     c = config
     batch = n_slots * n_roles
     device = next_logits.device
@@ -297,14 +276,23 @@ def _decode_segment(
     emitted_buf = torch.zeros((seg_len, batch), dtype=torch.bool, device=device)
     use_rp = presence is not None and rep_penalty is not None
     rows = torch.arange(batch, device=device)
+    # A decode that is greedy in every row never reads its keys (nor do later
+    # segments of it), so it skips the splits: ~170 small kernels a step.
+    sampling = keys is not None and bool(
+        (torch.as_tensor(temperature, dtype=torch.float32) > 0.0).any()
+    )
 
     for step in range(seg_len):
         if bool(done.all()):
             break
+        sub = None
+        if sampling:
+            pairs = threefry.split(keys)
+            keys, sub = pairs[:, 0], pairs[:, 1]
         token = sample_tokens(
             next_logits, temperature=temperature, top_k=top_k, top_p=top_p,
             logit_bias=logit_bias, presence=presence if use_rp else None,
-            rep_penalty=rep_penalty if use_rp else None, generators=generators,
+            rep_penalty=rep_penalty if use_rp else None, keys=sub,
         )
         token = torch.where(done, torch.full_like(token, pad_id), token)
         if use_rp:
@@ -321,7 +309,7 @@ def _decode_segment(
         next_logits = project_logits(params, c, hidden)
         tokens_buf[step] = token
         emitted_buf[step] = emitted
-    return tokens_buf, emitted_buf, next_logits, tail_k, tail_v, done, presence
+    return tokens_buf, emitted_buf, next_logits, tail_k, tail_v, done, keys, presence
 
 
 def _take_rows(block, idx: torch.Tensor, dim: int):
@@ -337,7 +325,7 @@ def _segmented_loop(
     trunk: KVCache,
     base_pos: torch.Tensor,  # (B,) int32 per-row last prompt position
     next_logits: torch.Tensor,  # (B, V)
-    generators: Optional[Sequence[torch.Generator]],
+    keys: Optional[torch.Tensor],  # (B, 2) per-row threefry keys
     done: torch.Tensor,
     n_slots: int,
     n_roles: int,
@@ -362,17 +350,13 @@ def _segmented_loop(
     segment's tail (already int8 under ``kv_quant``) is appended to the
     LIST of frozen blocks, never concatenated.  Rows that finished compact
     away, but only by HALVING the batch (and never below 8 rows): every
-    per-row tensor, the per-row generators and, in the classic layout, the
+    per-row tensor, the per-row keys and, in the classic layout, the
     per-row trunk gather down to the survivors, padded with done rows.
-    Each row keeps its own generator, so compaction changes no token, only
-    the work per step."""
+    Each row keeps its own key, so compaction changes no token, only the
+    work per step."""
     batch = n_slots * n_roles
     shared_layout = n_roles == 1
     row_map = np.arange(batch)  # current row -> original row
-    # Rows are independent of batch composition when each draws from its
-    # own generator (or none draws at all): only then may rows move.
-    can_compact = generators is None or len(generators) == batch
-    generators = list(generators) if generators is not None else None
 
     frozen_k: List = []
     frozen_v: List = []
@@ -380,9 +364,9 @@ def _segmented_loop(
     emitted = np.zeros((batch, max_new_tokens), bool)
     n_segs = max_new_tokens // seg_len
     for seg in range(n_segs):
-        tokens_buf, emitted_buf, next_logits, tail_k, tail_v, done, presence = _decode_segment(
+        tokens_buf, emitted_buf, next_logits, tail_k, tail_v, done, keys, presence = _decode_segment(
             params, config, trunk, tuple(frozen_k), tuple(frozen_v), base_pos, seg * seg_len,
-            next_logits, generators, done,
+            next_logits, keys, done,
             n_slots=batch if shared_layout else 1, n_roles=1 if shared_layout else batch,
             seg_len=seg_len, temperature=temperature, top_k=top_k, top_p=top_p,
             eos_ids=eos_ids, logit_bias=logit_bias, bias_table=bias_table,
@@ -399,8 +383,6 @@ def _segmented_loop(
             break
         frozen_k.append(tail_k)
         frozen_v.append(tail_v)
-        if not can_compact:
-            continue
         alive = np.flatnonzero(~done_host)
         target = batch
         while target // 2 >= len(alive) and target // 2 >= 8:
@@ -416,8 +398,8 @@ def _segmented_loop(
         frozen_v = [_take_rows(b, idx, 1) for b in frozen_v]
         next_logits, done = next_logits[idx], done[idx]
         base_pos, temperature = base_pos[idx], temperature[idx]
-        if generators is not None:
-            generators = [generators[i] for i in idx_host]
+        if keys is not None:
+            keys = keys[idx]
         if bias_index is not None:
             bias_index = bias_index[idx]
         if logit_bias is not None and logit_bias.dim() == 2:
@@ -468,7 +450,7 @@ def generate_tokens_shared_trunk_segmented(
     prompt_valid: torch.Tensor,  # (1, S_ctx) bool
     batch: int,
     max_new_tokens: int,
-    generators: Optional[Sequence[torch.Generator]] = None,  # one per row
+    keys: Optional[torch.Tensor] = None,  # (B, 2) per-row threefry keys
     seg_len: int = 128,
     temperature: float | torch.Tensor = 1.0,
     top_k: int = 0,
@@ -497,7 +479,7 @@ def generate_tokens_shared_trunk_segmented(
     )
     return _segmented_loop(
         params, c, trunk, last_pos.expand(batch), next_logits_1.expand(batch, -1),
-        generators, done, n_slots=batch, n_roles=1, max_new_tokens=max_new_tokens,
+        keys, done, n_slots=batch, n_roles=1, max_new_tokens=max_new_tokens,
         seg_len=seg_len, temperature=_row_temperatures(temperature, batch, device),
         top_k=top_k, top_p=top_p, eos_ids=eos_ids, bias_table=bias_table,
         bias_index=bias_index, pad_id=pad_id, kv_quant=kv_quant, presence=presence,
@@ -512,7 +494,7 @@ def generate_tokens_segmented(
     prompt_tokens: torch.Tensor,  # (B, S_ctx) int, LEFT-padded
     prompt_valid: torch.Tensor,  # (B, S_ctx) bool
     max_new_tokens: int,
-    generators: Optional[Sequence[torch.Generator]] = None,  # one per row
+    keys: Optional[torch.Tensor] = None,  # (B, 2) per-row threefry keys
     seg_len: int = 128,
     temperature: float | torch.Tensor = 1.0,
     top_k: int = 0,
@@ -529,11 +511,9 @@ def generate_tokens_segmented(
     (``generate.py:652-734``): the per-row prompt cache is a read-only trunk
     (n_slots=1, n_roles=B), int8 under ``kv_quant`` since every step re-reads
     it, and earlier segments are frozen blocks."""
-    batch, width = prompt_tokens.shape
+    batch = prompt_tokens.shape[0]
     _check_segmented(config, max_new_tokens, seg_len)
-    next_logits, trunk, last_pos = _prefill_classic(
-        params, config, prompt_tokens, prompt_valid, width
-    )
+    next_logits, trunk, last_pos = _prefill_classic(params, config, prompt_tokens, prompt_valid)
     if kv_quant:
         trunk = KVCache(
             k=_quantize_kv(trunk.k), v=_quantize_kv(trunk.v),
@@ -545,7 +525,7 @@ def generate_tokens_segmented(
         else None
     )
     return _segmented_loop(
-        params, config, trunk, last_pos, next_logits, generators, ~prompt_valid.any(dim=1),
+        params, config, trunk, last_pos, next_logits, keys, ~prompt_valid.any(dim=1),
         n_slots=1, n_roles=batch, max_new_tokens=max_new_tokens, seg_len=seg_len,
         temperature=_row_temperatures(temperature, batch, prompt_tokens.device),
         top_k=top_k, top_p=top_p, eos_ids=eos_ids, logit_bias=logit_bias,

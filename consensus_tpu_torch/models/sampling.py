@@ -2,18 +2,20 @@
 penalty, batched (PyTorch port of ``consensus_tpu/models/sampling.py``).
 
 A draw is ``argmax(logits / temperature + gumbel)``, the form
-``jax.random.categorical`` takes.  The Gumbel noise comes from one
-``torch.Generator`` per row -- a row's draw then depends only on its own
-generator, whatever else shares the batch -- or from an explicit ``noise``
-tensor, so tests can hand the JAX and the torch sampler the same numbers.
-The generators do not reproduce JAX's threefry bits (ROADMAP queue A1).
+``jax.random.categorical`` takes.  The Gumbel noise comes from one threefry
+key per row (``utils/threefry.py``, bit for bit ``jax.random``), so a row's
+draw depends only on its own key, whatever else shares the batch, and a
+seed draws the same token as in the JAX package; or from an explicit
+``noise`` tensor.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
+
+from consensus_tpu_torch.utils import threefry
 
 
 def _top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -50,23 +52,10 @@ def apply_repetition_penalty(
     return torch.where(presence, penalized, logits)
 
 
-def gumbel_noise(
-    shape: Sequence[int],
-    generators: Sequence[torch.Generator],
-    device: torch.device | str,
-) -> torch.Tensor:
-    """(B, V) standard Gumbel noise, row ``i`` drawn from ``generators[i]``."""
-    rows, vocab = shape
-    if len(generators) != rows:
-        raise ValueError(f"{len(generators)} generators for {rows} rows")
-    tiny = torch.finfo(torch.float32).tiny
-    uniform = torch.stack(
-        [
-            torch.rand(vocab, generator=g, device=device, dtype=torch.float32)
-            for g in generators
-        ]
-    ).clamp_(min=tiny)
-    return -torch.log(-torch.log(uniform))
+def gumbel_noise(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(B, V) standard Gumbel noise, row ``i`` from key ``keys[i]``:
+    ``vmap(lambda k: jax.random.gumbel(k, (V,)))(keys)``."""
+    return threefry.gumbel(keys, (vocab,))
 
 
 def sample_tokens(
@@ -77,13 +66,14 @@ def sample_tokens(
     logit_bias: Optional[torch.Tensor] = None,  # (V,) or (B, V) additive
     presence: Optional[torch.Tensor] = None,  # (B, V) bool seen-token mask
     rep_penalty: Optional[torch.Tensor] = None,  # (B,)
-    generators: Optional[Sequence[torch.Generator]] = None,
+    keys: Optional[torch.Tensor] = None,  # (B, 2) per-row threefry keys
     noise: Optional[torch.Tensor] = None,  # (B, V) Gumbel noise
 ) -> torch.Tensor:
-    """One token id per row (int32); temperature <= 0 means greedy argmax.
+    """One token id per row (int32); temperature <= 0 means greedy argmax
+    (``sampling.py:62-91`` with per-row keys: ``vmap(categorical)``).
 
-    Noise is drawn (from ``generators``) only when some row samples; a batch
-    that is greedy throughout needs neither ``generators`` nor ``noise``."""
+    Noise is drawn (from ``keys``) only when some row samples; a batch that
+    is greedy throughout needs neither ``keys`` nor ``noise``."""
     logits = logits.to(torch.float32)
     if presence is not None and rep_penalty is not None:
         logits = apply_repetition_penalty(logits, presence, rep_penalty)
@@ -101,8 +91,8 @@ def sample_tokens(
     filtered = _top_p_filter(_top_k_filter(logits, top_k), top_p)
     scaled = filtered / torch.clamp(temp, min=1e-6)
     if noise is None:
-        if generators is None:
-            raise ValueError("sampling at temperature > 0 needs generators or noise")
-        noise = gumbel_noise(scaled.shape, generators, logits.device)
+        if keys is None:
+            raise ValueError("sampling at temperature > 0 needs keys or noise")
+        noise = gumbel_noise(keys, scaled.shape[-1])
     sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(use_greedy, greedy, sampled).to(torch.int32)

@@ -20,10 +20,10 @@ step here is one forward of one position for every row:
     4. ref rows:   (Gumbel-)top-k over biased logits -> k proposals/beam,
     5. agent rows: log-softmax gathered at those k proposal ids.
 
-Gumbel noise per (family, step, slot) comes from one ``torch.Generator``
-per slot (the session folds the seeds), or from an explicit ``noise``
-tensor so tests can hand the port JAX's numbers; the generators do not
-reproduce JAX's threefry bits (ROADMAP queue A1).  The JAX functions are
+Gumbel noise per (family, step, slot) comes from the reference's key
+scheme (``stepper.py:112-118``): ``fold_in(fold_in(base_key, family),
+step)``, then ``fold_in(., slot)`` and ``gumbel`` (``utils/threefry.py``,
+bit for bit ``jax.random``); or from an explicit ``noise`` tensor.  The JAX functions are
 jitted and donate the tails; here ``search_step`` updates the tails of the
 state it is given in place and ``search_prefill`` / ``suffix_propose`` run
 eagerly.
@@ -43,8 +43,8 @@ import torch
 
 from consensus_tpu_torch.models.config import ModelConfig
 from consensus_tpu_torch.models.generate import left_pad_positions
-from consensus_tpu_torch.models.sampling import gumbel_noise
 from consensus_tpu_torch.models.quant import matmul
+from consensus_tpu_torch.models.sampling import gumbel_noise
 from consensus_tpu_torch.models.transformer import (
     KVCache,
     _embed,
@@ -61,6 +61,7 @@ from consensus_tpu_torch.models.transformer import (
 )
 from consensus_tpu_torch.ops.decode_attention import paged_attention
 from consensus_tpu_torch.ops.welfare import DEFAULT_REWARD, WELFARE_RULES, sanitize_utilities
+from consensus_tpu_torch.utils import threefry
 
 
 class SearchState(NamedTuple):
@@ -88,7 +89,9 @@ def _propose_and_score(
     k: int,
     sample: bool,
     ref_bias: Optional[torch.Tensor] = None,  # (V,) additive bias for ref rows only
-    generators: Optional[Sequence[torch.Generator]] = None,  # one per slot
+    base_key: Optional[torch.Tensor] = None,  # (2,) session key
+    step_index: int = 0,
+    key_family: int = 0,  # trunk steps 0, suffix trees 1, rollouts 2
     noise: Optional[torch.Tensor] = None,  # (B, V) Gumbel noise
 ) -> torch.Tensor:
     """Top-k proposals of the reference rows, scored under every agent row,
@@ -106,9 +109,11 @@ def _propose_and_score(
     scores = ref_lp / max(float(temperature), 1e-6)
     if sample:
         if noise is None:
-            if generators is None:
-                raise ValueError("sample=True needs one generator per slot or noise")
-            noise = gumbel_noise(ref_lp.shape, generators, ref_lp.device)
+            if base_key is None:
+                raise ValueError("sample=True needs a base key or noise")
+            step_key = threefry.fold_in(threefry.fold_in(base_key, key_family), step_index)
+            slots = torch.arange(n_beams, dtype=torch.int64, device=base_key.device)
+            noise = gumbel_noise(threefry.fold_in(step_key, slots), ref_lp.shape[-1])
         scores = scores + noise
     ids = torch.topk(scores, k, dim=-1).indices  # (B, k)
     ref_picked = torch.gather(ref_lp, 1, ids)
@@ -153,7 +158,7 @@ def search_prefill(
     sample: bool,
     max_steps: int,
     ref_bias: Optional[torch.Tensor] = None,
-    generators: Optional[Sequence[torch.Generator]] = None,
+    base_key: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
 ) -> StepOutput:
     """Prefill the (ref + agents) prefixes ONCE into the shared trunk,
@@ -180,7 +185,7 @@ def search_prefill(
     hidden_last = hidden[:, -1, :].repeat(n_beams, 1)
     packed = _propose_and_score(
         params, c, hidden_last, n_beams, n_roles, temperature, k, sample, ref_bias,
-        generators, noise,
+        base_key, 0, noise=noise,
     )
     return StepOutput(packed, state)
 
@@ -236,17 +241,18 @@ def search_step(
     k: int,
     sample: bool,
     ref_bias: Optional[torch.Tensor] = None,
-    generators: Optional[Sequence[torch.Generator]] = None,
+    base_key: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
 ) -> StepOutput:
-    """Advance every beam slot from its parent by one token; propose + score.
-    ``state`` is consumed: its tails may be updated in place."""
+    """Advance every beam slot from its parent by one token; propose + score
+    (noise of step ``write_col + 1``).  ``state`` is consumed: its tails may
+    be updated in place."""
     hidden, new_state = advance(
         params, config, state, parents, tokens, write_col, n_beams, n_roles
     )
     packed = _propose_and_score(
         params, config, hidden, n_beams, n_roles, temperature, k, sample, ref_bias,
-        generators, noise,
+        base_key, write_col + 1, noise=noise,
     )
     return StepOutput(packed, new_state)
 
@@ -263,7 +269,8 @@ def suffix_propose(
     k: int,
     sample: bool,
     ref_bias: Optional[torch.Tensor] = None,
-    generators: Optional[Sequence[torch.Generator]] = None,  # one per path
+    base_key: Optional[torch.Tensor] = None,
+    salt: int = 0,  # folds into the per-path proposal keys (family 1)
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Propose + score k next tokens for every tree path over the SHARED
@@ -275,7 +282,7 @@ def suffix_propose(
     hidden = forward_shared_trunk(params, config, suffix_tokens, cache, state.cur_pos)
     return _propose_and_score(
         params, config, hidden.reshape(n_paths * n_roles, -1), n_paths, n_roles,
-        temperature, k, sample, ref_bias, generators, noise,
+        temperature, k, sample, ref_bias, base_key, salt, key_family=1, noise=noise,
     )
 
 

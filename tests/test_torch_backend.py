@@ -28,6 +28,7 @@ from consensus_tpu_torch.experiment import Experiment
 from consensus_tpu_torch.methods.best_of_n import BestOfNGenerator
 from consensus_tpu_torch.models.convert import params_from_jax
 from consensus_tpu_torch.models.transformer import forward
+from consensus_tpu_torch.utils import threefry
 
 # Tiny shapes: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores.
@@ -103,6 +104,48 @@ def test_greedy_generate_same_text(backends):
         assert _greedy_margins(port, request, result).min() > 1e-3, "near-tie prompt"
     expect = ref.generate(requests)
     assert [g.text for g in got] == [e.text for e in expect]
+    assert [g.finish_reason for g in got] == [e.finish_reason for e in expect]
+
+
+def _sampled_margins(port, request, result):
+    """Top-1 minus top-2 of logits / temperature + Gumbel noise at every
+    draw of a seeded sampled request (the EOS draw included): the row's key
+    is the backend's fold of ("generate", seed), split once per step."""
+    prompt = port.tokenizer.encode(port._render_prompt(request), add_bos=True)
+    ids = prompt + list(result.token_ids)
+    tokens = torch.tensor([ids], dtype=torch.int32)
+    valid = torch.ones_like(tokens, dtype=torch.bool)
+    positions = torch.arange(len(ids), dtype=torch.int32)[None]
+    logits, _ = forward(port.params, port.config, tokens, positions, valid)
+    n_draws = len(result.token_ids) + (result.finish_reason == "stop")
+    if n_draws > len(result.token_ids):  # the EOS draw reads the last position
+        steps = logits[0, len(prompt) - 1 : len(ids)]
+    else:
+        steps = logits[0, len(prompt) - 1 : len(ids) - 1]
+    key = port._fold_seed("generate", request.seed)
+    margins = []
+    for row in steps:
+        key, sub = threefry.split(key)
+        scores = row / request.temperature + threefry.gumbel(sub, row.shape)
+        top2 = torch.topk(scores, 2).values
+        margins.append(float(top2[0] - top2[1]))
+    return np.asarray(margins)
+
+
+def test_sampled_generate_same_text(backends):
+    """Seeded sampling at temperature 1: the port's threefry keys draw the
+    reference's tokens, on prompts whose every draw has margin > 1e-3."""
+    ref, port = backends
+    requests = [
+        GenerationRequest(user_prompt=p, max_tokens=12, temperature=1.0, seed=seed)
+        for p, seed in (("Write one sentence about rivers.", 5), ("Summarize: taxes.", 11), ("Hello", 2))
+    ]
+    got = port.generate(requests)
+    for request, result in zip(requests, got):
+        assert _sampled_margins(port, request, result).min() > 1e-3, "near-tie draw"
+    expect = ref.generate(requests)
+    assert [g.text for g in got] == [e.text for e in expect]
+    assert [g.token_ids for g in got] == [e.token_ids for e in expect]
     assert [g.finish_reason for g in got] == [e.finish_reason for e in expect]
 
 

@@ -15,6 +15,7 @@ import torch
 
 from consensus_tpu.models.sampling import sample_tokens as jax_sample
 from consensus_tpu_torch.models.sampling import apply_repetition_penalty, sample_tokens
+from consensus_tpu_torch.utils import threefry
 
 # Tiny shapes: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores.
@@ -76,13 +77,15 @@ def test_logit_bias_and_repetition_penalty():
 
 
 def test_per_row_generators_are_independent_of_batch():
+    """A row's draw depends only on its own key (the per-row keys that took
+    the place of per-row generators), whatever else shares the batch."""
     logits = torch.from_numpy(_setup(seed=5)[0])
 
-    def gens(seeds):
-        return [torch.Generator().manual_seed(s) for s in seeds]
+    def keys(seeds):
+        return torch.stack([threefry.prng_key(s) for s in seeds])
 
-    full = sample_tokens(logits, temperature=1.0, generators=gens(range(B)))
-    alone = sample_tokens(logits[2:3], temperature=1.0, generators=gens([2]))
+    full = sample_tokens(logits, temperature=1.0, keys=keys(range(B)))
+    alone = sample_tokens(logits[2:3], temperature=1.0, keys=keys([2]))
     assert int(alone[0]) == int(full[2])
     with pytest.raises(ValueError):
         sample_tokens(logits, temperature=1.0)

@@ -4,12 +4,13 @@ The reference is ``TPUBackend(..., dtype="float32", use_decode_attention=True)``
 (the Pallas decode kernel in interpret mode) with every unported path
 switched off; its random weights are converted with ``params_from_jax`` into
 ``TorchBackend(device="cpu", use_decode_attention=True)`` (the kernel's
-plain version).  Beam search and finite lookahead run at temperature 0, so
-the Gumbel noise, whose bits differ between the two (ROADMAP queue A1), is
-scaled away; statements must match exactly, on prompts whose every
-proposal list is checked to be tie-free (gaps > 1e-3 between consecutive
-reference logprobs, against float32 differences ~1e-5).  Session-level
-proposals match ids exactly and logprobs within 1e-4.
+plain version).  Beam search and finite lookahead run at temperature 0;
+statements must match exactly, on prompts whose every proposal list is
+checked to be tie-free (gaps > 1e-3 between consecutive reference
+logprobs, against float32 differences ~1e-5).  Session-level proposals
+match ids exactly and logprobs within 1e-4, deterministic and sampled: the
+port's session keys fold (family, step, slot) into threefry keys that are
+bit for bit ``jax.random``'s, so Gumbel-top-k draws the same proposals.
 """
 
 import dataclasses
@@ -76,12 +77,14 @@ class _Recording:
     def __init__(self, port):
         self.port = port
         self.proposals = []
+        self.sessions = []
 
     def __enter__(self):
         original = self.port.open_fused_token_search
 
         def opened(spec):
             session = original(spec)
+            self.sessions.append(session)
             for name in ("propose", "advance_and_propose", "propose_suffixes"):
                 self._wrap(session, name)
             return session
@@ -129,15 +132,41 @@ def test_finite_lookahead_statement(backends):
     assert got == expect
 
 
-def test_session_proposals(backends):
-    """Session level, sample=False: propose, one reordering advance, then a
-    tree level over the trunk session."""
+@pytest.mark.parametrize("seed, stops_at_once", [(5, False), (152, True)])
+def test_finite_lookahead_sampled_statement(backends, seed, stops_at_once):
+    """Temperature 1, the method's default: every tree level draws
+    Gumbel-top-k proposals from the session's threefry keys, so both sides
+    see the same proposals (ids exactly, logprobs within ATOL) and write the
+    same statement.  At seed 152 the first pick is a terminator: the
+    session never advances and both write the empty statement."""
+    ref, port = backends
+    config = dict(LOOKAHEAD, temperature=1.0, seed=seed)
+    with _Recording(port) as got_rec:
+        got = FiniteLookaheadGenerator(port, config).generate_statement(ISSUE, OPINIONS)
+    with _Recording(ref) as expect_rec:
+        expect = JaxLookahead(ref, config).generate_statement(ISSUE, OPINIONS)
+    assert len(got_rec.proposals) == len(expect_rec.proposals) > 0
+    for g_row, e_row in zip(got_rec.proposals, expect_rec.proposals):
+        assert [c.token_id for c in g_row] == [c.token_id for c in e_row]
+        np.testing.assert_allclose(
+            [(c.ref_logprob,) + c.agent_logprobs for c in g_row],
+            [(c.ref_logprob,) + c.agent_logprobs for c in e_row], atol=ATOL,
+        )
+    assert got == expect
+    assert (got == "") == stops_at_once
+    assert [session._step == 0 for session in got_rec.sessions] == [stops_at_once]
+
+
+@pytest.mark.parametrize("sample", [False, True], ids=["top-k", "gumbel-top-k"])
+def test_session_proposals(backends, sample):
+    """Session level: propose, one reordering advance, then a tree level over
+    the trunk session."""
     ref, port = backends
     fields = dict(
         ref_system="You draft consensus statements.", ref_user="Issue: trees.\nStatement:",
         agent_prompts=(("Agent context.", "Opinion: plant more.\nStatement:"),
                        ("Agent context.", "Opinion: too costly.\nStatement:")),
-        k=3, temperature=1.0, seed=11, sample=False, max_steps=4,
+        k=3, temperature=1.0, seed=11, sample=sample, max_steps=4,
     )
     for n_slots in (2, 1):
         jsession = TPUTokenSearchSession(ref, JaxSearchSpec(n_slots=n_slots, **fields))
@@ -194,8 +223,8 @@ def test_experiment_results_csv(backends, tmp_path):
 
 
 def test_methods_registered():
-    assert {"beam_search", "finite_lookahead"} <= set(GENERATOR_MAP)
-    assert NOT_PORTED == ("habermas_machine", "mcts")
+    assert {"beam_search", "finite_lookahead", "habermas_machine"} <= set(GENERATOR_MAP)
+    assert NOT_PORTED == ("mcts",)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_method_generator("mcts", backend=None)
 

@@ -7,10 +7,12 @@ to even); ``forward_trunk_tail`` hidden states with frozen blocks, int8
 tails and an int8 trunk within 1e-4 absolute (float32, different summation
 orders); greedy tokens exactly, on inputs whose greedy picks are checked to
 be tie-free (top-1 minus top-2 logit > 1e-3 at every step the port takes).
-Sampled rows are the port's own (per-row ``torch.Generator``s, not JAX's
-threefry), so the batch-independence case compares the port with itself.
+Sampled rows draw from per-row threefry keys, bit for bit JAX's (pinned by
+``tests/test_torch_threefry.py``); the batch-independence case compares the
+port with itself.
 """
 
+import dataclasses
 import functools
 import inspect
 
@@ -30,6 +32,8 @@ from consensus_tpu_torch.models import generate as tgen
 from consensus_tpu_torch.models import transformer as ttf
 from consensus_tpu_torch.models.config import get_model_config
 from consensus_tpu_torch.models.convert import params_from_jax
+from consensus_tpu_torch.models.sampling import gumbel_noise
+from consensus_tpu_torch.utils import threefry
 
 # Tiny shapes: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores.
@@ -157,10 +161,25 @@ def test_forward_trunk_tail_blocks(name, variant):
 class _Margins:
     """Records the top-1 minus top-2 logit of every row at every step the
     port's decode loops sample from (wraps ``generate.project_logits``:
-    call 0 is the prefill, call i the logits step i samples from)."""
+    call 0 is the prefill, call i the logits step i samples from).  With
+    ``sampled`` it wraps ``generate.sample_tokens`` instead and records the
+    margin of what the draw takes the argmax of: logits / temperature plus
+    the row's Gumbel noise."""
 
-    def __init__(self, monkeypatch):
+    def __init__(self, monkeypatch, sampled=False):
         self.values = []
+        if sampled:
+            original_sample = tgen.sample_tokens
+
+            def sampling(logits, temperature=1.0, keys=None, **kwargs):
+                temp = torch.as_tensor(temperature, dtype=torch.float32).reshape(-1, 1)
+                scores = logits / torch.clamp(temp, min=1e-6) + gumbel_noise(keys, logits.shape[-1])
+                top2 = torch.topk(scores, 2, dim=-1).values
+                self.values.append((top2[:, 0] - top2[:, 1]).numpy())
+                return original_sample(logits, temperature=temperature, keys=keys, **kwargs)
+
+            monkeypatch.setattr(tgen, "sample_tokens", sampling)
+            return
         original = tgen.project_logits
 
         def recording(params, config, hidden):
@@ -260,6 +279,89 @@ def test_greedy_tokens_match_jax(route, kv_quant, monkeypatch):
     assert int(got.num_generated.min()) == MAX_NEW  # no EOS ids: full budget
 
 
+@pytest.mark.parametrize("decode", [True, False], ids=["decode-kernel", "einsum"])
+def test_classic_generate_takes_trunk_tail_route(decode, monkeypatch):
+    """Classic ``generate_tokens`` decodes as the reference's: per-row
+    trunks plus one full-budget tail through ``forward_trunk_tail`` (the
+    decode kernel's route under ``use_decode_attention``), one call a step,
+    and bucket-padding rows start done.  Greedy tokens equal the JAX
+    package's (its decode kernel in interpret mode)."""
+    jcfg, jparams, tcfg, tparams = _models(GREEDY_MODEL)
+    jcfg = dataclasses.replace(jcfg, use_decode_attention=decode)
+    tcfg = dataclasses.replace(tcfg, use_decode_attention=decode)
+    batch = 8
+    tokens, valid = _row_prompts(tcfg.vocab_size, batch, seed=1)
+    valid[6:] = False  # two bucket-padding rows: no prompt token
+    tokens[6:] = 0
+    calls = []
+    original = tgen.forward_trunk_tail
+
+    def counting(*args, **kwargs):
+        calls.append(args[8] if len(args) > 8 else kwargs["write_col"])
+        assert args[9:11] == (1, batch)  # n_slots=1, n_roles=B
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(tgen, "forward_trunk_tail", counting)
+    margins = _Margins(monkeypatch)
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(3), i))(jnp.arange(batch))
+    expect = jgen.generate_tokens(
+        jparams, jcfg, jnp.asarray(tokens), jnp.asarray(valid), keys, MAX_NEW,
+        temperature=jnp.zeros((batch,), jnp.float32),
+    )
+    got = tgen.generate_tokens(
+        tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(valid), MAX_NEW, temperature=0.0
+    )
+    margins.check(got.num_generated, MAX_NEW)
+    _assert_same(got, expect)
+    assert calls == list(range(MAX_NEW)), calls
+    assert got.num_generated[6:].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("route", ["classic", "shared", "shared_segmented", "segmented"])
+def test_sampled_tokens_match_jax(route, monkeypatch):
+    """Temperature 1 with per-row keys: the port splits and draws exactly as
+    the JAX generators do, so the sampled tokens are the same (every draw's
+    argmax margin checked > 1e-3)."""
+    jcfg, jparams, tcfg, tparams = _models(GREEDY_MODEL)
+    batch = 4
+    jkeys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(9), i))(jnp.arange(batch))
+    tkeys = threefry.fold_in(threefry.prng_key(9), torch.arange(batch))
+    jtemp = jnp.ones((batch,), jnp.float32)
+    ttemp = torch.ones((batch,))
+    margins = _Margins(monkeypatch, sampled=True)
+    if route in ("classic", "segmented"):
+        tokens, valid = _row_prompts(tcfg.vocab_size, batch, seed=5)
+        jargs = (jparams, jcfg, jnp.asarray(tokens), jnp.asarray(valid), jkeys, MAX_NEW)
+        targs = (tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(valid), MAX_NEW)
+        if route == "classic":
+            expect = jgen.generate_tokens(*jargs, temperature=jtemp)
+            got = tgen.generate_tokens(*targs, keys=tkeys, temperature=ttemp)
+        else:
+            expect = jgen.generate_tokens_segmented(*jargs, seg_len=SEG, temperature=jtemp, kv_quant=True)
+            got = tgen.generate_tokens_segmented(
+                *targs, keys=tkeys, seg_len=SEG, temperature=ttemp, kv_quant=True
+            )
+    else:
+        tokens, valid = _shared_prompt(tcfg.vocab_size, seed=6)
+        jargs = (jparams, jcfg, jnp.asarray(tokens), jnp.asarray(valid))
+        targs = (tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(valid), batch, MAX_NEW)
+        if route == "shared":
+            expect = jgen.generate_tokens_shared_trunk(
+                *jargs, batch=batch, key=jkeys, max_new_tokens=MAX_NEW, temperature=jtemp
+            )
+            got = tgen.generate_tokens_shared_trunk(*targs, keys=tkeys, temperature=ttemp)
+        else:
+            expect = jgen.generate_tokens_shared_trunk_segmented(
+                *jargs, batch=batch, key=jkeys, max_new_tokens=MAX_NEW, seg_len=SEG,
+                temperature=jtemp, kv_quant=True,
+            )
+            got = tgen.generate_tokens_shared_trunk_segmented(
+                *targs, keys=tkeys, seg_len=SEG, temperature=ttemp, kv_quant=True
+            )
+    margins.check(got.num_generated, MAX_NEW)
+    _assert_same(got, expect)
+
+
 def test_compaction_matches_jax(monkeypatch):
     """Sixteen per-row prompts, greedy, with EOS ids taken from the port's
     own greedy stream so that at least half the rows end in the first
@@ -310,16 +412,16 @@ def test_compaction_matches_jax(monkeypatch):
 
 def test_seeded_row_independent_of_batch():
     """A sampled row decodes the same tokens alone and inside an 8-row batch
-    whose other rows end early, through a segment boundary: its generator
-    moves with it and draws once per step either way."""
+    whose other rows end early, through a segment boundary: its key moves
+    with it and splits once per step either way."""
     _, _, tcfg, tparams = _models("tiny-llama3")
     tokens, valid = _shared_prompt(tcfg.vocab_size, seed=2)
     args = (tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(valid))
 
     def run(seeds, eos):
-        generators = [torch.Generator().manual_seed(s) for s in seeds]
+        keys = torch.stack([threefry.prng_key(s) for s in seeds])
         return tgen.generate_tokens_shared_trunk_segmented(
-            *args, len(seeds), MAX_NEW, generators=generators, seg_len=SEG, temperature=1.0,
+            *args, len(seeds), MAX_NEW, keys=keys, seg_len=SEG, temperature=1.0,
             eos_ids=torch.tensor(eos, dtype=torch.int32), kv_quant=True,
         )
 

@@ -29,6 +29,7 @@ from consensus_tpu_torch.models import stepper as tstep
 from consensus_tpu_torch.models import transformer as ttf
 from consensus_tpu_torch.models.config import get_model_config
 from consensus_tpu_torch.models.convert import params_from_jax
+from consensus_tpu_torch.utils import threefry
 
 # Tiny shapes: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores.
@@ -127,16 +128,18 @@ def test_decode_kernel_route_matches_einsum_route():
     torch.testing.assert_close(hidden[True], hidden[False], atol=ATOL, rtol=0)
 
 
-def _search_both(name, kernel, n_beams=2, k=4, sample=False, seed=1):
+def _search_both(name, kernel, n_beams=2, k=4, sample=False, seed=1, own_keys=False):
     """search_prefill + 3 search_steps (parents reorder) on both sides;
-    yields (port packed, JAX packed) per call, then the two final states."""
+    yields (port packed, JAX packed) per call, then the two final states.
+    With ``own_keys`` the port draws its noise from its own threefry base
+    key instead of being handed JAX's numbers."""
     jcfg, jparams, tcfg, tparams = _models(name, kernel)
     tokens, valid = _prefix(tcfg.vocab_size, seed)
     base_key = jax.random.PRNGKey(11)
     temp = jnp.asarray(1.0, jnp.float32)
 
     def noise(family, index, n):
-        if not sample:
+        if not sample or own_keys:
             return None
         step_key = jax.random.fold_in(jax.random.fold_in(base_key, family), index)
         return torch.from_numpy(np.stack([
@@ -151,6 +154,7 @@ def _search_both(name, kernel, n_beams=2, k=4, sample=False, seed=1):
     tout = tstep.search_prefill(
         tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(valid), n_beams, N_ROLES,
         1.0, k, sample, MAX_STEPS, noise=noise(0, 0, n_beams),
+        base_key=threefry.prng_key(11) if own_keys else None,
     )
     calls = [(tout.packed, jout.packed)]
     parents_by_step = ([1, 0], [0, 0], [1, 0])
@@ -164,6 +168,7 @@ def _search_both(name, kernel, n_beams=2, k=4, sample=False, seed=1):
         tout = tstep.search_step(
             tparams, tcfg, tout.state, parents, chosen, step - 1, n_beams, N_ROLES,
             1.0, k, sample, noise=noise(0, step, n_beams),
+            base_key=threefry.prng_key(11) if own_keys else None,
         )
         calls.append((tout.packed, jout.packed))
     return calls, (tout.state, jout.state)
@@ -185,6 +190,14 @@ def test_search_sampled_with_jax_noise():
     """sample=True: the port's Gumbel-top-k fed JAX's per-(family, step,
     slot) noise proposes the same ids."""
     calls, _ = _search_both("tiny-gemma2", True, sample=True, seed=2)
+    for got, expect in calls:
+        _assert_packed(got, expect)
+
+
+def test_search_sampled_with_threefry_keys():
+    """sample=True with the port's own base key: the reference's key scheme
+    (fold family, step, slot; gumbel) proposes the JAX package's ids."""
+    calls, _ = _search_both("tiny-llama3", True, sample=True, seed=2, own_keys=True)
     for got, expect in calls:
         _assert_packed(got, expect)
 
