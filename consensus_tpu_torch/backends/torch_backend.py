@@ -25,6 +25,10 @@ config) and runs each protocol call as padded device batches:
 * ``embed`` -- the masked mean-pool of the final hidden states, unit norm
   (``tpu.py:1743-1778``), through the flash kernel with
   ``use_flash_attention``: the evaluator's cosine utilities.
+* ``next_token_logprobs`` -- k candidate next tokens per request from one
+  cacheless forward (``models/generate.py::next_token_topk``, rows bucketed
+  to at least 8, ``tpu.py:1642-1730``), through the flash kernel with
+  ``use_flash_attention``: the full-prefix fallback session's primitive.
 * ``open_fused_token_search`` -- :class:`TorchTokenSearchSession`, the
   incremental KV-cache search session of beam search and finite lookahead
   (``tpu.py:1731-1739, 2140-2398, 2644-2687``); its step attends through the
@@ -54,8 +58,10 @@ import torch
 from consensus_tpu_torch.backends.base import (
     GenerationRequest,
     GenerationResult,
+    NextTokenRequest,
     ScoreRequest,
     ScoreResult,
+    TokenCandidate,
 )
 from consensus_tpu_torch.backends.session import (
     FusedSessionUnavailable,
@@ -254,7 +260,7 @@ class TorchBackend:
         self._bias_id_cache: Dict[str, Tuple[int, ...]] = {}
         self.call_counts = {
             "generate": 0, "score": 0, "score_batches": 0, "search_advances": 0,
-            "score_matrix": 0, "embed": 0,
+            "score_matrix": 0, "embed": 0, "next_token": 0,
         }
         self.token_counts = {"generated": 0, "scored": 0}
         #: Fused utility matrices: calls, device chunks, per-call fallbacks.
@@ -1098,10 +1104,70 @@ class TorchBackend:
         norms = np.linalg.norm(hidden, axis=1, keepdims=True)
         return hidden / np.maximum(norms, 1e-12)
 
-    # -- not ported yet ------------------------------------------------------
+    # -- next-token distribution ---------------------------------------------
 
-    def next_token_logprobs(self, requests):
-        raise _not_ported("next_token_logprobs", "evaluation (next-token top-k)")
+    def next_token_logprobs(
+        self, requests: Sequence[NextTokenRequest]
+    ) -> List[List[TokenCandidate]]:
+        """k candidate next tokens per request from one cacheless forward
+        (``tpu.py:1642-1730``), in ``max_batch_rows`` slices.  With
+        ``use_flash_attention`` the forward attends through the flash
+        kernel."""
+        if not requests:
+            return []
+        return self._sliced(list(requests), self._next_token_impl)
+
+    def _next_token_impl(
+        self, requests: Sequence[NextTokenRequest]
+    ) -> List[List[TokenCandidate]]:
+        self.call_counts["next_token"] += len(requests)
+        self.token_counts["scored"] += len(requests)
+        token_lists = [
+            self.tokenizer.encode(self._render_prompt(r), add_bos=True) for r in requests
+        ]
+        # Rows bucket to at least 8 and k to at least 4: search steps vary
+        # both, the buckets keep the launch shapes few.
+        pad_rows = _bucket(len(requests), minimum=8) - len(requests)
+        tokens, valid = self._left_pad_batch(token_lists + [[]] * pad_rows)
+        bias_table, bias_index = self._bias_table(requests)
+        if bias_index is not None and pad_rows:
+            bias_index = torch.cat(
+                [bias_index, torch.zeros((pad_rows,), dtype=bias_index.dtype, device=self.device)]
+            )
+        vocab = self.config.vocab_size
+        k = min(_bucket(max(min(r.k, vocab) for r in requests), minimum=4), vocab)
+        temperatures = torch.tensor(
+            [r.temperature for r in requests] + [1.0] * pad_rows,
+            dtype=torch.float32, device=self.device,
+        )
+        gumbel_rows = [r.mode != "topk" and r.temperature > 0 for r in requests]
+        gumbel_rows += [False] * pad_rows
+        if any(gumbel_rows):
+            keys = self._row_keys("next_token", [r.seed for r in requests] + [0] * pad_rows)
+        else:
+            # Pure top-k batches are deterministic: the unseeded nonce is not
+            # burned, so unrelated unseeded calls stay reproducible.
+            keys = torch.zeros((len(gumbel_rows), 2), dtype=torch.int64, device=self.device)
+        with torch.inference_mode():
+            ids, logprobs = gen.next_token_topk(
+                self.params, self.config, tokens, valid, keys, k, temperatures,
+                torch.tensor(gumbel_rows, dtype=torch.bool, device=self.device),
+                bias_table, bias_index, with_gumbel=any(gumbel_rows),
+            )
+        ids, logprobs = ids.cpu().numpy(), logprobs.cpu().numpy()
+        out: List[List[TokenCandidate]] = []
+        for row, request in enumerate(requests):
+            # This request's k in score order (the without-replacement
+            # sample), presented best-first by true logprob.
+            row_k = min(request.k, vocab)
+            pairs = sorted(zip(ids[row, :row_k], logprobs[row, :row_k]), key=lambda p: -p[1])
+            out.append([
+                TokenCandidate(
+                    token=self.tokenizer.token_str(int(t)), token_id=int(t), logprob=float(lp),
+                )
+                for t, lp in pairs
+            ])
+        return out
 
 
 def _embed_forward(params, config: ModelConfig, tokens, valid) -> torch.Tensor:

@@ -36,6 +36,7 @@ import yaml
 
 from consensus_tpu_torch.aggregation import aggregate_run_dir
 from consensus_tpu_torch.backends import get_backend
+from consensus_tpu_torch.backends.base import Backend
 from consensus_tpu_torch.cli.run_experiment import configure_logging
 from consensus_tpu_torch.embedding import get_embedder
 from consensus_tpu_torch.evaluation import StatementEvaluator, sanitize_model_name
@@ -59,7 +60,12 @@ def run_pipeline(
     evaluation_models: Optional[List[str]] = None,
     config_overrides: Optional[dict] = None,
     device: Optional[str] = None,
+    backend: Optional[Backend] = None,
 ) -> str:
+    """Run the four phases on ``config_path``; returns the run dir.  A
+    ``backend`` given here generates (and judges, when the config says
+    resident) instead of one built from the config: ``run_sweep`` shares
+    one resident backend across configs that name the same options."""
     with open(config_path) as fh:
         config = yaml.safe_load(fh)
     if config_overrides:
@@ -67,7 +73,7 @@ def run_pipeline(
 
     # ---- Phase 1: generation ------------------------------------------
     logger.info("=== Phase 1: generation ===")
-    experiment = Experiment(config, device=device)
+    experiment = Experiment(config, backend=backend, device=device)
     results = experiment.run()
     run_dir = pathlib.Path(experiment.run_dir)
     backend = experiment.backend

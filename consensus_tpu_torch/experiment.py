@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import datetime
 import itertools
+import json
 import logging
 import pathlib
 import time
@@ -32,6 +33,7 @@ import yaml
 
 from consensus_tpu_torch.backends import get_backend
 from consensus_tpu_torch.backends.base import Backend
+from consensus_tpu_torch.data.scenarios.registry import maybe_resolve_scenario
 from consensus_tpu_torch.methods import get_method_generator
 from consensus_tpu_torch.utils.io_atomic import (
     atomic_write_json,
@@ -82,12 +84,10 @@ class Experiment:
         self.base_seed = int(config.get("seed", 42))
         self.num_seeds = int(config.get("num_seeds", 1))
 
-        scenario = config.get("scenario", {})
-        if not isinstance(scenario, dict) or "ref" in scenario:
-            raise NotImplementedError(
-                "scenario registry refs are not ported yet (ROADMAP.md, queue A: "
-                "evaluation); give issue and agent_opinions inline"
-            )
+        # ``scenario`` is inline issue/opinions, a registry ref string
+        # ("corpus:v2:polarized-0004", "aamas:3"), or a dict with a ``ref``
+        # key plus overriding fields (``data/scenarios/registry.py``).
+        scenario = maybe_resolve_scenario(config.get("scenario", {}))
         self.issue: str = scenario.get("issue", "")
         self.agent_opinions: Dict[str, str] = dict(scenario.get("agent_opinions", {}))
 
@@ -177,6 +177,7 @@ class Experiment:
                 if generator.degraded:
                     row["degraded"] = True
                     row["degraded_reason"] = generator.degraded_reason
+                    row["budget_spent"] = json.dumps(generator.budget_spent, sort_keys=True)
                 if generator.pre_brushup_statement is not None and run_config.get(
                     "brushup", False
                 ):

@@ -94,6 +94,9 @@ class BeamSearchGenerator(BaseGenerator):
         bias_tokens = tuple(cfg.get("bias_against_tokens", BIAS_AGAINST_TOKENS))
         bias_tokens += tuple(cfg.get("additional_bias_tokens", ()))
         bias_value = float(cfg.get("bias_value", -1_000_000))
+        # pin_budget (the timing mode): no EOS string may complete a beam
+        # early -- every beam runs all max_tokens steps.
+        eos_tokens = frozenset() if cfg.get("pin_budget") else EOS_TOKENS
         seed = self.seed
 
         agents = list(agent_opinions.items())
@@ -121,6 +124,7 @@ class BeamSearchGenerator(BaseGenerator):
                 bias_against_tokens=bias_tokens if use_biasing else (),
                 bias_value=bias_value,
                 max_steps=max_tokens,
+                matrix_scoring=bool(cfg.get("matrix_scoring", True)),
             ),
         )
 
@@ -141,7 +145,7 @@ class BeamSearchGenerator(BaseGenerator):
                             (sequence + cand.token, new_rewards, cand, slot)
                         )
                 beams, completed = self._prune(
-                    candidates, completed, beam_width
+                    candidates, completed, beam_width, eos_tokens
                 )
                 # Anytime checkpoint: every step leaves a rankable prefix.
                 pool = completed + [(s, r) for s, r, *_ in beams]

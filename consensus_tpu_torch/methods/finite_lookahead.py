@@ -69,6 +69,9 @@ class FiniteLookaheadGenerator(BaseGenerator):
         max_depth = clock.scale_int(max_depth_full)
         max_tokens = int(cfg.get("max_tokens", 50))
         temperature = float(cfg.get("temperature", 1.0))
+        # pin_budget (the timing mode): no terminator may end the statement
+        # or a path early -- the tree runs its full budget.
+        terminators = frozenset() if cfg.get("pin_budget") else TERMINATOR_TOKENS
         seed = self.seed
 
         agents = list(agent_opinions.items())
@@ -94,6 +97,7 @@ class FiniteLookaheadGenerator(BaseGenerator):
                 sample=True,
                 bias_against_tokens=BIAS_AGAINST_TOKENS,
                 max_steps=max_tokens,
+                matrix_scoring=bool(cfg.get("matrix_scoring", True)),
             ),
         )
 
@@ -103,13 +107,14 @@ class FiniteLookaheadGenerator(BaseGenerator):
             root_proposals = session.propose()[0]
             for step in range(max_tokens):
                 best = self._best_path(
-                    session, root_proposals, branching, max_depth, step, clock=clock
+                    session, root_proposals, branching, max_depth, step, terminators,
+                    clock=clock,
                 )
                 if best is None:
                     break
                 path, sums = best
                 first = path[0]
-                if first.token in TERMINATOR_TOKENS:
+                if first.token in terminators:
                     break
                 statement += first.token
                 # Anytime checkpoint: each emitted token extends a valid

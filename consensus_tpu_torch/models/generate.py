@@ -22,6 +22,10 @@ every decode loop exits as soon as every row has emitted an EOS id.
   read-only frozen blocks, rows that finished compact away by halving the
   batch, and with ``kv_quant`` the tails (and the per-row prompt trunk) are
   int8 with per-(token, head) scales.
+* ``next_token_topk`` / ``next_token_logits`` -- one cacheless forward of
+  the prompt batch and the last position's distribution: the
+  ``Backend.next_token_logprobs`` primitive of the full-prefix search
+  session.
 
 Each row carries its own threefry key ((B, 2), ``utils/threefry.py``) and
 splits it once per step exactly as ``generate.py:352-356`` does
@@ -532,3 +536,59 @@ def generate_tokens_segmented(
         bias_table=bias_table, bias_index=bias_index, pad_id=pad_id, kv_quant=kv_quant,
         presence=presence, rep_penalty=rep_penalty,
     )
+
+
+# ---------------------------------------------------------------------------
+# Next-token distribution
+# ---------------------------------------------------------------------------
+
+
+def next_token_logits(
+    params,
+    config: ModelConfig,
+    prompt_tokens: torch.Tensor,  # (B, S) LEFT-padded
+    prompt_valid: torch.Tensor,  # (B, S) bool
+) -> torch.Tensor:
+    """Full next-token logit rows (B, V) float32: one forward, no cache
+    (``generate.py:784-800``).  The forward is the one prefill runs, so with
+    ``config.use_flash_attention`` it attends through the flash kernel."""
+    positions = left_pad_positions(prompt_valid)
+    hidden, _ = forward(params, config, prompt_tokens, positions, prompt_valid, return_hidden=True)
+    return project_logits(params, config, hidden[:, -1, :])
+
+
+def next_token_topk(
+    params,
+    config: ModelConfig,
+    prompt_tokens: torch.Tensor,  # (B, S) LEFT-padded
+    prompt_valid: torch.Tensor,  # (B, S) bool
+    keys: torch.Tensor,  # (B, 2) per-row threefry keys (Gumbel perturbation)
+    k: int,
+    temperature: torch.Tensor,  # (B,) float32
+    use_gumbel: torch.Tensor,  # (B,) bool -- False rows take deterministic top-k
+    bias_table: Optional[torch.Tensor] = None,  # (U, V) unique bias vectors
+    bias_index: Optional[torch.Tensor] = None,  # (B,) row -> table index
+    with_gumbel: bool = True,  # False: skip the (B, V) noise for pure top-k batches
+) -> tuple:
+    """Top-k next-token candidates per row, selected on the device
+    (``generate.py:737-781``): (ids (B, k) int32, logprobs (B, k) float32),
+    so only O(B k) crosses to the host.
+
+    Scores are ``log_softmax(logits + bias) / max(temp, 1e-6)`` plus, on
+    ``use_gumbel`` rows, Gumbel noise from each row's key
+    (``threefry.gumbel``, bit for bit ``jax.random.gumbel``).  On the other
+    rows positive temperature scaling keeps the order, so their top-k by
+    score is the top-k by logprob.  Results come back in SCORE order
+    (Gumbel-top-k is sampling without replacement: a caller wanting fewer
+    candidates takes a prefix); the logprobs are the true (biased,
+    untempered) log-softmax values."""
+    logits = next_token_logits(params, config, prompt_tokens, prompt_valid)
+    if bias_table is not None:
+        logits = logits + bias_table[bias_index]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    scores = logprobs / torch.clamp(temperature, min=1e-6)[:, None]
+    if with_gumbel:
+        noise = threefry.gumbel(keys, (logits.shape[-1],))
+        scores = scores + noise * use_gumbel[:, None].to(torch.float32)
+    ids = torch.topk(scores, k, dim=-1).indices
+    return ids.to(torch.int32), torch.gather(logprobs, 1, ids)

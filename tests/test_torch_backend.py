@@ -12,6 +12,7 @@ are checked to be free of near-ties (margin > 1e-3 at every step).
 """
 
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 from consensus_tpu.backends.tpu import TPUBackend
 from consensus_tpu.experiment import Experiment as JaxExperiment
 from consensus_tpu.methods.best_of_n import BestOfNGenerator as JaxBestOfN
+from consensus_tpu_torch.backends import get_backend
 from consensus_tpu_torch.backends.base import GenerationRequest, ScoreRequest
 from consensus_tpu_torch.backends.torch_backend import TorchBackend
 from consensus_tpu_torch.experiment import Experiment
@@ -185,6 +187,47 @@ def test_experiment_results_csv(backends, tmp_path):
     assert (frame["error_message"] == "").all()
     assert frame.loc[frame.method == "predefined", "statement"].item() == "A fixed statement."
     assert list(frame["statement"]) == list(jax_frame["statement"])
+
+
+def test_degraded_rows_carry_budget_spent(backends, tmp_path):
+    """A brownout-scaled run (``budget_scale``) writes ``degraded``,
+    ``degraded_reason`` and ``budget_spent`` as the JAX engine does."""
+    ref, port = backends
+    config = {
+        "experiment_name": "degraded", "seed": 7, "num_seeds": 1,
+        "scenario": {"issue": ISSUE, "agent_opinions": OPINIONS},
+        "deterministic_artifacts": True,
+        "methods_to_run": ["best_of_n", "predefined"],
+        "best_of_n": {"n": 4, "max_tokens": 6, "temperature": 0.0, "budget_scale": 0.5},
+        "predefined": {"predefined_statement": "A fixed statement."},
+    }
+    jax_run = JaxExperiment(dict(config, output_dir=str(tmp_path / "jax"), concurrent_execution=False),
+                            backend=ref)
+    jax_run.run()
+    experiment = Experiment(dict(config, output_dir=str(tmp_path / "torch")), backend=port)
+    experiment.run()
+    got = pd.read_csv(experiment.run_dir / "results.csv", keep_default_na=False)
+    expect = pd.read_csv(jax_run.run_dir / "results.csv", keep_default_na=False)
+    assert list(got.columns) == list(expect.columns)
+    assert "budget_spent" in got.columns
+    for column in ("method", "statement", "degraded", "degraded_reason", "budget_spent"):
+        assert list(got[column]) == list(expect[column]), column
+    spent = json.loads(got.loc[got.method == "best_of_n", "budget_spent"].item())
+    assert spent["n_used"] == 2 and spent["n_planned"] == 4
+    assert got.loc[got.method == "predefined", "budget_spent"].item() == ""
+
+
+def test_get_backend_tpu_is_the_resident_backend():
+    backend = get_backend("tpu", model=MODEL, device="cpu", max_context=128)
+    assert isinstance(backend, TorchBackend) and backend.model_name == MODEL
+    assert backend.max_context == 128 and backend.device.type == "cpu"
+    spec = {"name": "tpu", "model": MODEL, "device": "cpu", "dtype": "float32"}
+    assert isinstance(get_backend(spec), TorchBackend)
+    assert get_backend(backend) is backend
+    with pytest.raises(NotImplementedError, match="A6"):
+        get_backend("fake")
+    with pytest.raises(ValueError, match="resident"):
+        get_backend("nope")
 
 
 @pytest.mark.parametrize(

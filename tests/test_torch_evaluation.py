@@ -265,9 +265,6 @@ def test_unported_judges_raise():
         get_backend("openai", model="o3")
     with pytest.raises(NotImplementedError, match="ROADMAP.*API judge"):
         get_backend({"name": "api"})
-    _, port = _backends("tiny-llama3")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*next-token"):
-        port.next_token_logprobs([])
 
 
 _PIPELINE_CONFIG = {

@@ -35,6 +35,7 @@ from consensus_tpu_torch.backends.session import (
 from consensus_tpu_torch.backends.torch_backend import TorchBackend, TorchTokenSearchSession
 from consensus_tpu_torch.experiment import Experiment
 from consensus_tpu_torch.methods import GENERATOR_MAP, NOT_PORTED, get_method_generator
+from consensus_tpu_torch.methods import beam_search as tbeam
 from consensus_tpu_torch.methods.beam_search import BeamSearchGenerator
 from consensus_tpu_torch.methods.finite_lookahead import FiniteLookaheadGenerator
 from consensus_tpu_torch.models.convert import params_from_jax
@@ -242,22 +243,73 @@ def _spec(**kw):
 
 
 def test_open_token_search_raises_when_budget_declines():
+    """The fused session raises FusedSessionUnavailable over the session
+    budget, and the factory then falls back to the full-prefix session, as
+    the JAX factory does (``tests/test_torch_prefix_session.py`` holds that
+    session against the JAX one)."""
     backend = TorchBackend(model=MODEL, device="cpu", max_context=128)
     backend._session_budget.cap = 1024
     with pytest.raises(FusedSessionUnavailable):
         backend.open_fused_token_search(_spec())
-    with pytest.raises(NotImplementedError, match="queue A: evaluation") as info:
-        open_token_search(backend, _spec())
-    assert isinstance(info.value.__cause__, FusedSessionUnavailable)
+    session = open_token_search(backend, _spec())
+    assert isinstance(session, tsession.PrefixTokenSearchSession)
+    assert [len(row) for row in session.propose()] == [2, 2]
     assert backend._session_budget.used == 0
 
 
 def test_open_token_search_without_fused_session_raises():
+    """A backend without a fused session gets the full-prefix fallback; its
+    first call goes to the backend's ``next_token_logprobs``."""
+
     class NoSession:
         name = "plain"
 
-    with pytest.raises(NotImplementedError, match="next_token_logprobs"):
-        tsession.open_token_search(NoSession(), _spec())
+    session = tsession.open_token_search(NoSession(), _spec())
+    assert isinstance(session, tsession.PrefixTokenSearchSession)
+    with pytest.raises(AttributeError, match="next_token_logprobs"):
+        session.propose()
+
+
+@pytest.mark.parametrize("method", ["beam_search", "finite_lookahead"])
+def test_pin_budget_runs_the_whole_budget(backends, method):
+    """``pin_budget`` (the timing mode): no EOS completes a beam and no
+    terminator ends a lookahead path or the statement, as in the JAX
+    methods.  Finite lookahead at seed 152 picks a terminator first
+    (``test_finite_lookahead_sampled_statement``); pinned, both sides run
+    every token instead."""
+    ref, port = backends
+    generator, jax_generator, config = {
+        "beam_search": (BeamSearchGenerator, JaxBeamSearch, dict(BEAM, max_tokens=5)),
+        "finite_lookahead": (FiniteLookaheadGenerator, JaxLookahead,
+                             dict(LOOKAHEAD, temperature=1.0, seed=152)),
+    }[method]
+    config = dict(config, pin_budget=True)
+    with _Recording(port) as rec:
+        got = generator(port, config).generate_statement(ISSUE, OPINIONS)
+    expect = jax_generator(ref, config).generate_statement(ISSUE, OPINIONS)
+    assert got == expect
+    (session,) = rec.sessions
+    assert session._step == config["max_tokens"] - 1
+    if method == "finite_lookahead":
+        assert got and not FiniteLookaheadGenerator(port, dict(config, pin_budget=False)) \
+            .generate_statement(ISSUE, OPINIONS)
+
+
+def test_pin_budget_empties_the_stop_sets(monkeypatch):
+    """The sets each method passes on under ``pin_budget``."""
+    seen = []
+    original = BeamSearchGenerator._prune
+
+    def prune(candidates, completed, beam_width, eos_tokens=None):
+        seen.append(eos_tokens)
+        return original(candidates, completed, beam_width, eos_tokens)
+
+    monkeypatch.setattr(BeamSearchGenerator, "_prune", staticmethod(prune))
+    backend = TorchBackend(model=MODEL, device="cpu", max_context=128)
+    for pin in (False, True):
+        BeamSearchGenerator(backend, dict(BEAM, max_tokens=2, pin_budget=pin)) \
+            .generate_statement(ISSUE, OPINIONS)
+    assert seen[0] == tbeam.EOS_TOKENS and seen[-1] == frozenset()
 
 
 def test_rollouts_and_speculation_raise():
