@@ -85,6 +85,19 @@ JSON line each; any failure exits non-zero:
    llama3-8b (per-agent utilities within 1e-3 of the pipeline's) and one
    welfare-gap table of ``corpus:v2:polarized-0004`` through the port's
    scenario registry.
+14. ``mcts_path`` -- MCTS and its rollouts on one gemma2-2b backend (the
+   north_star ``backend_options`` plus ``use_decode_attention``), counts
+   zeroed just before and read just after: ``configs/examples/mcts.yaml``
+   through ``Experiment``; ``configs/north_star/gemma/scenario_1/mcts.yaml``
+   as ``run_sweep`` finds it, through ``run_pipeline`` (one seed, 8 tokens,
+   the method's ``pin_budget`` timing mode) with its evaluation under
+   gemma2-2b (flash_attention); a wave of 8 rollouts through ``rollout_many``
+   against ``rollout_from`` on each path and speculative against sequential;
+   the example config over the forced full-prefix fallback session (4
+   tokens); the north_star finite-lookahead config with ``rollout_depth`` 4,
+   speculative off and on (6 tokens, pinned).  Trunk advances and the
+   fallback's generate steps go through decode_attention; the rollouts
+   decode by einsum, as the reference's do.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -350,6 +363,12 @@ def kernel_cases():
         ))
     rows.append(flash_case("S=700 not a tile multiple, one row of length 0", 4, 700, 32, 8, 128,
                            [700, 0, 350, 1], [0, 0, 0, 699], seed=4))
+    # gemma2-2b (mcts_path's evaluation): 8 q / 4 kv heads, hd 256, scale
+    # 256^-0.5, softcap 50; its 4096 window is wider than any row here.
+    s = 512
+    lens = ragged(rng, 8, s, s // 4)
+    rows.append(flash_case("gemma2-2b evaluation, softcap 50", 8, s, 8, 4, 256, lens, [0] * 8,
+                           seed=6, scale=256 ** -0.5, softcap=50.0, window=4096))
     return rows
 
 
@@ -550,6 +569,12 @@ def decode_cases():
                     1024, 256, [0], wc, seed=30 + i)
         for i, wc in enumerate((0, 128, 255))
     ]
+    # gemma2-2b MCTS trunk advances (mcts_path): one slot over 5 roles (the
+    # north_star scenario 1: reference + 4 agents), 8 q / 4 kv heads (2 q
+    # rows per group), hd 256, softcap 50, window 4096, 8-column tails.
+    rows.append(decode_case("gemma2-2b MCTS trunk advance (P=1, R=5)", 1, 5, 8, 4, 256, 1024, 8,
+                            DECODE_STARTS[:5], 5, seed=33, scale=256 ** -0.5, softcap=50.0,
+                            window=4096))
     return rows
 
 
@@ -2155,6 +2180,427 @@ def sweep_path(params=None):
     return row, launches, shapes
 
 
+# -- MCTS and its rollouts on gemma2-2b ----------------------------------------------
+
+MCTS_EXAMPLE_CONFIG = "configs/examples/mcts.yaml"
+MCTS_SWEEP_ROOT = "configs/north_star"
+#: Depth cuts of the north_star config (100 tokens, 5 seeds in the file).
+MCTS_SWEEP_TOKENS = 8
+#: The methods' own timing mode: no node or path is terminal, so the search
+#: runs its whole budget (random weights propose an EOS within a few tokens).
+PIN_BUDGET = {"pin_budget": True}
+#: The example config over the forced full-prefix fallback: 4 of its 10 tokens.
+MCTS_FALLBACK_TOKENS = 4
+#: Finite lookahead with leaf rollouts, off and on speculative.
+LOOKAHEAD_ROLLOUT = {"max_depth": 2, "rollout_depth": 4, "max_tokens": 6, "brushup": False,
+                     "speculative_rollouts": [False, True], **PIN_BUDGET}
+#: Rollout routes compared on the card (batched vs single, speculative vs
+#: sequential): token ids equal wherever the reference draw's margin (top
+#: score minus the runner-up, Gumbel noise included) exceeds this; agent
+#: totals within ROLLOUT_TOTAL_ATOL where the ids agree.  Two bf16 routes
+#: of different batch shapes round differently, as the route checks above
+#: measure (logprob gaps up to ROUTE_ATOL), so a draw closer than that to a
+#: tie may flip: its first divergence is reported, not required equal.
+ROLLOUT_MARGIN = ROUTE_ATOL
+ROLLOUT_TOTAL_ATOL = 0.1
+ROLLOUT_WAVE = 8
+
+
+def _rollout_margin(backend, session, path, ref_ids, step, salt, depth):
+    """Margin of the draw at rollout ``step`` of the stream ``ref_ids`` on
+    ``path``: the session's teacher-forced reference logprobs there over the
+    temperature, plus that draw's Gumbel noise, top minus runner-up."""
+    import torch
+    from consensus_tpu_torch.models import stepper
+    from consensus_tpu_torch.utils import threefry
+
+    device = session._state.cur_pos.device
+    draft = list(ref_ids[:step]) + [0] * (depth - step)
+    suffix = torch.tensor([[c.token_id for c in path]], dtype=torch.int32, device=device)
+    lp = stepper.rollout_verify_logprobs(
+        backend.params, backend.config, session._state, session._step, suffix,
+        torch.tensor([draft], dtype=torch.int32, device=device),
+    )[0, 0, step]
+    temperature = session.spec.temperature
+    if temperature > 0:
+        key = threefry.fold_in(threefry.fold_in(threefry.fold_in(session._base_key, 2), salt),
+                               step)
+        lp = lp / temperature + threefry.gumbel(key, (lp.shape[-1],))
+    top2 = torch.topk(lp, 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def _compare_rollouts(backend, session, wave, salts, depth, got, ref):
+    """Per path: equal ids and totals, or the first divergence and the
+    reference draw's margin there."""
+    rows = []
+    for path, salt, g, r in zip(wave, salts, got, ref):
+        ids, ref_ids = g[0], r[0]
+        first = next((t for t in range(min(len(ids), len(ref_ids))) if ids[t] != ref_ids[t]),
+                     None if len(ids) == len(ref_ids) else min(len(ids), len(ref_ids)))
+        if first is None:
+            err = max(abs(a - b) for a, b in zip(g[2], r[2]))
+            rows.append({"ids_equal": True, "tokens": len(ids), "max_total_err": err,
+                         "ok": g[3] and r[3] and err <= ROLLOUT_TOTAL_ATOL})
+        else:
+            margin = _rollout_margin(backend, session, path, ref_ids, first, salt, depth)
+            rows.append({"ids_equal": False, "first_divergence": first, "margin": margin,
+                         "ok": margin <= ROLLOUT_MARGIN})
+    return rows
+
+
+def mcts_rollout_check(backend, config):
+    """One north_star MCTS session spec, sequential and speculative: a wave
+    of ROLLOUT_WAVE paths (spans 1 and 2) through ``rollout_many`` against
+    ``rollout_from`` on each path alone, then the speculative session's
+    ``rollout_many`` against the sequential one."""
+    import dataclasses
+
+    import torch
+    from consensus_tpu_torch.backends.session import SearchSpec
+    from consensus_tpu_torch.methods.beam_search import BIAS_AGAINST_TOKENS
+    from consensus_tpu_torch.methods.mcts import FAILURE_REWARD
+    from consensus_tpu_torch.methods.prompts import agent_prompt, reference_prompt
+
+    scenario, cfg = config["scenario"], config["mcts"]
+    opinions = scenario["agent_opinions"]
+    system, user = reference_prompt(scenario["issue"], opinions, variant="mcts")
+    depth = int(cfg["rollout_depth"])
+    spec = SearchSpec(
+        ref_system=system, ref_user=user,
+        agent_prompts=tuple(agent_prompt(scenario["issue"], o, variant="mcts")
+                            for o in opinions.values()),
+        n_slots=1, k=int(cfg["expansion_sample_width"]), temperature=1.0, seed=config["seed"],
+        sample=True, bias_against_tokens=BIAS_AGAINST_TOKENS, max_steps=MCTS_SWEEP_TOKENS,
+        failure_logprob=FAILURE_REWARD, spec_draft_len=depth,
+    )
+    plain = backend.open_fused_token_search(spec)
+    spec_session = backend.open_fused_token_search(dataclasses.replace(spec, speculative=True))
+    salts = list(range(1, ROLLOUT_WAVE + 1))
+    try:
+        roots = [s.propose()[0] for s in (plain, spec_session)]
+        nexts = [s.advance_and_propose([0], [root[0]])[0] for s, root in
+                 zip((plain, spec_session), roots)]
+        children = plain.propose_suffixes([[nexts[0][0]]], salt=1)[0]
+        wave = [[c] for c in nexts[0]] + [[nexts[0][0], c] for c in children]
+        wave = wave[:ROLLOUT_WAVE]
+        same_trunk = [c.token_id for c in roots[0]] == [c.token_id for c in roots[1]] and [
+            c.token_id for c in nexts[0]] == [c.token_id for c in nexts[1]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched = plain.rollout_many(wave, depth, salts)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        singles = [plain.rollout_from(p, depth, s) for p, s in zip(wave, salts)]
+        torch.cuda.synchronize()
+        singles_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        speculative = spec_session.rollout_many(wave, depth, salts)
+        torch.cuda.synchronize()
+        speculative_s = time.perf_counter() - t0
+        batched_vs_single = _compare_rollouts(backend, plain, wave, salts, depth, batched, singles)
+        spec_vs_sequential = _compare_rollouts(backend, plain, wave, salts, depth, speculative,
+                                               batched)
+        drafts = dict(spec_session.draft_tokens)
+    finally:
+        plain.close()
+        spec_session.close()
+    return {
+        "wave": len(wave), "spans": sorted({len(p) for p in wave}), "depth": depth,
+        "same_trunk_both_sessions": same_trunk,
+        "rollout_many_s": batched_s, "rollout_from_s_total": singles_s,
+        "speculative_rollout_many_s": speculative_s,
+        "batched_vs_single": batched_vs_single, "speculative_vs_sequential": spec_vs_sequential,
+        "draft_tokens": drafts,
+        "accepted_draft_tokens_per_verify_dispatch":
+            drafts["verified"] / max(drafts["verify_dispatches"], 1),
+        "tolerance": f"ids equal where the reference margin > {ROLLOUT_MARGIN}; "
+                     f"agent totals atol {ROLLOUT_TOTAL_ATOL}",
+        "ok": same_trunk and all(r["ok"] for r in batched_vs_single + spec_vs_sequential)
+        and drafts["verify_dispatches"] > 0,
+    }
+
+
+def mcts_path():
+    """MCTS and its rollouts on one gemma2-2b ``TorchBackend`` (the
+    north_star ``backend_options`` plus ``use_decode_attention``), counts
+    zeroed just before and read just after -> (row, launches, decode
+    shapes, the K1 case at the evaluation's last launch).  (a) the example
+    MCTS config through ``Experiment``; (b) the north_star scenario-1 MCTS
+    config as ``run_sweep`` finds it, through ``run_pipeline`` with its
+    evaluation, pinned to its whole budget; (c) ``mcts_rollout_check``; (d)
+    the example config over the forced full-prefix fallback session; (e)
+    finite lookahead with leaf rollouts, sequential and speculative."""
+    import pandas as pd
+    import torch
+    import yaml
+
+    from consensus_tpu_torch.backends import get_backend, torch_backend
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.cli import run_experiment_with_eval as pipeline
+    from consensus_tpu_torch.cli import run_sweep
+    from consensus_tpu_torch.evaluation import StatementEvaluator
+    from consensus_tpu_torch.experiment import Experiment
+    from consensus_tpu_torch.methods import finite_lookahead, mcts
+    from consensus_tpu_torch.models import generate as gen
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+
+    paths = run_sweep.find_config_files(str(ROOT / MCTS_SWEEP_ROOT), ["gemma"], [1], ["mcts"])
+    sweep_config = yaml.safe_load(paths[0].read_text())
+    example = yaml.safe_load((ROOT / MCTS_EXAMPLE_CONFIG).read_text())
+    lookahead_path = paths[0].with_name("finite_lookahead.yaml")
+    lookahead = yaml.safe_load(lookahead_path.read_text())
+    started = time.perf_counter()
+    backend = get_backend(sweep_config["backend"], **sweep_config["backend_options"],
+                          use_decode_attention=True, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - started
+
+    sessions = []  # (part, session class name)
+    statements = []  # (part, seconds, search_stats or None)
+    part = {"name": ""}
+    timings = {}  # rollout function -> [calls, seconds, decode steps]
+
+    def opened(original):
+        def call(backend_, spec):
+            session = original(backend_, spec)
+            sessions.append((part["name"], type(session).__name__))
+            return session
+        return call
+
+    def statement_timer(original):
+        def call(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = original(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            stats = dict(getattr(self, "search_stats", {}) or {})
+            stats.pop("visit_log", None)
+            statements.append((part["name"], time.perf_counter() - t0, stats))
+            return out
+        return call
+
+    def rollout_timer(name, depth_of):
+        def make(original):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = original(*args, **kwargs)
+                torch.cuda.synchronize()
+                entry = timings.setdefault(name, [0, 0.0, 0])
+                entry[0] += 1
+                entry[1] += time.perf_counter() - t0
+                entry[2] += depth_of(args)
+                return out
+            return call
+        return make
+
+    evaluation_s = []
+
+    def evaluation_timer(original):
+        def call(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = original(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            evaluation_s.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    flash_calls = Wrapped(torch_backend, ("_embed_forward", "token_logprobs",
+                                          "token_logprobs_streamed"))
+    patches = [
+        Wrapped(mcts, make={"open_token_search": opened}),
+        Wrapped(finite_lookahead, make={"open_token_search": opened}),
+        Wrapped(mcts.MCTSGenerator, make={"generate_statement": statement_timer}),
+        Wrapped(finite_lookahead.FiniteLookaheadGenerator,
+                make={"generate_statement": statement_timer}),
+        Wrapped(torch_backend, make={
+            "rollout_scored": rollout_timer("rollout_scored", lambda a: a[6]),
+            "rollout_scored_many": rollout_timer("rollout_scored_many", lambda a: a[7]),
+            "rollout_verify_many": rollout_timer("rollout_verify_many", lambda a: 1),
+        }),
+        Wrapped(StatementEvaluator, make={"evaluate_results_file": evaluation_timer}),
+        flash_calls,
+    ]
+    decode_steps = Wrapped(gen, ("forward_trunk_tail", "next_token_topk"))
+    phase_s, frames = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for patch in patches + [decode_steps]:
+            stack.enter_context(patch)
+        fa.launches.reset()
+        da.launches.reset()
+
+        part["name"] = "a_example"
+        t0 = time.perf_counter()
+        run = Experiment(dict(example, output_dir=str(OUT_DIR)), backend=backend)
+        run.run()
+        torch.cuda.synchronize()
+        phase_s["a_example"] = time.perf_counter() - t0
+        frames["a_example"] = run.run_dir
+
+        part["name"] = "b_north_star"
+        t0 = time.perf_counter()
+        mcts_cut = dict(sweep_config["mcts"], max_tokens=MCTS_SWEEP_TOKENS, **PIN_BUDGET)
+        flash_before = fa.launches.count
+        forwards_before = sum(flash_calls.calls.values())
+        run_dir = pathlib.Path(pipeline.run_pipeline(
+            str(paths[0]), skip_comparative_ranking=True,
+            config_overrides={"num_seeds": 1, "output_dir": str(OUT_DIR), "mcts": mcts_cut},
+            backend=backend,
+        ))
+        torch.cuda.synchronize()
+        phase_s["b_north_star"] = time.perf_counter() - t0
+        frames["b_north_star"] = run_dir
+        evaluation_flash = fa.launches.count - flash_before
+        evaluation_forwards = sum(flash_calls.calls.values()) - forwards_before
+        last_flash = (fa.launches.last_shapes,
+                      tuple(t.tolist() for t in fa.launches.last_spans)) if evaluation_flash else None
+
+        part["name"] = "c_rollout_check"
+        t0 = time.perf_counter()
+        rollout_check = mcts_rollout_check(backend, sweep_config)
+        phase_s["c_rollout_check"] = time.perf_counter() - t0
+
+        part["name"] = "d_fallback"
+        cap = backend._session_budget.cap
+        backend._session_budget.cap = FORCED_SESSION_CAP
+        try:
+            t0 = time.perf_counter()
+            fallback_config = dict(
+                example, output_dir=str(OUT_DIR),
+                experiment_name=example["experiment_name"] + "_fallback",
+                mcts=dict(example["mcts"], max_tokens=MCTS_FALLBACK_TOKENS),
+            )
+            run = Experiment(fallback_config, backend=backend)
+            run.run()
+            torch.cuda.synchronize()
+            phase_s["d_fallback"] = time.perf_counter() - t0
+            frames["d_fallback"] = run.run_dir
+        finally:
+            backend._session_budget.cap = cap
+
+        part["name"] = "e_lookahead"
+        t0 = time.perf_counter()
+        lookahead_config = dict(
+            lookahead, output_dir=str(OUT_DIR), num_seeds=1,
+            experiment_name=lookahead["experiment_name"] + "_rollouts",
+            finite_lookahead=dict(lookahead["finite_lookahead"], **LOOKAHEAD_ROLLOUT),
+        )
+        run = Experiment(lookahead_config, backend=backend)
+        run.run()
+        torch.cuda.synchronize()
+        phase_s["e_lookahead"] = time.perf_counter() - t0
+        frames["e_lookahead"] = run.run_dir
+        launches = {"flash_attention": fa.launches.count, "decode_attention": da.launches.count}
+        shapes = {key: (count, args) for key, (count, args) in da.launches.shapes.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    results = {name: pd.read_csv(path / "results.csv", keep_default_na=False)
+               for name, path in frames.items()}
+    n_layers = backend.config.n_layers
+    advances = backend.call_counts["search_advances"]
+    gen_steps = decode_steps.calls["forward_trunk_tail"]
+    forwards = sum(flash_calls.calls.values()) + decode_steps.calls["next_token_topk"]
+    eval_frame = None
+    eval_file = frames["b_north_star"] / "evaluation" / "gemma2-2b" / "seed_0" / "evaluation_results.csv"
+    if eval_file.exists():
+        eval_frame = pd.read_csv(eval_file)
+    expected_sessions = {"a_example": "TorchTokenSearchSession",
+                         "b_north_star": "TorchTokenSearchSession",
+                         "d_fallback": "PrefixTokenSearchSession",
+                         "e_lookahead": "TorchTokenSearchSession"}
+    per_statement = {}
+    for name, seconds, stats in statements:
+        entry = per_statement.setdefault(name, [])
+        entry.append({"s": seconds, **{k: stats.get(k) for k in
+                                       ("device_dispatches", "waves", "selections", "collisions")
+                                       if k in stats}})
+    b_stats = per_statement.get("b_north_star", [{}])[0]
+    many = timings.get("rollout_scored_many", [0, 0.0, 0])
+    checks = {
+        "found_one_unedited_config": len(paths) == 1 and sweep_config["backend"] == "tpu"
+        and example["backend_options"] == sweep_config["backend_options"],
+        "backend_is_torch_on_cuda": isinstance(backend, TorchBackend)
+        and backend.device.type == "cuda" and backend.config.name == "gemma2-2b",
+        "rows_error_free": all(
+            len(frame) > 0 and bool((frame["error_message"] == "").all())
+            and not frame["statement"].astype(str).str.startswith("[ERROR").any()
+            for frame in results.values()
+        ) and list(results["e_lookahead"]["param_speculative_rollouts"].astype(str)) == [
+            "False", "True"],
+        "sessions_of_the_expected_class": bool(sessions) and all(
+            cls == expected_sessions.get(name, cls) for name, cls in sessions
+        ) and {name for name, _ in sessions} >= set(expected_sessions),
+        "rollout_scored_many_called": many[0] > 0,
+        "rollout_verify_many_called": timings.get("rollout_verify_many", [0])[0] > 0,
+        "rollout_check": rollout_check["ok"],
+        "decode_launches_eq_layers_x_advances_and_decode_steps":
+            launches["decode_attention"] == n_layers * (advances + gen_steps) and advances > 0,
+        "flash_launches_eq_layers_x_forwards":
+            launches["flash_attention"] == n_layers * forwards and evaluation_flash > 0
+            and evaluation_flash == n_layers * evaluation_forwards,
+        "evaluation_file": eval_frame is not None and list(eval_frame["method"]) == ["mcts"],
+        "aggregated_metrics": (frames["b_north_star"] / "evaluation" / "improved_aggregate"
+                               / "aggregated_metrics.csv").exists(),
+    }
+    flash_case_row = None
+    if last_flash is not None:
+        (q_shape, k_shape), (lens, starts) = last_flash
+        c = backend.config
+        flash_case_row = flash_case(
+            "gemma2-2b evaluation, last launch's shape and spans", q_shape[0], q_shape[1],
+            q_shape[2], k_shape[2], q_shape[3], lens, starts, seed=41, scale=c.q_scale,
+            softcap=c.attn_softcap,
+        )
+    checks["gemma2_2b_flash_case_within_tolerance"] = bool(flash_case_row and flash_case_row["ok"])
+    row = {
+        "phase": "mcts_path", "model": backend.config.name, "d_model": backend.config.d_model,
+        "n_layers": n_layers, "heads": [backend.config.n_heads, backend.config.n_kv_heads],
+        "head_dim": backend.config.head_dim, "vocab": backend.config.vocab_size,
+        "configs": {"a_example": MCTS_EXAMPLE_CONFIG,
+                    "b_north_star": str(paths[0].relative_to(ROOT)),
+                    "e_lookahead": str(lookahead_path.relative_to(ROOT))},
+        "cuts": {"b_north_star": {"num_seeds": 1, "max_tokens": MCTS_SWEEP_TOKENS, **PIN_BUDGET},
+                 "d_fallback": {"max_tokens": MCTS_FALLBACK_TOKENS},
+                 "e_lookahead": {k: v for k, v in LOOKAHEAD_ROLLOUT.items()}},
+        "init_s": init_s, "phase_s": phase_s, "evaluation_s": evaluation_s,
+        "s_per_statement": {name: [e["s"] for e in entries]
+                            for name, entries in per_statement.items()},
+        "statement_stats": per_statement,
+        "s_per_wave_north_star": b_stats.get("s", 0.0) / max(b_stats.get("waves") or 1, 1),
+        "dispatches_per_statement": {name: [e.get("device_dispatches") for e in entries]
+                                     for name, entries in per_statement.items()},
+        "rollouts": {name: {"calls": c, "seconds": s, "steps": n}
+                     for name, (c, s, n) in timings.items()},
+        "s_per_rollout_step": many[1] / max(many[2], 1),
+        "fallback_s_per_token": phase_s["d_fallback"] / MCTS_FALLBACK_TOKENS,
+        "search_advances": advances, "generate_decode_steps": gen_steps,
+        "flash_forwards": {**flash_calls.calls, "next_token_topk": decode_steps.calls["next_token_topk"]},
+        "evaluation_flash_launches": evaluation_flash,
+        "sessions": sessions,
+        "statement_chars": {name: [len(t) for t in frame["statement"].astype(str)]
+                            for name, frame in results.items()},
+        "lookahead_speculative_statements_equal": len(set(
+            results["e_lookahead"]["statement"].astype(str))) == 1,
+        "rollout_check": rollout_check,
+        "launches": launches, "peak_memory_gb": peak_gb,
+        "decode_shapes": [
+            {"q": list(q), "trunk": list(t), "tail": list(l), "launches": count}
+            for (q, t, l), (count, _) in shapes.items()
+        ],
+        "gemma2_2b_flash_case": flash_case_row,
+        "results_csv": {name: str(path.relative_to(ROOT) / "results.csv")
+                        for name, path in frames.items()},
+        "checks": checks, "ok": all(checks.values()),
+    }
+    del backend
+    torch.cuda.empty_cache()
+    return row, launches, shapes, flash_case_row
+
+
 def main() -> int:
     try:
         import torch
@@ -2240,26 +2686,33 @@ def main() -> int:
     sweep_row, sweep_launches, sweep_shapes = sweep_path(params)
     del params
     emit(sweep_row)
+    mcts_row, mcts_launches, mcts_shapes, mcts_case = mcts_path()
+    emit(mcts_row)
+    if mcts_case is None:
+        fail("the MCTS path launched no flash-attention kernel under gemma2-2b")
 
     paths = {
         "main_path": launches, "token_search_path": search_launches,
         "reference_defaults_path": reference_row["launches"],
         "shared_trunk_decode_path": generate_launches, "habermas_eval_path": habermas_launches,
         "fallback_session_path": fallback_launches, "sweep_path": sweep_launches,
+        "mcts_path": mcts_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
         main_shapes, main_spans,
         max([c["max_abs_err"] for c in flash_cases]
-            + [gemma_case["max_abs_err"], next_token_case["max_abs_err"]]),
+            + [gemma_case["max_abs_err"], next_token_case["max_abs_err"],
+               mcts_case["max_abs_err"]]),
     )
     flash_entry["by_path"] = {name: p["flash_attention"] for name, p in paths.items()}
     case_keys = ("shape", "softcap", "window", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_by", "max_abs_err")
     flash_entry["gemma2_9b_evaluation"] = {key: gemma_case[key] for key in case_keys}
     flash_entry["next_token_topk"] = {key: next_token_case[key] for key in case_keys}
+    flash_entry["gemma2_2b_evaluation"] = {key: mcts_case[key] for key in case_keys}
     decode_shapes = dict(search_shapes)
-    for more in (generate_shapes, fallback_shapes, sweep_shapes):
+    for more in (generate_shapes, fallback_shapes, sweep_shapes, mcts_shapes):
         for key, (count, args) in more.items():
             decode_shapes[key] = (decode_shapes.get(key, (0, None))[0] + count, args)
     decode_entry, decode_ok = summary_decode(
@@ -2271,7 +2724,7 @@ def main() -> int:
     emit({"kernels": [flash_entry, decode_entry]})
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
-              greedy_row, habermas_row, fallback_row, sweep_row]
+              greedy_row, habermas_row, fallback_row, sweep_row, mcts_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

@@ -39,7 +39,12 @@ from __future__ import annotations
 import dataclasses
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
-from consensus_tpu_torch.backends.base import BAN_BIAS, NextTokenRequest, ScoreRequest
+from consensus_tpu_torch.backends.base import (
+    BAN_BIAS,
+    GenerationRequest,
+    NextTokenRequest,
+    ScoreRequest,
+)
 from consensus_tpu_torch.backends.score_matrix import (
     AgentContext,
     ScoreMatrixRequest,
@@ -76,10 +81,13 @@ class SearchSpec:
     bias_value: float = BAN_BIAS
     max_steps: int = 64
     failure_logprob: float = -10.0  # substituted when a backend scores nothing
-    #: Speculative rollout verification: a fused-session feature of the MCTS
-    #: slice (ROADMAP queue A7), where the port's fused session raises.  The
-    #: full-prefix fallback has no speculative path, so it accepts and
-    #: ignores the flag, as the reference's does.
+    #: Speculative rollout verification (Leviathan et al.): an n-gram
+    #: self-draft proposer emits ``spec_draft_len`` suffix tokens per leaf
+    #: and the target model verifies the whole draft in one parallel forward
+    #: (``models/stepper.rollout_verify_many``); rejection keeps the token
+    #: streams those of the sequential rollout.  Fused sessions only: the
+    #: full-prefix fallback's rollout is already one batched generate call,
+    #: so it accepts and ignores the flag, as the reference's does.
     speculative: bool = False
     spec_draft_len: int = 8
     #: Route the fallback session's (prefix x candidate x agent) scoring
@@ -87,13 +95,6 @@ class SearchSpec:
     #: on the device on ``TorchBackend``, batched per-call elsewhere.  Off
     #: restores flat per-cell ``Backend.score`` batches.
     matrix_scoring: bool = True
-
-
-def _rollouts_not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported to the PyTorch sessions yet "
-        "(ROADMAP.md, queue A: A7, the other methods: MCTS and its rollouts)"
-    )
 
 
 class PrefixTokenSearchSession:
@@ -153,11 +154,126 @@ class PrefixTokenSearchSession:
         ]
         return self._proposals_for(prefixes, family=1, index=salt)
 
-    def rollout_from(self, suffix, depth: int, salt: int):
-        raise _rollouts_not_ported("rollout_from")
+    def rollout_from(
+        self, suffix: Sequence[ScoredCandidate], depth: int, salt: int
+    ) -> Tuple[List[int], str, List[float], bool]:
+        """Continue ``depth`` reference-policy tokens past trunk+suffix and
+        return (rollout token ids, rollout text, per-agent total logprob of
+        the rollout tokens, ok).  Delegates to :meth:`rollout_many`: one
+        generate call and one score call either way."""
+        return self.rollout_many([suffix], depth, [salt])[0]
 
-    def rollout_many(self, suffixes, depth: int, salts):
-        raise _rollouts_not_ported("rollout_many")
+    def rollout_many(
+        self,
+        suffixes: Sequence[Sequence[ScoredCandidate]],
+        depth: int,
+        salts: Sequence[int],
+    ) -> List[Tuple[List[int], str, List[float], bool]]:
+        """Batched :meth:`rollout_from` (reference ``session.py:163-233``):
+        ONE generate call over all paths and ONE score call over (path x
+        agent).  Row i's request seed is ``(seed * 3 + 2) * 1e9 + salts[i] *
+        1000`` (family 2 of :meth:`_proposals_for`'s seed map), so each
+        row's result is that of a ``rollout_from`` call alone."""
+        spec = self.spec
+        if spec.n_slots != 1:
+            raise ValueError("rollout_many requires an n_slots=1 session")
+        if len(salts) != len(suffixes):
+            raise ValueError(f"expected {len(suffixes)} salts, got {len(salts)}")
+        if not suffixes:
+            return []
+        trunk = self._sequences[0]
+        prefixes = [trunk + "".join(c.token for c in suffix) for suffix in suffixes]
+        seed = spec.seed
+        results = self.backend.generate([
+            GenerationRequest(
+                user_prompt=spec.ref_user + prefix,
+                system_prompt=spec.ref_system,
+                max_tokens=depth,
+                temperature=spec.temperature,
+                seed=((seed * 3 + 2) * 1_000_000_000 + salt * 1000) if seed is not None else None,
+                chat=False,
+            )
+            for prefix, salt in zip(prefixes, salts)
+        ])
+        self.dispatch_count += 1
+        n_agents = len(spec.agent_prompts)
+        if spec.matrix_scoring:
+            return self._rollout_totals_matrix(prefixes, results, n_agents)
+        score_requests: List[ScoreRequest] = []
+        starts: List[Optional[int]] = []
+        for prefix, result in zip(prefixes, results):
+            if result.ok and result.text:
+                starts.append(len(score_requests))
+                for a_system, a_user in spec.agent_prompts:
+                    score_requests.append(
+                        ScoreRequest(
+                            context=a_user + prefix,
+                            continuation=result.text,
+                            system_prompt=a_system,
+                            chat=False,
+                        )
+                    )
+            else:
+                starts.append(None)
+        scores = self.backend.score(score_requests) if score_requests else []
+        if score_requests:
+            self.dispatch_count += 1
+        out: List[Tuple[List[int], str, List[float], bool]] = []
+        for result, start in zip(results, starts):
+            if not result.ok:
+                out.append(([], "", [], False))
+            elif not result.text:
+                out.append(([], "", [0.0] * n_agents, True))
+            else:
+                totals = [
+                    (sum(s.logprobs) if s.ok else spec.failure_logprob)
+                    for s in scores[start : start + n_agents]
+                ]
+                out.append((list(result.token_ids), result.text, totals, True))
+        return out
+
+    def _rollout_totals_matrix(
+        self, prefixes: Sequence[str], results, n_agents: int
+    ) -> List[Tuple[List[int], str, List[float], bool]]:
+        """Rollout totals through the utility-matrix seam (reference
+        ``session.py:235-280``): one (1 x agents) matrix of stat "sum" per
+        successful rollout, all in ONE backend call -- the dispatch count
+        of the flat score batch it replaces."""
+        spec = self.spec
+        matrix_requests: List[ScoreMatrixRequest] = []
+        rows: List[Optional[int]] = []
+        for prefix, result in zip(prefixes, results):
+            if result.ok and result.text:
+                rows.append(len(matrix_requests))
+                matrix_requests.append(
+                    ScoreMatrixRequest(
+                        agents=tuple(
+                            AgentContext(context=a_user + prefix, system_prompt=a_system, chat=False)
+                            for a_system, a_user in spec.agent_prompts
+                        ),
+                        candidates=(result.text,),
+                        stat="sum",
+                        default=spec.failure_logprob,
+                    )
+                )
+            else:
+                rows.append(None)
+        matrices = None
+        if matrix_requests and n_agents:
+            matrices = score_matrix_many(self.backend, matrix_requests)
+            self.dispatch_count += 1
+        out: List[Tuple[List[int], str, List[float], bool]] = []
+        for result, row in zip(results, rows):
+            if not result.ok:
+                out.append(([], "", [], False))
+            elif not result.text:
+                out.append(([], "", [0.0] * n_agents, True))
+            else:
+                totals = (
+                    [float(v) for v in matrices[row].utilities[0]] if matrices is not None else []
+                )
+                out.append((list(result.token_ids), result.text, totals, True))
+        return out
 
     # -- internals -----------------------------------------------------------
 

@@ -30,9 +30,11 @@ config) and runs each protocol call as padded device batches:
   to at least 8, ``tpu.py:1642-1730``), through the flash kernel with
   ``use_flash_attention``: the full-prefix fallback session's primitive.
 * ``open_fused_token_search`` -- :class:`TorchTokenSearchSession`, the
-  incremental KV-cache search session of beam search and finite lookahead
-  (``tpu.py:1731-1739, 2140-2398, 2644-2687``); its step attends through the
-  hand-written decode kernel when ``use_decode_attention`` is set.
+  incremental KV-cache search session of beam search, finite lookahead and
+  MCTS (``tpu.py:1731-1739, 2140-2687``), with scored rollouts, batched and
+  speculative; its step attends through the hand-written decode kernel when
+  ``use_decode_attention`` is set (the rollouts take the einsum route, as
+  the reference's do).
 
 Options that select a path not ported yet raise ``NotImplementedError``
 naming the ROADMAP item.
@@ -68,6 +70,7 @@ from consensus_tpu_torch.backends.session import (
     ScoredCandidate,
     SearchSpec,
 )
+from consensus_tpu_torch.backends.speculative import NGramProposer
 from consensus_tpu_torch.backends.score_matrix import (
     ScoreMatrixResult,
     fallback_score_matrix_many,
@@ -77,7 +80,14 @@ from consensus_tpu_torch.models import generate as gen
 from consensus_tpu_torch.models import stepper
 from consensus_tpu_torch.models.config import ModelConfig, get_model_config
 from consensus_tpu_torch.models.quant import is_quantized, quantize_params
-from consensus_tpu_torch.models.stepper import search_prefill, search_step, suffix_propose
+from consensus_tpu_torch.models.stepper import (
+    rollout_scored,
+    rollout_scored_many,
+    rollout_verify_many,
+    search_prefill,
+    search_step,
+    suffix_propose,
+)
 from consensus_tpu_torch.models.tokenizer import get_tokenizer
 from consensus_tpu_torch.models.transformer import (
     forward,
@@ -143,6 +153,15 @@ def _bucket(n: int, minimum: int = 32) -> int:
     while size < n:
         size *= 2
     return size
+
+
+def _group_by_span(suffixes: Sequence[Sequence]) -> Dict[int, List[int]]:
+    """Indices of ``suffixes`` grouped by length, in first-seen order: a
+    session call runs one suffix length at a time."""
+    groups: Dict[int, List[int]] = {}
+    for i, suffix in enumerate(suffixes):
+        groups.setdefault(len(suffix), []).append(i)
+    return groups
 
 
 def _width_bucket(n: int, minimum: int = 128) -> int:
@@ -1181,7 +1200,7 @@ def _embed_forward(params, config: ModelConfig, tokens, valid) -> torch.Tensor:
 
 class TorchTokenSearchSession:
     """Incremental token search over persistent per-(slot x role) KV tails
-    (``TPUTokenSearchSession``, ``tpu.py:2140-2398, 2644-2687``).
+    (``TPUTokenSearchSession``, ``tpu.py:2140-2687``).
 
     Rows are slot-major: slot b occupies rows [b*(1+A), (b+1)*(1+A)) with
     role 0 = reference policy and roles 1..A = agent policies.  The prefix
@@ -1196,12 +1215,11 @@ class TorchTokenSearchSession:
     f (0 = trunk steps, 1 = suffix trees), step or salt i and slot s comes
     from the key ``fold_in(fold_in(fold_in(base_key, f), i), s)`` as in the
     reference (``stepper.py:112-118``), ``base_key`` being the backend's fold
-    of ("search", seed).
+    of ("search", seed).  Rollouts (family 2) draw path p's token t from
+    ``fold_in(fold_in(fold_in(base_key, 2), salt_p), t)``.
     """
 
     def __init__(self, backend: TorchBackend, spec: SearchSpec):
-        if spec.speculative:
-            raise _not_ported("SearchSpec.speculative", "the other methods (MCTS and its rollouts)")
         self.backend = backend
         self.spec = spec
         tok = backend.tokenizer
@@ -1254,6 +1272,20 @@ class TorchTokenSearchSession:
             self._base_key = backend._fold_seed("search", "unseeded", nonce)
         else:
             self._base_key = backend._fold_seed("search", spec.seed)
+        self._eos_ids = tuple(tok.eos_ids)
+        #: Speculative rollout verification (``backends/speculative.py`` +
+        #: ``stepper.rollout_verify_many``): an n-gram self-draft proposer
+        #: seeded from the reference prompt and every trunk advance.  The
+        #: reference's ``spec_draft_*_tokens_total`` obs counters wait for
+        #: the obs port (ROADMAP queue A6); the session keeps plain counts.
+        self._proposer = None
+        self.draft_tokens = {"proposed": 0, "verified": 0, "verify_dispatches": 0}
+        if spec.speculative:
+            self._proposer = NGramProposer()
+            self._proposer.observe(token_lists[0])
+            #: Trunk token ids (reference prompt + advances): the drafting
+            #: context every rollout continues from.
+            self._trunk_ids = list(token_lists[0])
 
     # -- protocol ------------------------------------------------------------
 
@@ -1292,6 +1324,9 @@ class TorchTokenSearchSession:
         self.backend.token_counts["generated"] += spec.n_slots
         self.backend.token_counts["scored"] += spec.n_slots * spec.k * (self.n_roles - 1)
         self.backend.call_counts["search_advances"] += 1
+        if self._proposer is not None:
+            self._proposer.observe([c.token_id for c in chosen])
+            self._trunk_ids.extend(c.token_id for c in chosen)
         self.dispatch_count += 1
         out = search_step(
             self.backend.params, self.backend.config, self._state,
@@ -1321,9 +1356,7 @@ class TorchTokenSearchSession:
         # One uniform suffix length per step: mixed lengths are grouped by
         # span, one call per span, results re-ordered.  A single span keeps
         # the caller's salt; with several, each group folds its span in.
-        groups: Dict[int, List[int]] = {}
-        for i, suffix in enumerate(suffixes):
-            groups.setdefault(len(suffix), []).append(i)
+        groups = _group_by_span(suffixes)
         multi = len(groups) > 1
         results: List[Optional[List[ScoredCandidate]]] = [None] * len(suffixes)
         for span, idxs in groups.items():
@@ -1356,11 +1389,192 @@ class TorchTokenSearchSession:
         )
         return self._unpack(packed.cpu().numpy()[: len(suffixes)])
 
-    def rollout_from(self, suffix, depth: int, salt: int):
-        raise _not_ported("rollout_from", "the other methods (MCTS and its rollouts)")
+    def rollout_from(
+        self, suffix: Sequence[ScoredCandidate], depth: int, salt: int
+    ) -> Tuple[List[int], str, List[float], bool]:
+        """Continue ``depth`` reference-policy tokens past trunk+suffix and
+        return (rollout token ids, rollout text, per-agent total logprob of
+        the rollout tokens, ok): the MCTS rollout and its evaluation as one
+        ``stepper.rollout_scored`` call.  Trunk sessions only.  The ids are
+        authoritative; the text is for display."""
+        self._check_rollout()
+        if not suffix:
+            raise ValueError("rollout_from needs a non-empty suffix")
+        self.dispatch_count += 1
+        rows = rollout_scored(
+            self.backend.params, self.backend.config, self._state, self._step,
+            self.backend._to_device(np.asarray([c.token_id for c in suffix], np.int32)),
+            self.n_roles, depth,
+            self.spec.temperature, self._eos_ids, self._base_key, salt,
+        )
+        return self._rollout_result(rows.cpu().numpy(), depth)
 
-    def rollout_many(self, suffixes, depth: int, salts):
-        raise _not_ported("rollout_many", "the other methods (MCTS and its rollouts)")
+    def rollout_many(
+        self, suffixes: Sequence[Sequence[ScoredCandidate]], depth: int, salts: Sequence[int]
+    ) -> List[Tuple[List[int], str, List[float], bool]]:
+        """Batched :meth:`rollout_from` over a wave of tree paths
+        (``tpu.py:2433-2503``).  Paths are grouped by suffix length; a
+        singleton chunk delegates to ``rollout_from``, a larger one runs one
+        ``rollout_scored_many`` call per chunk of at most
+        :meth:`_rollout_chunk_cap` paths, the path count bucketed to at
+        least 2 by repeating row 0 (sliced away).  With
+        ``SearchSpec.speculative`` the drafts are verified instead
+        (:meth:`_rollout_many_spec`)."""
+        self._check_rollout()
+        if len(salts) != len(suffixes):
+            raise ValueError(f"expected {len(suffixes)} salts, got {len(salts)}")
+        if not suffixes:
+            return []
+        if any(not s for s in suffixes):
+            raise ValueError("rollout_many needs non-empty suffixes")
+        if self._proposer is not None:
+            return self._rollout_many_spec(suffixes, depth, salts)
+        results: List[Optional[Tuple[List[int], str, List[float], bool]]] = [None] * len(suffixes)
+        for span, idxs in _group_by_span(suffixes).items():
+            cap = self._rollout_chunk_cap(span, depth)
+            for lo in range(0, len(idxs), cap):
+                chunk = idxs[lo : lo + cap]
+                if len(chunk) == 1:
+                    i = chunk[0]
+                    results[i] = self.rollout_from(suffixes[i], depth, salts[i])
+                    continue
+                tokens, salt_arr = self._path_arrays(
+                    [suffixes[i] for i in chunk], span, [salts[i] for i in chunk]
+                )
+                self.dispatch_count += 1
+                rows = rollout_scored_many(
+                    self.backend.params, self.backend.config, self._state, self._step,
+                    tokens, salt_arr, self.n_roles, depth, self.spec.temperature,
+                    self._eos_ids, self._base_key,
+                ).cpu().numpy()
+                for j, i in enumerate(chunk):
+                    results[i] = self._rollout_result(rows[j], depth)
+        return results
+
+    def _rollout_many_spec(
+        self, suffixes: Sequence[Sequence[ScoredCandidate]], depth: int, salts: Sequence[int]
+    ) -> List[Tuple[List[int], str, List[float], bool]]:
+        """Speculative ``rollout_many`` (``tpu.py:2505-2613``): draft each
+        path's whole remaining rollout from the n-gram proposer and verify
+        every active path's draft in one ``rollout_verify_many`` call per
+        round.  A round accepts each path's longest draft-matched prefix
+        plus the first corrected token (standard rejection), so accepted
+        token streams replay the sequential rollout, with agent totals
+        equal to float tolerance; a perfect draft finishes a depth-d
+        rollout in one round instead of d decode steps."""
+        n_agents = self.n_roles - 1
+        results: List[Optional[Tuple[List[int], str, List[float], bool]]] = [None] * len(suffixes)
+        for span, idxs in _group_by_span(suffixes).items():
+            cap = self._rollout_chunk_cap(span, depth)
+            for lo in range(0, len(idxs), cap):
+                chunk = idxs[lo : lo + cap]
+                #: Per path: accepted rows [token, counted, lps...], and
+                #: whether an EOS ended the counted stream.
+                emitted: Dict[int, List[List[float]]] = {i: [] for i in chunk}
+                finished = {i: False for i in chunk}
+                contexts = {i: self._trunk_ids + [c.token_id for c in suffixes[i]] for i in chunk}
+                while True:
+                    active = [i for i in chunk if not finished[i] and len(emitted[i]) < depth]
+                    if not active:
+                        break
+                    drafts: Dict[int, List[int]] = {}
+                    for i in active:
+                        accepted = [int(r[0]) for r in emitted[i]]
+                        fresh = self._proposer.draft(contexts[i] + accepted, depth - len(accepted))
+                        self.draft_tokens["proposed"] += len(fresh)
+                        drafts[i] = accepted + fresh
+                    tokens, salt_arr = self._path_arrays(
+                        [suffixes[i] for i in active], span, [salts[i] for i in active]
+                    )
+                    draft_arr = np.asarray([drafts[i] for i in active], np.int32)
+                    draft_arr = np.concatenate(
+                        [draft_arr, np.repeat(draft_arr[:1], tokens.shape[0] - len(active), 0)]
+                    )
+                    self.dispatch_count += 1
+                    self.draft_tokens["verify_dispatches"] += 1
+                    rows = rollout_verify_many(
+                        self.backend.params, self.backend.config, self._state, self._step,
+                        tokens, self.backend._to_device(draft_arr), salt_arr, self.n_roles,
+                        self.spec.temperature, self._eos_ids, self._base_key,
+                    ).cpu().numpy()
+                    for j, i in enumerate(active):
+                        t = len(emitted[i])
+                        while t < depth:
+                            chosen = int(rows[j, t, 0])
+                            is_eos = rows[j, t, 1] > 0.5
+                            counted = 0.0 if is_eos else 1.0
+                            emitted[i].append(
+                                [float(chosen), counted] + [float(v) * counted for v in rows[j, t, 2:]]
+                            )
+                            matched = chosen == int(drafts[i][t])
+                            if matched:
+                                self.draft_tokens["verified"] += 1
+                            t += 1
+                            if is_eos:
+                                # Post-EOS tokens are uncounted in the
+                                # sequential rollout: stop generating them.
+                                finished[i] = True
+                                break
+                            if not matched:
+                                # ``chosen`` is the correction; later rows
+                                # were conditioned on the wrong draft.
+                                break
+                for i in chunk:
+                    out = np.zeros((depth, 2 + n_agents), np.float32)
+                    if emitted[i]:
+                        got = np.asarray(emitted[i], np.float32)
+                        out[: got.shape[0]] = got
+                    results[i] = self._rollout_result(out, depth)
+        return results
+
+    def _rollout_chunk_cap(self, span: int, depth: int) -> int:
+        """How many wave paths one rollout call may carry
+        (``tpu.py:2615-2629``, one device): each path adds an (n_layers x
+        n_roles x (span + depth)) decode tail on top of the scratch trunk
+        copy the session's 2x reservation pre-books; the tails are capped
+        at 1/8 of the reservation."""
+        c = self.backend.config
+        itemsize = torch.finfo(params_dtype(self.backend.params)).bits // 8
+        per_path = (
+            2 * c.n_layers * self.n_roles * (span + depth) * c.n_kv_heads * c.head_dim * itemsize
+        )
+        return max(1, int((self._budget_bytes // 8) // max(per_path, 1)))
+
+    def _rollout_result(
+        self, rows: np.ndarray, depth: int
+    ) -> Tuple[List[int], str, List[float], bool]:
+        """Unpack one path's (depth, 2 + A) rollout rows, with the token
+        accounting (``tpu.py:2631-2642``)."""
+        counted = rows[:, 1] > 0.5
+        ids = [int(rows[t, 0]) for t in range(depth) if counted[t]]
+        self.backend.token_counts["generated"] += len(ids)
+        self.backend.token_counts["scored"] += len(ids) * (self.n_roles - 1)
+        text = "".join(self.backend.tokenizer.token_str(i) for i in ids)
+        totals = [float(v) for v in rows[counted, 2:].sum(axis=0)]
+        return ids, text, totals, True
+
+    def _check_rollout(self) -> None:
+        self._check_open()
+        if self.spec.n_slots != 1:
+            raise ValueError("rollouts require an n_slots=1 session")
+        if self._state is None:
+            raise ValueError("call propose() before a rollout")
+
+    def _path_arrays(
+        self, suffixes: Sequence[Sequence[ScoredCandidate]], span: int, salts: Sequence[int]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device (tokens (P', span), salts (P',)) for equal-length paths,
+        the count bucketed to at least 2 by repeating row 0 (same salt:
+        identical compute, sliced away by the caller)."""
+        n_paths = _bucket(len(suffixes), minimum=2)
+        tokens = np.zeros((n_paths, span), np.int32)
+        salt_arr = np.zeros((n_paths,), np.int64)
+        for j, (suffix, salt) in enumerate(zip(suffixes, salts)):
+            tokens[j] = [c.token_id for c in suffix]
+            salt_arr[j] = salt
+        tokens[len(suffixes):] = tokens[0]
+        salt_arr[len(suffixes):] = salt_arr[0]
+        return self.backend._to_device(tokens), self.backend._to_device(salt_arr)
 
     def close(self) -> None:
         """Drop the device caches and release the session's budget.

@@ -1,10 +1,9 @@
 """Decoding methods (PyTorch port of ``consensus_tpu/methods``).
 
-Ported: the methods that need only ``generate`` and ``score``
-(``best_of_n``, ``zero_shot``, ``predefined``, ``habermas_machine``) and the
-token-level searches over a fused session (``beam_search``,
-``finite_lookahead``).  ``get_method_generator`` raises
-``NotImplementedError`` for ``mcts``.
+Every method of the JAX package: those that need only ``generate`` and
+``score`` (``best_of_n``, ``zero_shot``, ``predefined``,
+``habermas_machine``) and the token-level searches over a session
+(``beam_search``, ``finite_lookahead``, ``mcts``).
 """
 
 from __future__ import annotations
@@ -18,10 +17,11 @@ from consensus_tpu_torch.methods.beam_search import BeamSearchGenerator
 from consensus_tpu_torch.methods.best_of_n import BestOfNGenerator
 from consensus_tpu_torch.methods.finite_lookahead import FiniteLookaheadGenerator
 from consensus_tpu_torch.methods.habermas import HabermasMachineGenerator
+from consensus_tpu_torch.methods.mcts import MCTSGenerator
 from consensus_tpu_torch.methods.predefined import PredefinedStatementGenerator
 from consensus_tpu_torch.methods.zero_shot import ZeroShotGenerator
 
-#: Name -> class map of the ported methods.
+#: Name -> class map of the methods.
 GENERATOR_MAP: Dict[str, Type[BaseGenerator]] = {
     "best_of_n": BestOfNGenerator,
     "zero_shot": ZeroShotGenerator,
@@ -29,10 +29,8 @@ GENERATOR_MAP: Dict[str, Type[BaseGenerator]] = {
     "beam_search": BeamSearchGenerator,
     "finite_lookahead": FiniteLookaheadGenerator,
     "habermas_machine": HabermasMachineGenerator,
+    "mcts": MCTSGenerator,
 }
-
-#: Methods of the JAX package that wait for a later slice.
-NOT_PORTED = ("mcts",)
 
 
 def get_method_generator(
@@ -42,11 +40,6 @@ def get_method_generator(
     model_identifier: str = "",
 ) -> BaseGenerator:
     """Instantiate the named method."""
-    if method_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method_name!r} is not ported yet (ROADMAP.md, queue A: "
-            "the other methods)"
-        )
     try:
         cls = GENERATOR_MAP[method_name]
     except KeyError:
@@ -66,6 +59,7 @@ __all__ = [
     "FiniteLookaheadGenerator",
     "GENERATOR_MAP",
     "HabermasMachineGenerator",
+    "MCTSGenerator",
     "PredefinedStatementGenerator",
     "ZeroShotGenerator",
     "get_method_generator",

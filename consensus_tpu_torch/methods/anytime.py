@@ -80,6 +80,11 @@ class BudgetClock:
         return cls(deadline=deadline, scale=scale)
 
     @property
+    def bounded(self) -> bool:
+        """True when the clock can expire (a deadline is set)."""
+        return self.deadline is not None
+
+    @property
     def reason(self) -> Optional[str]:
         """Latched expiry reason (``deadline``), or None."""
         return self._reason

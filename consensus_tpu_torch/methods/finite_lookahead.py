@@ -20,14 +20,17 @@ The whole statement runs through ONE trunk session (``backends/session.py``):
 the trunk (prompt + statement so far) lives in an (agents+1)-row KV cache,
 each tree LEVEL is one call whose path suffixes attend the SHARED trunk
 (``transformer.forward_shared_trunk``), and advancing the trunk by the
-chosen token is one more step.  Leaf rollouts (``rollout_depth > 0``) and
-``speculative_rollouts`` need the session's rollouts, which wait for the
-MCTS slice (ROADMAP queue A7): they raise.
+chosen token is one more step.  Optional leaf rollouts (``rollout_depth >
+0``): every surviving leaf continues ``rollout_depth`` reference-policy
+tokens in ONE ``rollout_many`` call per emitted token, and ranking takes
+the max-min mean logprob over path + rollout; ``speculative_rollouts``
+verifies n-gram drafts of those rollouts instead of decoding them step by
+step, with the same token streams.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 from consensus_tpu_torch.backends.session import (
     ScoredCandidate,
@@ -55,12 +58,6 @@ class FiniteLookaheadGenerator(BaseGenerator):
 
     def generate_statement(self, issue: str, agent_opinions: dict) -> str:
         cfg = self.config
-        for key in ("rollout_depth", "speculative_rollouts"):
-            if cfg.get(key):
-                raise NotImplementedError(
-                    f"finite_lookahead option {key!r} needs the session's rollouts, which are "
-                    "not ported yet (ROADMAP.md, queue A: the other methods, MCTS and its rollouts)"
-                )
         clock = self.budget_clock
         branching = int(cfg.get("branching_factor", 2))
         max_depth_full = int(cfg.get("max_depth", 3))
@@ -69,6 +66,10 @@ class FiniteLookaheadGenerator(BaseGenerator):
         max_depth = clock.scale_int(max_depth_full)
         max_tokens = int(cfg.get("max_tokens", 50))
         temperature = float(cfg.get("temperature", 1.0))
+        # Leaf value-estimate rollouts (0 = off): each surviving frontier
+        # leaf continues ``rollout_depth`` reference-policy tokens in ONE
+        # rollout_many call per emitted token.
+        rollout_depth = max(0, int(cfg.get("rollout_depth", 0)))
         # pin_budget (the timing mode): no terminator may end the statement
         # or a path early -- the tree runs its full budget.
         terminators = frozenset() if cfg.get("pin_budget") else TERMINATOR_TOKENS
@@ -97,6 +98,8 @@ class FiniteLookaheadGenerator(BaseGenerator):
                 sample=True,
                 bias_against_tokens=BIAS_AGAINST_TOKENS,
                 max_steps=max_tokens,
+                speculative=bool(cfg.get("speculative_rollouts", False)),
+                spec_draft_len=int(cfg.get("spec_draft_len", rollout_depth or 8)),
                 matrix_scoring=bool(cfg.get("matrix_scoring", True)),
             ),
         )
@@ -108,7 +111,7 @@ class FiniteLookaheadGenerator(BaseGenerator):
             for step in range(max_tokens):
                 best = self._best_path(
                     session, root_proposals, branching, max_depth, step, terminators,
-                    clock=clock,
+                    clock=clock, rollout_depth=rollout_depth,
                 )
                 if best is None:
                     break
@@ -160,12 +163,19 @@ class FiniteLookaheadGenerator(BaseGenerator):
         max_depth: int, step: int,
         terminators: frozenset = TERMINATOR_TOKENS,
         clock=None,
+        rollout_depth: int = 0,
     ):
         """Grow the level-batched tree from the trunk, accumulate per-agent
         logprob sums along every path, and return the max-min mean path.  A
         level is one session call, so the anytime ``clock`` is checked
         between levels: on expiry the tree stops growing and the best path
-        over the partial tree is returned."""
+        over the partial tree is returned.
+
+        With ``rollout_depth > 0`` every surviving (non-terminated, deduped)
+        leaf also continues ``rollout_depth`` reference-policy tokens in ONE
+        ``rollout_many`` call, and its welfare becomes the max-min MEAN
+        logprob over path + rollout (``finite_lookahead.py:183-200`` of the
+        JAX package).  Terminated paths keep the plain path mean."""
         frontier: List[Path] = []
         finished: List[Path] = []
         for cand in root_proposals[:branching]:
@@ -197,14 +207,40 @@ class FiniteLookaheadGenerator(BaseGenerator):
             frontier = next_frontier
 
         # Dedup by joined token string, drop empties; finished paths first.
-        best, best_welfare = None, None
+        candidates: List[Tuple[Path, bool]] = []
+        open_leaves: List[Path] = []
         seen = set()
-        for path, sums in finished + frontier:
+        for (path, sums), is_open in [(p, False) for p in finished] + [(p, True) for p in frontier]:
             key = "".join(c.token for c in path)
             if not key or key in seen:
                 continue
             seen.add(key)
-            welfare = min(s / len(path) for s in sums)
+            candidates.append(((path, sums), is_open))
+            if is_open:
+                open_leaves.append((path, sums))
+
+        # Leaf value estimates: one call for every open leaf.  Salt stride
+        # 100003 (a prime far above the leaves per step) keeps the family-2
+        # rollout seeds disjoint across emitted tokens.
+        rollouts: Dict[int, Tuple[List[float], int]] = {}
+        if rollout_depth > 0 and open_leaves and not (clock is not None and clock.expired()):
+            salts = [(step + 1) * 100003 + j for j in range(len(open_leaves))]
+            results = session.rollout_many([path for path, _ in open_leaves], rollout_depth, salts)
+            for j, (ids, _text, totals, ok) in enumerate(results):
+                if ok and ids:
+                    rollouts[j] = (totals, len(ids))
+
+        best, best_welfare = None, None
+        leaf_index = 0
+        for (path, sums), is_open in candidates:
+            horizon = rollouts.get(leaf_index) if is_open else None
+            if is_open:
+                leaf_index += 1
+            if horizon is not None:
+                totals, n = horizon
+                welfare = min((s + r) / (len(path) + n) for s, r in zip(sums, totals))
+            else:
+                welfare = min(s / len(path) for s in sums)
             if best_welfare is None or welfare > best_welfare:
                 best_welfare, best = welfare, (path, sums)
         return best

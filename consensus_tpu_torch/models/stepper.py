@@ -1,7 +1,7 @@
 """Incremental token-search stepper: shared trunk + per-(slot x role) tails
-(PyTorch port of ``consensus_tpu/models/stepper.py:69-317``).
+(PyTorch port of ``consensus_tpu/models/stepper.py:69-646``).
 
-The token-level decoders (beam search, finite lookahead) need, at every
+The token-level decoders (beam search, finite lookahead, MCTS) need, at every
 emitted token, (a) k proposed next tokens from the reference policy and (b)
 every proposal's logprob under every agent-conditioned policy.  Each search
 step here is one forward of one position for every row:
@@ -28,11 +28,13 @@ jitted and donate the tails; here ``search_step`` updates the tails of the
 state it is given in place and ``search_prefill`` / ``suffix_propose`` run
 eagerly.
 
-The paged programs of the fused (candidates x agents) score matrix
-(``stepper.py:647-832, 1228-1350``) follow: a page pool with a write sink,
-chunked prefill of shared context pages, and a teacher-forced scoring pass
-reduced on the device.  The MCTS rollouts wait for queue A7, the engine's
-paged decode steps for queue A8.
+The scored rollouts of MCTS and finite lookahead's leaves follow
+(``rollout_scored``, ``rollout_scored_many`` and the speculative
+``rollout_verify_many``), then the paged programs of the fused (candidates
+x agents) score matrix (``stepper.py:647-832, 1228-1350``): a page pool
+with a write sink, chunked prefill of shared context pages, and a
+teacher-forced scoring pass reduced on the device.  The engine's paged
+decode steps wait for queue A8.
 """
 
 from __future__ import annotations
@@ -128,21 +130,32 @@ def _propose_and_score(
     )
 
 
-def _scratch_cache(state: SearchState, t_filled: int) -> KVCache:
-    """Materialize [trunk | tail] as one KVCache for the n_slots=1
-    (trunk-session) tree levels; tail columns >= ``t_filled`` are masked
-    invalid."""
+def _scratch_cache(state: SearchState, t_filled: int, extra: int = 0) -> Tuple[KVCache, int]:
+    """Materialize [trunk | tail | ``extra`` empty columns] as one KVCache
+    for the n_slots=1 (trunk-session) read paths: tree levels and rollouts.
+    Tail columns >= ``t_filled`` and the extra columns are masked invalid.
+    Returns the cache and the column where new writes land (W0 +
+    ``t_filled``)."""
     trunk, tail_k = state.trunk, state.tail_k
     rows, t_tail = tail_k.shape[1:3]
-    tail_valid = (torch.arange(t_tail, device=tail_k.device)[None, :] < t_filled).expand(
-        rows, t_tail
+    device = tail_k.device
+    tail_valid = (torch.arange(t_tail, device=device)[None, :] < t_filled).expand(rows, t_tail)
+    parts_k, parts_v = [trunk.k, tail_k], [trunk.v, state.tail_v]
+    key_positions = [trunk.key_positions, state.tail_positions]
+    key_valid = [trunk.key_valid, tail_valid]
+    if extra:
+        pad = (tail_k.shape[0], rows, extra) + tuple(tail_k.shape[3:])
+        parts_k.append(torch.zeros(pad, dtype=tail_k.dtype, device=device))
+        parts_v.append(torch.zeros(pad, dtype=tail_k.dtype, device=device))
+        key_positions.append(torch.zeros((rows, extra), dtype=torch.int32, device=device))
+        key_valid.append(torch.zeros((rows, extra), dtype=torch.bool, device=device))
+    cache = KVCache(
+        k=torch.cat(parts_k, dim=2),
+        v=torch.cat(parts_v, dim=2),
+        key_positions=torch.cat(key_positions, dim=1),
+        key_valid=torch.cat(key_valid, dim=1),
     )
-    return KVCache(
-        k=torch.cat([trunk.k, tail_k], dim=2),
-        v=torch.cat([trunk.v, state.tail_v], dim=2),
-        key_positions=torch.cat([trunk.key_positions, state.tail_positions], dim=1),
-        key_valid=torch.cat([trunk.key_valid, tail_valid], dim=1),
-    )
+    return cache, trunk.k.shape[2] + t_filled
 
 
 @torch.no_grad()
@@ -278,11 +291,261 @@ def suffix_propose(
     packed (P, k, 2 + A) candidates; the session state is untouched, so a
     lookahead tree costs one call per LEVEL and no per-path cache."""
     n_paths = suffix_tokens.shape[0]
-    cache = _scratch_cache(state, t_filled)
+    cache, _ = _scratch_cache(state, t_filled)
     hidden = forward_shared_trunk(params, config, suffix_tokens, cache, state.cur_pos)
     return _propose_and_score(
         params, config, hidden.reshape(n_paths * n_roles, -1), n_paths, n_roles,
         temperature, k, sample, ref_bias, base_key, salt, key_family=1, noise=noise,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Scored rollouts (MCTS leaf values, finite lookahead's leaf horizons)
+# ---------------------------------------------------------------------------
+#
+# A rollout continues ``depth`` reference-policy tokens past trunk + tail +
+# a tree path's suffix and scores each sampled token under every agent from
+# the same logits.  Each function returns packed (…, depth, 2 + A) float32
+# rows [token_id, counted, agent_logprobs...]; ``counted`` is 0 from the
+# first EOS on and the agent logprobs of uncounted rows are 0.  Path p's
+# token at step t is drawn from the key ``fold_in(fold_in(fold_in(base_key,
+# 2), salts[p]), t)`` by ``categorical`` on ``ref_lp / max(T, 1e-6)``, or
+# the argmax at T <= 0; the reference rows carry no logit bias.  The JAX
+# functions scan over ``depth``; these loop in Python and keep every value
+# on the device, so a call makes no host sync until its caller fetches the
+# rows.  The session state is never modified.
+
+
+def _rollout_keys(base_key: torch.Tensor, salts) -> torch.Tensor:
+    """(P, 2) per-path rollout keys of family 2 (``salts`` (P,))."""
+    return threefry.fold_in(threefry.fold_in(base_key, 2), salts)
+
+
+def _rollout_choice(ref_lp: torch.Tensor, keys: torch.Tensor, temperature: float) -> torch.Tensor:
+    """Token ids from reference logprobs (..., V) and keys (..., 2)."""
+    if temperature <= 0.0:
+        return torch.argmax(ref_lp, dim=-1)
+    return threefry.categorical(keys, ref_lp / max(float(temperature), 1e-6))
+
+
+def _eos_mask(token: torch.Tensor, eos: torch.Tensor) -> torch.Tensor:
+    """Whether each token is one of the (E,) ids ``eos`` (none when E=0)."""
+    return (token[..., None] == eos).any(dim=-1)
+
+
+def _eos_tensor(eos_ids: Sequence[int], device) -> torch.Tensor:
+    return torch.tensor(list(eos_ids), dtype=torch.int64, device=device)
+
+
+def _rollout_row(token, counted, agent_lps) -> torch.Tensor:
+    """(..., 2 + A) packed rows for one rollout step."""
+    return torch.cat(
+        [
+            token.to(torch.float32)[..., None],
+            counted.to(torch.float32)[..., None],
+            torch.where(counted[..., None], agent_lps, torch.zeros_like(agent_lps)),
+        ],
+        dim=-1,
+    )
+
+
+@torch.no_grad()
+def rollout_scored(
+    params,
+    config: ModelConfig,
+    state: SearchState,  # n_slots=1 trunk session (NOT modified)
+    t_filled: int,  # tail columns already generated
+    suffix_tokens: torch.Tensor,  # (L,) int -- the node's path
+    n_roles: int,
+    depth: int,
+    temperature: float,
+    eos_ids: Sequence[int],
+    base_key: torch.Tensor,  # (2,) session key
+    salt: int,
+) -> torch.Tensor:
+    """One MCTS rollout valued in one call (``stepper.py:324-405``):
+    prefill the suffix into a widened scratch copy of [trunk | tail], then
+    decode ``depth`` tokens, every role row attending its own scratch row
+    (``forward`` with a cache, the einsum route).  A token after the first
+    EOS is written invalid, as the reference writes it.  Returns (depth,
+    2 + A) rows."""
+    suffix_len = suffix_tokens.shape[0]
+    device = suffix_tokens.device
+    scratch, write_index = _scratch_cache(state, t_filled, extra=suffix_len + depth)
+    tokens = suffix_tokens[None, :].expand(n_roles, suffix_len)
+    positions = state.cur_pos[:, None] + 1 + torch.arange(
+        suffix_len, dtype=torch.int32, device=device
+    )[None, :]
+    hidden, scratch = forward(
+        params, config, tokens, positions,
+        torch.ones((n_roles, suffix_len), dtype=torch.bool, device=device),
+        scratch, write_index, return_hidden=True,
+    )
+    hidden_last = hidden[:, -1]
+    key = _rollout_keys(base_key, salt)
+    eos = _eos_tensor(eos_ids, device)
+    pos = positions[:, -1]
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    rows = []
+    for t in range(depth):
+        lp = torch.log_softmax(project_logits(params, config, hidden_last), dim=-1)
+        token = _rollout_choice(lp[0], threefry.fold_in(key, t), temperature)
+        is_eos = _eos_mask(token, eos)
+        counted = ~done & ~is_eos
+        rows.append(_rollout_row(token, counted, lp[1:, token]))
+        if t == depth - 1:
+            break  # the reference's last forward feeds nothing
+        pos = pos + 1
+        hidden, scratch = forward(
+            params, config, token.reshape(1, 1).expand(n_roles, 1).to(torch.int32),
+            pos[:, None], (~done).reshape(1, 1).expand(n_roles, 1),
+            scratch, write_index + suffix_len + t, return_hidden=True,
+        )
+        hidden_last = hidden[:, -1]
+        done = done | is_eos
+    return torch.stack(rows)
+
+
+@torch.no_grad()
+def rollout_scored_many(
+    params,
+    config: ModelConfig,
+    state: SearchState,  # n_slots=1 trunk session (NOT modified)
+    t_filled: int,
+    suffix_tokens: torch.Tensor,  # (P, L) int -- one row per path
+    salts: torch.Tensor,  # (P,) int -- one rollout salt per path
+    n_roles: int,
+    depth: int,
+    temperature: float,
+    eos_ids: Sequence[int],
+    base_key: torch.Tensor,
+) -> torch.Tensor:
+    """A whole wave of rollouts in one call (``stepper.py:408-534``): the P
+    equal-length suffixes prefill over the SHARED scratch trunk in one
+    ``forward_shared_trunk`` pass, whose roped suffix keys and values seed
+    per-(path x role) decode tails of width L + depth; the loop then runs
+    ``forward_trunk_tail`` with n_slots=P, so the trunk stays one copy per
+    role.  Path p's stream equals a singleton ``rollout_scored`` with the
+    same salt, except that a path past its EOS keeps writing uncounted
+    tokens only its own uncounted steps attend.  Returns (P, depth, 2 + A)
+    rows.
+
+    The decode takes the einsum route (``use_decode_kernel=False``), as
+    the reference forces it here: the scratch trunk has invalid columns in
+    its interior (the tail's unfilled ones), which the decode kernel's
+    start-only trunk mask cannot express."""
+    c = config
+    n_paths, suffix_len = suffix_tokens.shape
+    rows = n_paths * n_roles
+    device = suffix_tokens.device
+    scratch, _ = _scratch_cache(state, t_filled)
+    hidden, suf_k, suf_v = forward_shared_trunk(
+        params, c, suffix_tokens, scratch, state.cur_pos, return_suffix_kv=True
+    )  # hidden (P, R, D); suf_k/v (L, P, R, suffix_len, KV, hd)
+    width = suffix_len + depth
+    tail_shape = (c.n_layers, rows, width, c.n_kv_heads, c.head_dim)
+    tail_k = torch.zeros(tail_shape, dtype=suf_k.dtype, device=device)
+    tail_v = torch.zeros(tail_shape, dtype=suf_v.dtype, device=device)
+    tail_k[:, :, :suffix_len] = suf_k.reshape(tail_shape[:2] + (suffix_len,) + tail_shape[3:])
+    tail_v[:, :, :suffix_len] = suf_v.reshape(tail_shape[:2] + (suffix_len,) + tail_shape[3:])
+    suffix_pos = state.cur_pos[:, None] + 1 + torch.arange(
+        suffix_len, dtype=torch.int32, device=device
+    )[None, :]
+    tail_positions = torch.zeros((rows, width), dtype=torch.int32, device=device)
+    tail_positions[:, :suffix_len] = suffix_pos.repeat(n_paths, 1)
+    pos = state.cur_pos.repeat(n_paths) + suffix_len  # last written, (rows,)
+    keys = _rollout_keys(base_key, salts)
+    eos = _eos_tensor(eos_ids, device)
+    done = torch.zeros((n_paths,), dtype=torch.bool, device=device)
+    hidden_last = hidden.reshape(rows, -1)
+    out = []
+    for t in range(depth):
+        logits = project_logits(params, c, hidden_last)
+        lp = torch.log_softmax(logits.reshape(n_paths, n_roles, -1), dim=-1)
+        token = _rollout_choice(lp[:, 0], threefry.fold_in(keys, t), temperature)
+        is_eos = _eos_mask(token, eos)
+        counted = ~done & ~is_eos
+        agent_lps = torch.gather(
+            lp[:, 1:], 2, token[:, None, None].expand(n_paths, n_roles - 1, 1)
+        )[..., 0]
+        out.append(_rollout_row(token, counted, agent_lps))
+        if t == depth - 1:
+            break
+        done = done | is_eos
+        pos = pos + 1
+        write_col = suffix_len + t
+        tail_positions[:, write_col] = pos
+        hidden_last, tail_k, tail_v = forward_trunk_tail(
+            params, c, token.to(torch.int32).repeat_interleave(n_roles), pos,
+            scratch, tail_k, tail_v, tail_positions, write_col, n_paths, n_roles,
+            use_decode_kernel=False,
+        )
+    return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def rollout_verify_logprobs(
+    params,
+    config: ModelConfig,
+    state: SearchState,
+    t_filled: int,
+    suffix_tokens: torch.Tensor,  # (P, L)
+    draft_tokens: torch.Tensor,  # (P, depth)
+) -> torch.Tensor:
+    """(P, R, depth, V) float32 log-softmax of every role at the ``depth``
+    decision points of teacher-forced drafts: column t is conditioned on
+    the suffix and ``draft[:t]``."""
+    n_paths, suffix_len = suffix_tokens.shape
+    depth = draft_tokens.shape[1]
+    scratch, _ = _scratch_cache(state, t_filled)
+    ext = torch.cat([suffix_tokens, draft_tokens.to(suffix_tokens.dtype)], dim=1)
+    hidden = forward_shared_trunk(
+        params, config, ext, scratch, state.cur_pos, return_all_positions=True
+    )  # (P, R, L + depth, D)
+    h = hidden[:, :, suffix_len - 1 : suffix_len - 1 + depth]
+    logits = project_logits(params, config, h)
+    return torch.log_softmax(logits, dim=-1)
+
+
+@torch.no_grad()
+def rollout_verify_many(
+    params,
+    config: ModelConfig,
+    state: SearchState,  # n_slots=1 trunk session (NOT modified)
+    t_filled: int,
+    suffix_tokens: torch.Tensor,  # (P, L) int
+    draft_tokens: torch.Tensor,  # (P, depth) int -- teacher-forced drafts
+    salts: torch.Tensor,  # (P,) -- the salts rollout_scored_many takes
+    n_roles: int,
+    temperature: float,
+    eos_ids: Sequence[int],
+    base_key: torch.Tensor,
+) -> torch.Tensor:
+    """Speculative verification of whole rollout drafts in one parallel
+    forward (``stepper.py:537-646``): [suffix ++ draft] runs once through
+    ``forward_shared_trunk`` and every decision point replays
+    :func:`rollout_scored_many`'s draw (same family-2 key, same
+    log-softmax and categorical).  Returns (P, depth, 2 + A) rows
+    [chosen_token, is_eos, agent_logprobs_of_chosen...]; row t is valid
+    while ``draft[:t]`` matches the chosen tokens before it, and the
+    session accepts the matched prefix plus the first correction."""
+    n_paths = suffix_tokens.shape[0]
+    depth = draft_tokens.shape[1]
+    lp = rollout_verify_logprobs(params, config, state, t_filled, suffix_tokens, draft_tokens)
+    steps = torch.arange(depth, dtype=torch.int64, device=lp.device)
+    keys = threefry.fold_in(_rollout_keys(base_key, salts)[:, None, :], steps[None, :])
+    token = _rollout_choice(lp[:, 0], keys, temperature)  # (P, depth)
+    is_eos = _eos_mask(token, _eos_tensor(eos_ids, lp.device))
+    agent_lps = torch.gather(
+        lp[:, 1:], 3, token[:, None, :, None].expand(n_paths, n_roles - 1, depth, 1)
+    )[..., 0]  # (P, A, depth)
+    return torch.cat(
+        [
+            token.to(torch.float32)[..., None],
+            is_eos.to(torch.float32)[..., None],
+            agent_lps.transpose(1, 2),
+        ],
+        dim=-1,
     )
 
 

@@ -21,7 +21,8 @@ keep the JAX layout (d_in, d_out).  Weights may be int8
   (``quantize_kv``).  It attends through the hand-written decode kernel
   (``ops/decode_attention.py``) when ``config.use_decode_attention`` is set
   and there is no frozen or int8 block, else through einsums.
-* ``forward_shared_trunk`` runs lookahead path suffixes, and the
+* ``forward_shared_trunk`` runs lookahead path suffixes, the prefill of
+  MCTS's batched rollouts (with their roped suffix keys and values), and the
   continuations of shared-context scoring (``shared_context_prefill``,
   ``shared_context_cont_logprobs``), over one shared trunk (einsum
   attention, as in the JAX package).
@@ -570,16 +571,21 @@ def forward_shared_trunk(
     cache: KVCache,  # R-row trunk cache (one row per role), read-only
     cur_pos: torch.Tensor,  # (R,) int32 -- last written trunk position per role
     return_all_positions: bool = False,
-) -> torch.Tensor:
+    return_suffix_kv: bool = False,
+):
     """Forward P path suffixes over ONE shared R-row trunk cache
-    (``transformer.py:697-824`` of the JAX package): the trunk keeps its
+    (``transformer.py:697-830`` of the JAX package): the trunk keeps its
     (R, T, ...) shape and broadcasts against the (P, R, ...) suffix queries
     inside the attention einsums, so the only per-path state is the suffix
     itself.  The cache is not written.  Returns the final-norm hidden states
     of the LAST suffix position, (P, R, D), or of every position, (P, R, L,
-    D), with ``return_all_positions`` (the shared-context scorer).  The
-    reference's ``return_suffix_kv`` serves MCTS rollouts and waits for
-    them (ROADMAP queue A7)."""
+    D), with ``return_all_positions`` (the shared-context scorer).
+
+    ``return_suffix_kv`` also returns the per-layer ROPED suffix keys and
+    plain values, each (n_layers, P, R, L, KV, hd): what a per-(path x
+    role) tail would hold, so a batched rollout
+    (``stepper.rollout_scored_many``) seeds its decode tails from this one
+    shared prefill."""
     c = config
     n_paths, span = suffix_tokens.shape
     h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
@@ -611,6 +617,7 @@ def forward_shared_trunk(
     cos, sin = _rope_angles(positions.repeat(n_paths, 1), hd, c.rope_theta, c.rope_scaling)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
+    suffix_k, suffix_v = [], []
     for layer, lp in enumerate(params["layers"]):
         is_local = c.layer_is_local(layer)
         attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
@@ -620,6 +627,9 @@ def forward_shared_trunk(
         vs = matmul(flat, lp["wv"]).reshape(n_paths, n_roles, span, kv, hd)
         qg = q.reshape(n_paths, n_roles, span, kv, reps, hd)
         ks = ks.reshape(n_paths, n_roles, span, kv, hd)
+        if return_suffix_kv:
+            suffix_k.append(ks)
+            suffix_v.append(vs)
 
         logits = torch.cat(
             [
@@ -638,7 +648,10 @@ def forward_shared_trunk(
         x = _finish_layer(c, lp, x, attn.reshape(n_paths, n_roles, span, h * hd))
 
     x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
-    return x if return_all_positions else x[:, :, -1, :]
+    out = x if return_all_positions else x[:, :, -1, :]
+    if return_suffix_kv:
+        return out, torch.stack(suffix_k), torch.stack(suffix_v)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -320,14 +320,25 @@ def test_search_methods_through_the_fallback_match_jax(backends, method):
 
 
 def test_rollouts_raise_and_speculation_is_ignored(backends):
-    _, port = backends
-    session = PrefixTokenSearchSession(port, SearchSpec(**dict(SPEC, n_slots=1, speculative=True)))
+    """The fallback's rollouts run (one generate call and one score call
+    over the paths) and equal the JAX fallback's; ``speculative`` is
+    accepted and ignored, so the rollouts are those of a session without
+    it."""
+    ref, port = backends
+    spec = dict(SPEC, n_slots=1, speculative=True)
+    session = PrefixTokenSearchSession(port, SearchSpec(**spec))
     assert session.spec.spec_draft_len == 8
-    root = session.propose()[0]
-    for call in (lambda: session.rollout_from([root[0]], 2, 0),
-                 lambda: session.rollout_many([[root[0]]], 2, [0])):
-        with pytest.raises(NotImplementedError, match="A7"):
-            call()
+    plain = PrefixTokenSearchSession(port, SearchSpec(**dict(spec, speculative=False)))
+    reference = JaxPrefixSession(ref, JaxSearchSpec(**spec))
+    root, jroot = session.propose()[0], reference.propose()[0]
+    plain.propose()
+    got = session.rollout_many([[root[0]], [root[1]]], 3, [1, 2])
+    assert plain.rollout_many([[root[0]], [root[1]]], 3, [1, 2]) == got
+    expect = reference.rollout_many([[jroot[0]], [jroot[1]]], 3, [1, 2])
+    for g, e in zip(got, expect):
+        assert g[0] == e[0] and g[1] == e[1] and g[3] == e[3]
+        np.testing.assert_allclose(g[2], e[2], atol=ATOL, rtol=0)
+    assert session.rollout_from([root[1]], 3, 2) == got[1]
     # The JAX session module's fields, defaults included, are the port's.
     assert [(f.name, f.default) for f in dataclasses.fields(SearchSpec)] == [
         (f.name, f.default) for f in dataclasses.fields(jsession_mod.SearchSpec)

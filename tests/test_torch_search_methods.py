@@ -34,10 +34,11 @@ from consensus_tpu_torch.backends.session import (
 )
 from consensus_tpu_torch.backends.torch_backend import TorchBackend, TorchTokenSearchSession
 from consensus_tpu_torch.experiment import Experiment
-from consensus_tpu_torch.methods import GENERATOR_MAP, NOT_PORTED, get_method_generator
+from consensus_tpu_torch.methods import GENERATOR_MAP, get_method_generator
 from consensus_tpu_torch.methods import beam_search as tbeam
 from consensus_tpu_torch.methods.beam_search import BeamSearchGenerator
 from consensus_tpu_torch.methods.finite_lookahead import FiniteLookaheadGenerator
+from consensus_tpu_torch.methods.mcts import MCTSGenerator
 from consensus_tpu_torch.models.convert import params_from_jax
 
 # Tiny shapes: one intra-op thread, so parallel test workers do not
@@ -224,10 +225,13 @@ def test_experiment_results_csv(backends, tmp_path):
 
 
 def test_methods_registered():
-    assert {"beam_search", "finite_lookahead", "habermas_machine"} <= set(GENERATOR_MAP)
-    assert NOT_PORTED == ("mcts",)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_method_generator("mcts", backend=None)
+    """Every method of the JAX package is registered, MCTS included."""
+    from consensus_tpu.methods import GENERATOR_MAP as JAX_GENERATOR_MAP
+
+    assert set(GENERATOR_MAP) == set(JAX_GENERATOR_MAP)
+    assert isinstance(get_method_generator("mcts", backend=None), MCTSGenerator)
+    with pytest.raises(ValueError, match="Unknown method"):
+        get_method_generator("no_such_method", backend=None)
 
 
 def test_use_decode_attention_is_accepted():
@@ -313,23 +317,47 @@ def test_pin_budget_empties_the_stop_sets(monkeypatch):
 
 
 def test_rollouts_and_speculation_raise():
+    """The fused session's rollouts and ``SearchSpec.speculative`` work
+    (no ``NotImplementedError`` is left): a wave of rollouts, speculative
+    and not, gives the same ids; finite lookahead takes ``rollout_depth``
+    and ``speculative_rollouts``; a closed session raises."""
     backend = TorchBackend(model=MODEL, device="cpu", max_context=128)
-    session = open_token_search(backend, _spec(n_slots=1))
-    assert isinstance(session, TorchTokenSearchSession)
-    try:
-        session.propose()
-        for call in (lambda: session.rollout_from([], 2, 0),
-                     lambda: session.rollout_many([], 2, [])):
-            with pytest.raises(NotImplementedError, match="MCTS"):
-                call()
-    finally:
-        session.close()
-    with pytest.raises(ValueError, match="closed"):
-        session.propose()
-    with pytest.raises(NotImplementedError, match="MCTS"):
-        open_token_search(backend, _spec(speculative=True))
-    for option in ({"rollout_depth": 2}, {"speculative_rollouts": True}):
-        generator = FiniteLookaheadGenerator(backend, dict(LOOKAHEAD, **option))
-        with pytest.raises(NotImplementedError, match="MCTS"):
-            generator.generate_statement(ISSUE, OPINIONS)
+    results = {}
+    for speculative in (False, True):
+        session = open_token_search(backend, _spec(n_slots=1, seed=7, speculative=speculative))
+        assert isinstance(session, TorchTokenSearchSession)
+        try:
+            root = session.propose()[0]
+            with pytest.raises(ValueError, match="non-empty"):
+                session.rollout_many([[]], 2, [0])
+            results[speculative] = session.rollout_many([[root[0]], [root[1]]], 3, [4, 5])
+            assert session.rollout_from([root[0]], 3, 4)[0] == results[speculative][0][0]
+        finally:
+            session.close()
+        with pytest.raises(ValueError, match="closed"):
+            session.propose()
+    assert [r[0] for r in results[True]] == [r[0] for r in results[False]]
+    assert all(len(r[2]) == 1 and r[3] for r in results[True])
+    for option in ({"rollout_depth": 2}, {"speculative_rollouts": True, "rollout_depth": 2}):
+        generator = FiniteLookaheadGenerator(backend, dict(LOOKAHEAD, max_tokens=3, **option))
+        assert isinstance(generator.generate_statement(ISSUE, OPINIONS), str)
     assert backend._session_budget.used == 0
+
+
+@pytest.mark.parametrize("speculative", [False, True], ids=["sequential", "speculative"])
+@pytest.mark.parametrize("temperature", [0.0, 1.0], ids=["argmax", "sampled"])
+def test_finite_lookahead_rollout_depth(backends, temperature, speculative):
+    """Leaf rollouts: every open leaf continues ``rollout_depth`` tokens in
+    one ``rollout_many`` call per emitted token and ranks by the max-min
+    mean over path + rollout; the statement is the JAX method's."""
+    ref, port = backends
+    config = dict(LOOKAHEAD, temperature=temperature, rollout_depth=3, max_tokens=5,
+                  speculative_rollouts=speculative)
+    with _Recording(port) as rec:
+        got = FiniteLookaheadGenerator(port, config).generate_statement(ISSUE, OPINIONS)
+    expect = JaxLookahead(ref, config).generate_statement(ISSUE, OPINIONS)
+    if temperature == 0.0:
+        rec.assert_tie_free()
+    assert got == expect
+    (session,) = rec.sessions
+    assert session._step > 0

@@ -209,3 +209,54 @@ def test_fake_backend_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="A6"):
         post_hoc_evaluate.main(["--results-dir", str(run), "--backend", "fake", "--quiet"])
     assert run_sweep.main(["--configs-root", str(tmp_path), "--device", "cpu", "--quiet"]) == 1
+
+
+NORTH_STAR_MCTS = f"{ROOT}/configs/north_star/gemma/scenario_1/mcts.yaml"
+TINY_GEMMA = {"model": "tiny-gemma2", "dtype": "float32", "quantization": None}
+#: The north_star MCTS config's depth, cut for the CPU (the config: 50
+#: simulations, 100 tokens, width 5, depth 10, wave 8, five seeds).
+MCTS_CUTS = {"num_simulations": 10, "max_tokens": 3, "rollout_depth": 4}
+
+
+def test_north_star_mcts_config_through_run_sweep(tmp_path):
+    """``configs/north_star/gemma/scenario_1/mcts.yaml`` as ``run_sweep
+    --model gemma --scenario 1 --method mcts`` finds it in a tmp tree,
+    changed only by the tiny-gemma2 override, one seed and the cuts above
+    (width 5 and wave 8 kept): one error-free MCTS row equal to the JAX
+    ``Experiment``'s on the same config, its evaluation files and the
+    aggregate."""
+    config = yaml.safe_load(open(NORTH_STAR_MCTS).read())
+    assert config["backend"] == "tpu" and config["methods_to_run"] == ["mcts"]
+    config["backend_options"].update(TINY_GEMMA)
+    config["num_seeds"] = 1
+    config["output_dir"] = str(tmp_path / "runs")
+    config["mcts"].update(MCTS_CUTS)
+    tree = tmp_path / "tree"
+    (tree / "gemma" / "scenario_1").mkdir(parents=True)
+    (tree / "gemma" / "scenario_1" / "mcts.yaml").write_text(yaml.safe_dump(config, sort_keys=False))
+    assert run_sweep.find_config_files(str(tree), ["gemma"], [1], ["mcts"]) == [
+        tree / "gemma" / "scenario_1" / "mcts.yaml"
+    ]
+    ref = _jax_backend(tuple(sorted(config["backend_options"].items())))
+    params = params_from_jax(jax.tree.map(np.asarray, ref.params), ref.config)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_backend, "init_params", lambda *a, **k: params)
+        rc = run_sweep.main([
+            "--configs-root", str(tree), "--model", "gemma", "--scenario", "1",
+            "--method", "mcts", "--device", "cpu", "--skip-comparative-ranking", "--quiet",
+        ])
+    assert rc == 0
+    run_dir = next((tmp_path / "runs").iterdir())
+    got = pd.read_csv(run_dir / "results.csv", keep_default_na=False)
+    jax_run = JaxExperiment(dict(config, output_dir=str(tmp_path / "jax")), backend=ref)
+    jax_run.run()
+    expect = pd.read_csv(jax_run.run_dir / "results.csv", keep_default_na=False)
+    assert list(got["method"]) == ["mcts"] and (got["error_message"] == "").all()
+    pd.testing.assert_frame_equal(
+        got.drop(columns="generation_time_s"), expect.drop(columns="generation_time_s")
+    )
+    assert got["statement"].str.len().iloc[0] > 0
+    frame = pd.read_csv(run_dir / "evaluation" / "gemma2-2b" / "seed_0" / "evaluation_results.csv")
+    assert list(frame["method"]) == ["mcts"]
+    assert np.isfinite(frame["egalitarian_welfare_perplexity"]).all()
+    assert (run_dir / "evaluation" / "improved_aggregate" / "aggregated_metrics.csv").exists()
