@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, one
-JSON line each; any failure exits non-zero:
+Run from the root of a checkout: ``python3 chip_smoke.py``
+(``python3 chip_smoke.py sweep_path mcts_path concurrent_path`` runs those
+late phases alone, with no summary and no ``ok`` line).  Phases, one JSON
+line each; any failure exits non-zero:
 
 1. ``device``  -- the card (nvidia-smi name and power limit), torch and CUDA.
 2. ``build``   -- every hand-written kernel (flash_attention, decode_attention)
@@ -53,7 +55,7 @@ JSON line each; any failure exits non-zero:
 9. ``threefry_on_card`` -- the port's threefry (bit for bit ``jax.random``
    on the CPU, pinned by the tests) on the card equals the same calls on
    the CPU, bit for bit; ms per decode step of split + gumbel + argmax.
-10. ``greedy_batch_invariance`` -- one greedy 128-token request of the
+10. ``greedy_batch_invariance`` -- one greedy 64-token request of the
    habermas-eval config decoded inside batches of 1, 8, 9 and 32 distinct
    requests: token for token the same, or the first step that differs;
    the backend's ``deterministic_greedy`` must match the result.
@@ -73,7 +75,7 @@ JSON line each; any failure exits non-zero:
    scenario 1's agents) runs propose and 3 advances through the fused
    session and then through the fallback: logprobs within 0.1, top ids
    equal where the top-two margin exceeds 0.1.  Then beam_search (width 4)
-   and finite_lookahead (branching 2, depth 2) through ``Experiment``, 12
+   and finite_lookahead (branching 2, depth 2) through ``Experiment``, 8
    tokens each, every session a ``PrefixTokenSearchSession``.
 13. ``sweep_path`` -- ``configs/appendix/llama/scenario_1/beam_search.yaml``
    unedited (``backend: tpu``, beam widths 2/4/6/8, 50 tokens, brushup) as
@@ -98,6 +100,22 @@ JSON line each; any failure exits non-zero:
    speculative off and on (6 tokens, pinned).  Trunk advances and the
    fallback's generate steps go through decode_attention; the rollouts
    decode by einsum, as the reference's do.
+15. ``concurrent_path`` -- the reference's default execution mode on the
+   same gemma2-2b backend: concurrent runs whose backend calls merge into
+   shared device batches through ``BatchingBackend``, each window's counts
+   zeroed just before and read just after.  (a)
+   ``configs/north_star/gemma/scenario_1/habermas_vs_best_of_n.yaml`` as
+   ``run_sweep`` finds it, through ``run_pipeline`` with its evaluation
+   under gemma2-2b, in the timing mode (``timing_pin_budget``), cut to one
+   seed of 5, best_of_n n in {1, 3, 5, 10}, habermas num_candidates in {1,
+   3} and 64 of its 700 tokens; then the same runs one after another; (b)
+   scenario 1's beam_search config, widths {2, 4}, 8 of 50 tokens, pinned,
+   with brushup, concurrent then sequential: every session fused and opened
+   through ``BatchingBackend.open_fused_token_search``.  Checks: a recorded
+   merged generate and score_matrix replayed on the inner backend give each
+   waiter's slice; concurrent rows equal the sequential ones or differ
+   first at a draw of margin under 0.1; ``metrics.json``, ``journal.jsonl``
+   and a resume that executes nothing; K1 and K2 launched in the windows.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -112,6 +130,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -981,11 +1000,14 @@ class Wrapped:
         self.obj, self.record = obj, record
         self.calls = {name: 0 for name in names}
         self.make = dict(make or {}, **{name: self._counting(name) for name in names})
+        # Concurrent experiments call the wrappers from worker threads.
+        self._lock = threading.Lock()
 
     def _counting(self, name):
         def make(fn):
             def wrapper(*args, **kwargs):
-                self.calls[name] += 1
+                with self._lock:
+                    self.calls[name] += 1
                 out = fn(*args, **kwargs)
                 if self.record is not None:
                     self.record(name, out)
@@ -1490,7 +1512,7 @@ def threefry_on_card():
 # -- greedy batch invariance -------------------------------------------------------
 
 GREEDY_WIDTHS = (1, 8, 9, 32)
-GREEDY_TOKENS = 128
+GREEDY_TOKENS = 64
 
 
 def greedy_batch_invariance():
@@ -1838,7 +1860,7 @@ SESSION_ATOL = 0.1
 #: (the last max_context tokens of prompt + sequence) see the same context.
 SESSION_PROMPT_TOKENS = 960
 SESSION_STEPS = 3
-FALLBACK_TOKENS = 12
+FALLBACK_TOKENS = 8
 
 
 def _session_rows_diff(fused_rows, fallback_rows, tokenizer):
@@ -1952,7 +1974,7 @@ def fallback_session_path():
             parity = [_session_rows_diff(f, p, tok) for f, p in zip(fused_rows, fallback_rows)]
 
             # Check (ii): both search methods through Experiment on the
-            # forced budget, 12 tokens each, one seed.
+            # forced budget, FALLBACK_TOKENS each, one seed.
             exp_config = dict(
                 config, experiment_name=config["experiment_name"] + "_fallback",
                 output_dir=str(OUT_DIR), num_seeds=1,
@@ -2090,6 +2112,20 @@ def sweep_path(params=None):
     launches = {"flash_attention": fa.launches.count, "decode_attention": da.launches.count}
     shapes = {key: (count, args) for key, (count, args) in da.launches.shapes.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The same runs one after another, in the same call: the concurrent
+    # widths' fused sessions take turns on the device, and must not lose to
+    # this (the pipeline's window above also holds the evaluation, so the
+    # two are compared by the experiments' own walls).
+    from consensus_tpu_torch.experiment import Experiment
+
+    sequential = Experiment(dict(config, num_seeds=1, output_dir=str(OUT_DIR),
+                                 concurrent_execution=False,
+                                 experiment_name="sequential_" + config["experiment_name"]),
+                            backend=backend)
+    sequential.run()
+    generation_wall_s = {
+        mode: json.loads((d / "token_counts.json").read_text())["wall_s"]
+        for mode, d in (("concurrent", run_dir), ("sequential", sequential.run_dir))}
 
     on_disk = pd.read_csv(run_dir / "results.csv", keep_default_na=False)
     models = config["models"]["evaluation_models"]
@@ -2154,7 +2190,7 @@ def sweep_path(params=None):
         "phase": "sweep_path", "config": str(paths[0].relative_to(ROOT)),
         "model": backend.config.name, "backend": config["backend"],
         "init_s": init_s, "pipeline_s": pipeline_s, "post_hoc_s": post_hoc_s,
-        "welfare_table_s": table_s,
+        "welfare_table_s": table_s, "generation_wall_s": generation_wall_s,
         "generation_time_s": dict(zip(on_disk["param_beam_width"].astype(int),
                                       on_disk["generation_time_s"])),
         "search_advances": backend.call_counts["search_advances"],
@@ -2366,7 +2402,9 @@ def mcts_path():
     def opened(original):
         def call(backend_, spec):
             session = original(backend_, spec)
-            sessions.append((part["name"], type(session).__name__))
+            # A concurrent run's session comes through BatchingBackend,
+            # which wraps it to take turns on the device.
+            sessions.append((part["name"], type(getattr(session, "session", session)).__name__))
             return session
         return call
 
@@ -2596,9 +2634,516 @@ def mcts_path():
                         for name, path in frames.items()},
         "checks": checks, "ok": all(checks.values()),
     }
-    del backend
-    torch.cuda.empty_cache()
-    return row, launches, shapes, flash_case_row
+    return row, launches, shapes, flash_case_row, backend
+
+
+# -- co-batched concurrent runs on gemma2-2b -------------------------------------
+
+CONCURRENT_ROOT = "configs/north_star"
+#: Depth cuts of the headline config (habermas_vs_best_of_n) and of
+#: scenario 1's beam_search config for the time limit; widths unchanged.
+CONCURRENT_CUTS = {
+    "num_seeds": 1,
+    "best_of_n": {"n": [1, 3, 5, 10]},
+    "habermas_machine": {"num_candidates": [1, 3], "max_tokens": 64},
+}
+CONCURRENT_BEAM_CUTS = {"num_seeds": 1, "beam_search": {"beam_width": [2, 4], "max_tokens": 8}}
+#: A concurrent row differing from its sequential twin passes when the
+#: first differing token sits at a draw whose top-two margin (sequential
+#: stream, teacher-forced) is under this: the rule of ``_compare_rollouts``.
+DRAW_MARGIN = ROUTE_ATOL
+#: Tolerance of a replayed merged score matrix where the replay is not
+#: bit-identical (an op not run-to-run deterministic on the card).
+REPLAY_ATOL = 1e-3
+#: Divergent generate requests whose margin is computed (one forward each).
+MAX_MARGIN_CHECKS = 48
+
+
+def _request_key(r):
+    return (r.system_prompt, r.user_prompt, r.seed, float(r.temperature), r.max_tokens)
+
+
+def _draw_margin(backend, request, ids, step):
+    """Margin of the draw at ``step`` of the token stream ``ids`` generated
+    for ``request``: the teacher-forced logits of the prompt and
+    ``ids[:step]`` over the temperature, plus that step's Gumbel noise from
+    the request's row key (greedy: the logits alone), top minus runner-up."""
+    import torch
+    from consensus_tpu_torch.models.transformer import forward
+    from consensus_tpu_torch.utils import threefry
+
+    prompt = backend.tokenizer.encode(backend._render_prompt(request), add_bos=True)
+    seq = (prompt + list(ids[:step]))[-backend.max_context:]
+    device = backend.device
+    tokens = torch.tensor([seq], dtype=torch.int32, device=device)
+    positions = torch.arange(len(seq), dtype=torch.int32, device=device)[None]
+    with torch.inference_mode():
+        logits, _ = forward(backend.params, backend.config, tokens, positions,
+                            torch.ones_like(tokens, dtype=torch.bool))
+        lp = logits[0, -1].float()
+        if request.temperature > 0:
+            key = backend._row_keys("generate", [request.seed])
+            for _ in range(step + 1):
+                pairs = threefry.split(key)
+                key, sub = pairs[:, 0], pairs[:, 1]
+            lp = lp / request.temperature + threefry.gumbel(sub, (lp.shape[-1],))[0]
+        top2 = torch.topk(lp, 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def _compare_generations(backend, concurrent, sequential):
+    """Every seeded generate request of both modes: ids equal, or the first
+    difference and the sequential draw's margin there."""
+    out = {"equal": 0, "diverged": [], "only_one_mode": 0, "unseeded": 0}
+    for key, got in concurrent.items():
+        if key[2] is None:
+            out["unseeded"] += 1
+            continue
+        if key not in sequential:
+            out["only_one_mode"] += 1
+            continue
+        request, ref_ids = sequential[key][0]
+        for _, ids in got:
+            first = next((t for t in range(min(len(ids), len(ref_ids))) if ids[t] != ref_ids[t]),
+                         None if len(ids) == len(ref_ids) else min(len(ids), len(ref_ids)))
+            if first is None:
+                out["equal"] += 1
+            elif len(out["diverged"]) < MAX_MARGIN_CHECKS:
+                margin = _draw_margin(backend, request, ref_ids, first)
+                out["diverged"].append({"seed": key[2], "temperature": key[3], "step": first,
+                                        "margin": margin, "ok": margin < DRAW_MARGIN})
+            else:
+                out["diverged"].append({"step": first, "ok": False, "margin": None})
+    return out
+
+
+def _replay_check(backend, records):
+    """Replay one recorded merged ``generate`` (the cheapest: rows x
+    max_tokens) and one merged ``score_matrix`` on the inner backend; each
+    waiter's slice must equal the replay's rows: bit for bit, or (an op not
+    run-to-run deterministic on the card) token streams whose first
+    difference sits at a draw of margin under REPLAY_ATOL, utilities within
+    REPLAY_ATOL."""
+    import numpy as np
+
+    out = {}
+    generates = [r for r in records if r[0] == "generate"]
+    if generates:
+        _, merged, waiters = min(generates, key=lambda r: len(r[1]) * max(
+            q.max_tokens for q in r[1]))
+        replay = backend.generate(merged)
+        cursor, exact, near = 0, True, True
+        for n, result, error in waiters:
+            if error is not None:
+                exact = near = False
+                continue
+            for got, again, request in zip(result, replay[cursor:cursor + n],
+                                           merged[cursor:cursor + n]):
+                if got.token_ids != again.token_ids:
+                    exact = False
+                    a, b = got.token_ids, again.token_ids
+                    first = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]),
+                                 min(len(a), len(b)))
+                    near = near and _draw_margin(backend, request, b, first) < REPLAY_ATOL
+            cursor += n
+        out["generate"] = {"waiters": len(waiters), "rows": len(merged),
+                           "max_tokens": max(q.max_tokens for q in merged),
+                           "bit_identical": exact, "ok": exact or near}
+    matrices = [r for r in records if r[0] == "score_matrix"]
+    if matrices:
+        _, merged, waiters = min(matrices, key=lambda r: len(r[1]))
+        replay = backend.score_matrix(merged)
+        cursor, err = 0, 0.0
+        for n, result, error in waiters:
+            if error is not None:
+                err = float("inf")
+                continue
+            for got, again in zip(result, replay[cursor:cursor + n]):
+                err = max(err, float(np.abs(np.asarray(got.utilities, np.float64)
+                                            - np.asarray(again.utilities, np.float64)).max()))
+            cursor += n
+        out["score_matrix"] = {"waiters": len(waiters), "matrices": len(merged),
+                               "bit_identical": err == 0.0, "max_abs_err": err,
+                               "ok": err <= REPLAY_ATOL}
+    out["ok"] = bool(out) and all(v["ok"] for v in out.values())
+    return out
+
+
+def _histogram_quantile(series, boundaries, q):
+    """Upper bound of the histogram bucket holding quantile ``q``."""
+    target, seen = q * series["count"], 0
+    for bound, n in zip(list(boundaries) + [float("inf")], series["bucket_counts"]):
+        seen += n
+        if seen >= target:
+            return bound
+    return float("inf")
+
+
+def _batching_summary(metrics):
+    """Per kind: flushes by reason, mean batch fill, queue-wait p50 / p90
+    (bucket upper bounds), from a cell's metrics.json delta."""
+    families = metrics["metrics"]["families"]
+    out = {}
+    for series in families.get("batching_batch_fill_sessions", {}).get("series", []):
+        kind = series["labels"]["kind"]
+        out.setdefault(kind, {})["mean_fill"] = series["sum"] / series["count"]
+        out[kind]["max_fill"] = series["max"]
+    wait = families.get("batching_queue_wait_seconds", {})
+    for series in wait.get("series", []):
+        kind = series["labels"]["kind"]
+        out.setdefault(kind, {}).update(
+            queue_wait_p50_le_s=_histogram_quantile(series, wait["bucket_boundaries"], 0.5),
+            queue_wait_p90_le_s=_histogram_quantile(series, wait["bucket_boundaries"], 0.9),
+            queue_wait_mean_s=series["sum"] / series["count"],
+        )
+    for series in families.get("batching_flushes_total", {}).get("series", []):
+        labels = series["labels"]
+        out.setdefault(labels["kind"], {}).setdefault("flushes", {})[labels["reason"]] = \
+            series["value"]
+    return out
+
+
+def concurrent_path(backend):
+    """The reference's default execution mode on the gemma2-2b backend of
+    ``mcts_path`` (the north_star ``backend_options`` plus
+    ``use_decode_attention``): concurrent runs whose calls merge through
+    ``BatchingBackend``, against the same runs one after another -> (row,
+    launches, decode shapes).  (a) the headline config (habermas_vs_best_of_n)
+    as ``run_sweep`` finds it, through ``run_pipeline`` with its evaluation,
+    in the timing mode; (b) scenario 1's beam_search config through
+    ``Experiment``, its fused sessions on worker threads; both cut by
+    CONCURRENT_CUTS / CONCURRENT_BEAM_CUTS."""
+    import json as json_
+    import numpy as np
+    import pandas as pd
+    import torch
+    import yaml
+
+    from consensus_tpu_torch.backends import batching as batching_mod
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend, TorchTokenSearchSession
+    from consensus_tpu_torch.cli import run_experiment_with_eval as pipeline
+    from consensus_tpu_torch.cli import run_sweep
+    from consensus_tpu_torch.experiment import Experiment
+    from consensus_tpu_torch.models import generate as gen
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+
+    root = str(ROOT / CONCURRENT_ROOT)
+    (headline_path,) = run_sweep.find_config_files(root, ["gemma"], [1], ["habermas_vs_best_of_n"])
+    (beam_path,) = run_sweep.find_config_files(root, ["gemma"], [1], ["beam_search"])
+    headline = yaml.safe_load(headline_path.read_text())
+    beam = yaml.safe_load(beam_path.read_text())
+
+    def cut(config, cuts, **extra):
+        out = dict(config, output_dir=str(OUT_DIR), **extra)
+        for key, value in cuts.items():
+            out[key] = dict(config[key], **value) if isinstance(value, dict) else value
+        return out
+
+    # One record per merged flush with two or more waiters: (kind, merged
+    # requests, [(rows, result, error) per waiter]).
+    records = []
+
+    def recording(original):
+        def call(self, snapshot, reason):
+            original(self, snapshot, reason)
+            for kind in ("generate", "score_matrix"):
+                queue = snapshot[kind]
+                if len(queue) >= 2:
+                    records.append((kind, [r for e in queue for r in e.requests],
+                                    [(len(e.requests), e.result, e.error) for e in queue]))
+        return call
+
+    generated = {}  # mode -> request key -> [(request, token ids)]
+    matrices = {}  # mode -> candidates -> welfare
+    mode = {"name": ""}
+
+    inner_calls = Wrapped(TorchBackend, ("generate", "score", "score_matrix", "embed",
+                                         "next_token_logprobs"))
+
+    def generate_recorder(original):
+        def call(self, requests):
+            results = original(self, requests)
+            table = generated.setdefault(mode["name"], {})
+            for request, result in zip(requests, results):
+                table.setdefault(_request_key(request), []).append((request, result.token_ids))
+            return results
+        return call
+
+    def matrix_recorder(original):
+        def call(self, requests):
+            results = original(self, requests)
+            table = matrices.setdefault(mode["name"], {})
+            for request, result in zip(requests, results):
+                table[request.candidates] = np.asarray(result.welfare, np.float64)
+            return results
+        return call
+
+    sessions = []
+
+    def opened(original):
+        def call(self, spec):
+            session = original(self, spec)
+            sessions.append((mode["name"], session))
+            return session
+        return call
+
+    decode_steps = Wrapped(gen, ("forward_trunk_tail",))
+    windows = {}
+    stats = {}
+    backend.pin_generation_budget = True  # the timing mode's backend half
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(Wrapped(batching_mod.BatchingBackend, make={
+                "_run_batches": recording, "open_fused_token_search": opened}))
+            stack.enter_context(Wrapped(TorchBackend, make={"generate": generate_recorder,
+                                                             "score_matrix": matrix_recorder}))
+            stack.enter_context(inner_calls)
+            stack.enter_context(decode_steps)
+
+            def window(name, fn):
+                mode["name"] = name
+                calls_before = dict(inner_calls.calls)
+                rows_before = dict(backend.call_counts)
+                tokens_before = dict(backend.token_counts)
+                steps_before = decode_steps.calls["forward_trunk_tail"]
+                fa.launches.reset()
+                da.launches.reset()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                windows[name] = {
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": {"flash_attention": fa.launches.count,
+                                 "decode_attention": da.launches.count},
+                    "decode_shapes": {k: (c, a) for k, (c, a) in da.launches.shapes.items()},
+                    "inner_calls": {k: inner_calls.calls[k] - calls_before[k]
+                                    for k in inner_calls.calls},
+                    "inner_rows": {k: backend.call_counts[k] - rows_before[k]
+                                   for k in backend.call_counts},
+                    "tokens": {k: backend.token_counts[k] - tokens_before[k]
+                               for k in backend.token_counts},
+                    "decode_steps": decode_steps.calls["forward_trunk_tail"] - steps_before,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                }
+                return out
+
+            # (a) the headline config, concurrent, through run_pipeline.
+            overrides = {k: v for k, v in cut(headline, CONCURRENT_CUTS).items()
+                         if k in CONCURRENT_CUTS or k == "output_dir"}
+            overrides["timing_pin_budget"] = True
+            run_dir = pathlib.Path(window("a_concurrent", lambda: pipeline.run_pipeline(
+                str(headline_path), skip_comparative_ranking=True,
+                config_overrides=overrides, backend=backend)))
+            stats["a_generation_wall_s"] = json_.loads(
+                (run_dir / "token_counts.json").read_text())["wall_s"]
+            # Read before the resume below rewrites the run dir's artifacts.
+            metrics = json_.loads((run_dir / "metrics.json").read_text())
+            journal = [line for line in (run_dir / "journal.jsonl").read_text().splitlines()
+                       if line]
+            # The same runs one after another.
+            # (Its name must not extend the headline's: a resume takes the
+            # newest run dir whose name starts with the experiment's.)
+            sequential_config = cut(headline, CONCURRENT_CUTS, timing_pin_budget=True,
+                                    concurrent_execution=False,
+                                    experiment_name="sequential_" + headline["experiment_name"])
+            seq_run = Experiment(sequential_config, backend=backend)
+            window("a_sequential", seq_run.run)
+            # (b) beam search with brushup, concurrent then sequential.
+            beam_config = cut(beam, CONCURRENT_BEAM_CUTS, timing_pin_budget=True)
+            beam_runs = {}
+            for name, concurrent in (("b_concurrent", True), ("b_sequential", False)):
+                config = dict(beam_config, concurrent_execution=concurrent,
+                              experiment_name=f"{name}_{beam['experiment_name']}")
+                run = Experiment(config, backend=backend)
+                window(name, run.run)
+                beam_runs[name] = run
+            mode["name"] = "replay"
+            slicing = _replay_check(backend, records)
+            # Resume of (a)'s run dir: nothing executes, the same results.csv.
+            executed = []
+
+            def counted(original):
+                def call(self, method, *args, **kwargs):
+                    executed.append(method)
+                    return original(self, method, *args, **kwargs)
+                return call
+
+            resume_config = dict(yaml.safe_load((run_dir / "config.yaml").read_text()),
+                                 resume=True)
+            before_csv = (run_dir / "results.csv").read_text()
+            with Wrapped(Experiment, make={"_run_one": counted}):
+                Experiment(resume_config, backend=backend).run()
+    finally:
+        backend.pin_generation_budget = False
+
+    frames = {
+        "a_concurrent": pd.read_csv(run_dir / "results.csv", keep_default_na=False),
+        "a_sequential": pd.read_csv(seq_run.run_dir / "results.csv", keep_default_na=False),
+        "b_concurrent": pd.read_csv(beam_runs["b_concurrent"].run_dir / "results.csv",
+                                    keep_default_na=False),
+        "b_sequential": pd.read_csv(beam_runs["b_sequential"].run_dir / "results.csv",
+                                    keep_default_na=False),
+    }
+    generation = {
+        part: _compare_generations(backend, generated.get(f"{part}_concurrent", {}),
+                                   generated.get(f"{part}_sequential", {}))
+        for part in ("a", "b")
+    }
+    diverged_seeds = {part: {(d.get("seed"), d.get("temperature")) for d in g["diverged"]}
+                      for part, g in generation.items()}
+
+    def rows_match(part, method):
+        """Rows of ``method`` equal between the modes, or explained: a draw
+        of the run's requests diverged within DRAW_MARGIN, or (best_of_n)
+        the same drafts with the two chosen candidates' sequential welfare
+        within DRAW_MARGIN."""
+        conc, seq = frames[f"{part}_concurrent"], frames[f"{part}_sequential"]
+        conc, seq = conc[conc.method == method], seq[seq.method == method]
+        out = {"rows": len(conc), "equal": 0, "explained": 0, "unexplained": 0}
+        if len(conc) != len(seq):
+            out["unexplained"] = max(len(conc), len(seq))
+            return out
+        for (_, c), (_, q) in zip(conc.iterrows(), seq.iterrows()):
+            if c["statement"] == q["statement"]:
+                out["equal"] += 1
+                continue
+            seeds = {s for s, _ in diverged_seeds[part]}
+            if method == "best_of_n":
+                run_seeds = set(range(int(q["seed"]), int(q["seed"]) + int(q["param_n"])))
+                near = False
+                for candidates, welfare in matrices.get(f"{part}_sequential", {}).items():
+                    if q["statement"] in candidates and c["statement"] in candidates:
+                        i = candidates.index(q["statement"])
+                        j = candidates.index(c["statement"])
+                        near = near or abs(welfare[i] - welfare[j]) < DRAW_MARGIN
+                explained = bool(run_seeds & seeds) or near
+            else:
+                explained = int(q["seed"]) in seeds and c.get(
+                    "pre_brushup_statement", "") == q.get("pre_brushup_statement", "")
+            out["explained" if explained else "unexplained"] += 1
+        return out
+
+    comparisons = {
+        "best_of_n": rows_match("a", "best_of_n"),
+        "beam_search": rows_match("b", "beam_search"),
+    }
+    habermas = {part: frames[f"a_{part}"][frames[f"a_{part}"].method == "habermas_machine"]
+                for part in ("concurrent", "sequential")}
+    key_cols = ["method", "seed", "param_num_candidates"]
+    batching_summary = _batching_summary(metrics)
+    (experiment_span,) = [s for s in metrics["spans"] if s["name"] == "experiment"]
+    b_sessions = [session for name, session in sessions if name == "b_concurrent"]
+    n_layers = backend.config.n_layers
+    b = windows["b_concurrent"]
+    advances = sum(session._step for session in b_sessions)
+    session_tokens = {
+        "generated": sum(s.spec.n_slots * s._step for s in b_sessions),
+        "scored": sum(s.spec.n_slots * s.spec.k * (s.n_roles - 1) * (1 + s._step)
+                      for s in b_sessions),
+    }
+    brushup_tokens = sum(len(ids) for entries in generated.get("b_concurrent", {}).values()
+                         for _, ids in entries)
+    eval_file = run_dir / "evaluation" / "gemma2-2b" / "seed_0" / "evaluation_results.csv"
+    a = windows["a_concurrent"]
+    checks = {
+        "rows_error_free": all(
+            len(f) > 0 and bool((f["error_message"] == "").all())
+            and not f["statement"].astype(str).str.startswith("[ERROR").any()
+            for f in frames.values()),
+        "habermas_same_rows_both_modes": len(habermas["concurrent"]) == 2
+        and habermas["concurrent"][key_cols].astype(str).values.tolist()
+        == habermas["sequential"][key_cols].astype(str).values.tolist(),
+        "draws_equal_or_within_margin": all(
+            d["ok"] for g in generation.values() for d in g["diverged"]),
+        "rows_equal_or_explained": all(c["unexplained"] == 0 for c in comparisons.values()),
+        "slicing_exact": slicing["ok"],
+        "metrics_json": metrics["schema"] == "consensus_tpu.metrics.v1"
+        and {c["name"] for c in experiment_span["children"]} >= {
+            "generate/best_of_n", "generate/habermas_machine"}
+        and any(v.get("max_fill", 0) > 1 for v in batching_summary.values()),
+        "journal_one_record_per_row": len(journal) == len(frames["a_concurrent"]),
+        "resume_executes_nothing": executed == []
+        and (run_dir / "results.csv").read_text() == before_csv,
+        "evaluation_file": eval_file.exists(),
+        "b_sessions_fused_through_batching": len(b_sessions) == len(frames["b_concurrent"])
+        and all(isinstance(getattr(s, "session", None), TorchTokenSearchSession)
+                for s in b_sessions),
+        "b_decode_launches_eq_layers_x_advances_and_brushup_steps":
+            b["launches"]["decode_attention"] == n_layers * (advances + b["decode_steps"])
+            and advances > 0,
+        "b_token_counts_eq_session_sums": b["tokens"] == {
+            "generated": session_tokens["generated"] + brushup_tokens,
+            "scored": session_tokens["scored"]},
+        "k1_and_k2_launched": a["launches"]["flash_attention"] > 0
+        and a["launches"]["decode_attention"] > 0 and b["launches"]["decode_attention"] > 0,
+    }
+    statements = {name: len(f) for name, f in frames.items()}
+    row = {
+        "phase": "concurrent_path", "model": backend.config.name,
+        "configs": {"a": str(headline_path.relative_to(ROOT)),
+                    "b": str(beam_path.relative_to(ROOT))},
+        "cuts": {"a": {**CONCURRENT_CUTS, "timing_pin_budget": True},
+                 "b": {**CONCURRENT_BEAM_CUTS, "timing_pin_budget": True}},
+        "max_concurrent_methods": headline.get("max_concurrent_methods"),
+        "wall_s": {name: w["wall_s"] for name, w in windows.items()},
+        "a_generation_wall_s": stats["a_generation_wall_s"],
+        "s_per_statement": {name: windows[name]["wall_s"] / max(statements[name], 1)
+                            for name in statements},
+        "batch_counts": {
+            "a_concurrent": {kind: sum(v.get("flushes", {}).values())
+                             for kind, v in batching_summary.items()},
+            "b_concurrent": beam_runs["b_concurrent"].last_batch_counts,
+        },
+        "inner_calls": {name: w["inner_calls"] for name, w in windows.items()},
+        "inner_rows": {name: w["inner_rows"] for name, w in windows.items()},
+        "tokens": {name: w["tokens"] for name, w in windows.items()},
+        "batching": batching_summary,
+        "launches": {name: w["launches"] for name, w in windows.items()},
+        "decode_steps": {name: w["decode_steps"] for name, w in windows.items()},
+        "peak_memory_gb": {name: w["peak_memory_gb"] for name, w in windows.items()},
+        "b_search_advances": advances, "b_session_tokens": session_tokens,
+        "b_brushup_tokens": brushup_tokens,
+        "generation_compare": {part: {k: (v if k != "diverged" else v[:12])
+                                      for k, v in g.items()} for part, g in generation.items()},
+        "row_compare": comparisons,
+        "habermas_rows_differing_in_text": int(sum(
+            c != q for c, q in zip(habermas["concurrent"]["statement"],
+                                   habermas["sequential"]["statement"]))),
+        "slicing": slicing,
+        "resume_executed_runs": len(executed),
+        "results_csv": str(run_dir.relative_to(ROOT) / "results.csv"),
+        "checks": checks, "ok": all(checks.values()),
+    }
+    launches = {k: sum(w["launches"][k] for w in windows.values()) for k in KERNELS}
+    shapes = {}
+    for w in windows.values():
+        for key, (count, args) in w["decode_shapes"].items():
+            shapes[key] = (shapes.get(key, (0, None))[0] + count, args)
+    return row, launches, shapes
+
+
+def late_phases_alone(names) -> int:
+    """``python3 chip_smoke.py sweep_path mcts_path concurrent_path`` (any
+    of them): those phases alone, for iterating on them; concurrent_path
+    runs on mcts_path's backend.  Prints their lines, no summary and no
+    ``ok`` line; exits 1 if a phase failed."""
+    unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path"}
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
+    rows = []
+    if "sweep_path" in names:
+        rows.append(sweep_path()[0])
+    if {"mcts_path", "concurrent_path"} & set(names):
+        mcts = mcts_path()
+        rows.append(mcts[0])
+        if "concurrent_path" in names:
+            rows.append(concurrent_path(mcts[4])[0])
+    for row in rows:
+        emit(row)
+    return 0 if all(row["ok"] for row in rows) else 1
 
 
 def main() -> int:
@@ -2619,6 +3164,8 @@ def main() -> int:
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "python": sys.version.split()[0],
     })
+    if len(sys.argv) > 1:
+        return late_phases_alone(sys.argv[1:])
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS) + len(MUTANTS)) as pool:
@@ -2686,17 +3233,21 @@ def main() -> int:
     sweep_row, sweep_launches, sweep_shapes = sweep_path(params)
     del params
     emit(sweep_row)
-    mcts_row, mcts_launches, mcts_shapes, mcts_case = mcts_path()
+    mcts_row, mcts_launches, mcts_shapes, mcts_case, backend = mcts_path()
     emit(mcts_row)
     if mcts_case is None:
         fail("the MCTS path launched no flash-attention kernel under gemma2-2b")
+    concurrent_row, concurrent_launches, concurrent_shapes = concurrent_path(backend)
+    del backend
+    torch.cuda.empty_cache()
+    emit(concurrent_row)
 
     paths = {
         "main_path": launches, "token_search_path": search_launches,
         "reference_defaults_path": reference_row["launches"],
         "shared_trunk_decode_path": generate_launches, "habermas_eval_path": habermas_launches,
         "fallback_session_path": fallback_launches, "sweep_path": sweep_launches,
-        "mcts_path": mcts_launches,
+        "mcts_path": mcts_launches, "concurrent_path": concurrent_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
@@ -2712,7 +3263,7 @@ def main() -> int:
     flash_entry["next_token_topk"] = {key: next_token_case[key] for key in case_keys}
     flash_entry["gemma2_2b_evaluation"] = {key: mcts_case[key] for key in case_keys}
     decode_shapes = dict(search_shapes)
-    for more in (generate_shapes, fallback_shapes, sweep_shapes, mcts_shapes):
+    for more in (generate_shapes, fallback_shapes, sweep_shapes, mcts_shapes, concurrent_shapes):
         for key, (count, args) in more.items():
             decode_shapes[key] = (decode_shapes.get(key, (0, None))[0] + count, args)
     decode_entry, decode_ok = summary_decode(
@@ -2724,7 +3275,7 @@ def main() -> int:
     emit({"kernels": [flash_entry, decode_entry]})
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
-              greedy_row, habermas_row, fallback_row, sweep_row, mcts_row]
+              greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

@@ -7,8 +7,10 @@ has one, else to :func:`fallback_score_matrix_many`: build the per-call
 batched ``backend.score`` call and reduce each cell with the exact host
 expressions the per-call consumers used.  ``TorchBackend.score_matrix``
 is the fused path and falls back here per matrix; best-of-N and the
-evaluator's ``stat="moments"`` utilities both come through this seam.  The
-welfare telemetry sink of the JAX version waits for the obs port.
+evaluator's ``stat="moments"`` utilities both come through this seam.
+Every matrix is recorded into the obs registry (``record_matrix``: cells,
+D2H bytes, agents per call).  The welfare telemetry sink of the JAX
+version waits for the serving port.
 """
 
 from __future__ import annotations
@@ -177,6 +179,37 @@ def expand_deduped(values: Sequence, mapping: Sequence[int]) -> List:
     return [values[j] for j in mapping]
 
 
+# ---------------------------------------------------------------------------
+# Observability (families are idempotent by name across backends).
+
+
+def matrix_metrics(registry=None):
+    from consensus_tpu_torch.obs.metrics import DEFAULT_COUNT_BUCKETS, get_registry
+
+    reg = registry if registry is not None else get_registry()
+    cells = reg.counter(
+        "score_matrix_cells_total",
+        "(candidate, agent) utility cells evaluated via the matrix seam",
+    )
+    d2h = reg.counter(
+        "score_matrix_d2h_bytes_total",
+        "bytes fetched device-to-host for matrix scoring results",
+    )
+    agents_hist = reg.histogram(
+        "score_agents_per_call",
+        "agent-axis width of score_matrix calls",
+        buckets=DEFAULT_COUNT_BUCKETS,
+    )
+    return cells, d2h, agents_hist
+
+
+def record_matrix(result: ScoreMatrixResult, n_agents: int, registry=None) -> None:
+    cells, d2h, agents_hist = matrix_metrics(registry)
+    cells.inc(result.cells)
+    d2h.inc(result.d2h_bytes)
+    agents_hist.observe(n_agents)
+
+
 def fallback_score_matrix_many(
     backend, requests: Sequence[ScoreMatrixRequest]
 ) -> List[ScoreMatrixResult]:
@@ -192,10 +225,12 @@ def fallback_score_matrix_many(
         return [reduce_matrix(request, [], path="fallback") for request in requests]
     unique, mapping = dedup_score_requests(all_rows)
     results = expand_deduped(backend.score(unique), mapping)
-    return [
-        reduce_matrix(request, results[lo:hi], path="fallback")
-        for request, (lo, hi) in zip(requests, spans)
-    ]
+    out = []
+    for request, (lo, hi) in zip(requests, spans):
+        matrix = reduce_matrix(request, results[lo:hi], path="fallback")
+        record_matrix(matrix, len(request.agents))
+        out.append(matrix)
+    return out
 
 
 def score_matrix_many(

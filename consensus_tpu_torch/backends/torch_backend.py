@@ -36,8 +36,14 @@ config) and runs each protocol call as padded device batches:
   ``use_decode_attention`` is set (the rollouts take the einsum route, as
   the reference's do).
 
-Options that select a path not ported yet raise ``NotImplementedError``
-naming the ROADMAP item.
+``pin_generation_budget`` is the reference's timing mode (every generation
+to its full budget: no EOS stop, no stop strings).  Every call records into
+``self.instruments`` (``obs/backends.py``) at the counterparts of
+``tpu.py``'s sites, under its label ``tpu``.  The shared counters
+(``call_counts``, ``token_counts``, ``matrix_stats``) are safe under
+concurrent callers: fused search sessions run on the experiment's worker
+threads beside the batching layer's flushes.  Options that select a path
+not ported yet raise ``NotImplementedError`` naming the ROADMAP item.
 
 Seeds: each request's seed folds into its OWN row threefry key exactly as
 ``tpu.py:579-603`` does (``utils/threefry.py`` is bit for bit
@@ -74,6 +80,7 @@ from consensus_tpu_torch.backends.speculative import NGramProposer
 from consensus_tpu_torch.backends.score_matrix import (
     ScoreMatrixResult,
     fallback_score_matrix_many,
+    record_matrix,
     reduce_matrix,
 )
 from consensus_tpu_torch.models import generate as gen
@@ -98,6 +105,7 @@ from consensus_tpu_torch.models.transformer import (
     token_logprobs,
     token_logprobs_streamed,
 )
+from consensus_tpu_torch.obs.backends import BackendInstruments
 from consensus_tpu_torch.utils import threefry
 from consensus_tpu_torch.utils.device import resolve_device
 
@@ -215,12 +223,9 @@ class TorchBackend:
             raise _not_ported("tp/dp/mesh", "multi-GPU")
         if checkpoint is not None:
             raise _not_ported("checkpoint loading", "multi-GPU (checkpoints, HF safetensors)")
-        # The reference's timing mode (whole budgets, no EOS or stop strings)
-        # and the older name of ``kv_quant``: no caller in the port yet.
-        if pin_generation_budget:
-            raise _not_ported("pin_generation_budget", "obs and tracing (timing cells)")
+        # The older name of ``kv_quant``: no config of the repo sets it.
         if quantize_frozen_kv is not None:
-            raise _not_ported("quantize_frozen_kv (pass kv_quant)", "obs and tracing (timing cells)")
+            raise _not_ported("quantize_frozen_kv (pass kv_quant)", "A6, once a config sets it")
         if quantization not in (None, "none", "int8"):
             raise ValueError(f"unknown quantization mode: {quantization!r}")
         if dtype not in _DTYPES:
@@ -232,6 +237,11 @@ class TorchBackend:
         self.decode_segment_len = max(16, int(decode_segment_len))
         self._seg_len_fallbacks: set = set()  # budgets already logged
         self.kv_quant = bool(kv_quant)
+        #: Timing mode (``tpu.py:235-239``): every generation runs to its
+        #: full ``max_tokens`` budget -- no EOS early exit, no stop-string
+        #: truncation -- so random-weight timing runs measure the workload
+        #: real weights would run.  Never use for quality runs.
+        self.pin_generation_budget = bool(pin_generation_budget)
         self.device = resolve_device(device)
         #: Whether a greedy request decodes the same tokens whatever batch it
         #: shares (the Habermas Machine then elides its no-op ranking
@@ -284,6 +294,14 @@ class TorchBackend:
         self.token_counts = {"generated": 0, "scored": 0}
         #: Fused utility matrices: calls, device chunks, per-call fallbacks.
         self.matrix_stats = {"calls": 0, "chunks": 0, "fallbacks": 0}
+        #: Guards the three tables above: fused search sessions bypass the
+        #: batching layer's single-file flush, so the experiment's worker
+        #: threads update them at once.
+        self._stats_lock = threading.Lock()
+        #: obs: padding, padded-shape first sightings and transfer times,
+        #: recorded at the counterparts of ``tpu.py``'s sites under its label
+        #: ``tpu``, so the metric families match the JAX backend's.
+        self.instruments = BackendInstruments("tpu")
         self._unseeded_calls = 0
         self._nonce_lock = threading.Lock()
         # Live-session budget (``tpu.py:412-419``), read from what the device
@@ -323,8 +341,21 @@ class TorchBackend:
         longest = min(max(len(t) for t in token_lists), self.max_context)
         return min(_width_bucket(longest), self.max_context)
 
+    def _tally(self, table: Dict[str, int], key: str, amount: int) -> None:
+        with self._stats_lock:
+            table[key] += amount
+
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(array).to(self.device)
+        with self.instruments.time_h2d():
+            return torch.from_numpy(array).to(self.device)
+
+    def _fetch(self, *tensors: torch.Tensor):
+        """Device tensors -> numpy, timed as D2H.  CUDA work is asynchronous,
+        so the fetch waits for the device work still in flight: the reading
+        is an upper bound that includes device execution (``tpu.py:510-521``)."""
+        with self.instruments.time_d2h():
+            out = tuple(t.cpu().numpy() for t in tensors)
+        return out if len(tensors) > 1 else out[0]
 
     def _left_pad_batch(self, token_lists: List[List[int]]):
         """(tokens, valid) left-padded into a shared length bucket."""
@@ -540,7 +571,8 @@ class TorchBackend:
                 [bias_index, torch.zeros((pad_rows,), dtype=bias_index.dtype, device=self.device)]
             )
         keys = self._row_keys("generate", [r.seed for r in requests] + [0] * pad_rows)
-        eos_ids = torch.tensor(self.tokenizer.eos_ids, dtype=torch.int32, device=self.device)
+        eos = (-1,) if self.pin_generation_budget else self.tokenizer.eos_ids
+        eos_ids = torch.tensor(eos, dtype=torch.int32, device=self.device)
         return (target, pad_rows, temperatures, bias_table, bias_index,
                 keys, eos_ids, rep_penalty)
 
@@ -564,9 +596,14 @@ class TorchBackend:
                 out.extend(self._generate_shared(requests[i : i + allowed], prompt_ids))
             return out
 
-        self.call_counts["generate"] += len(requests)
+        self._tally(self.call_counts, "generate", len(requests))
         (target, pad_rows, temperatures, bias_table, bias_index, keys,
          eos_ids, rep_penalty) = self._prep_generation_rows(requests, allowed)
+        self.instruments.record_padding("generate_trunk", 1, width, len(prompt_ids))
+        self.instruments.record_launch(
+            "generate_shared",
+            (target, width, max_new, int(seg_len is not None), int(bias_table is not None)),
+        )
         tokens = np.full((1, width), self.tokenizer.pad_id, np.int32)
         valid = np.zeros((1, width), bool)
         tokens[0, width - len(prompt_ids):] = prompt_ids
@@ -591,7 +628,7 @@ class TorchBackend:
                     self.params, self.config, self._to_device(tokens), self._to_device(valid),
                     target, max_new, **kwargs,
                 )
-        return self._finish_generation(requests, out)
+        return self._finish_generation(requests, out, target, max_new)
 
     def _generate_classic(
         self, requests: Sequence[GenerationRequest], token_lists: List[List[int]]
@@ -625,9 +662,16 @@ class TorchBackend:
                 )
             return out
 
-        self.call_counts["generate"] += len(requests)
+        self._tally(self.call_counts, "generate", len(requests))
         (target, pad_rows, temperatures, bias_table, bias_index, keys,
          eos_ids, rep_penalty) = self._prep_generation_rows(requests, allowed)
+        self.instruments.record_padding(
+            "generate_prompt", target, width, sum(min(len(t), width) for t in token_lists)
+        )
+        self.instruments.record_launch(
+            "generate",
+            (target, width, max_new, int(seg_len is not None), int(bias_table is not None)),
+        )
         tokens, valid = self._left_pad_batch(list(token_lists) + [[]] * pad_rows)
         kwargs = dict(
             keys=keys, temperature=temperatures, eos_ids=eos_ids,
@@ -642,14 +686,19 @@ class TorchBackend:
                 )
             else:
                 out = gen.generate_tokens(self.params, self.config, tokens, valid, max_new, **kwargs)
-        return self._finish_generation(requests, out)
+        return self._finish_generation(requests, out, target, max_new)
 
-    def _finish_generation(self, requests: Sequence[GenerationRequest], out) -> List[GenerationResult]:
-        """Host-side post-processing: decode, EOS/stop semantics, token
-        accounting (``tpu.py:1016-1060``)."""
-        generated = out.tokens.cpu().numpy()
-        counts = out.num_generated.cpu().numpy()
-        hit_eos = out.hit_eos.cpu().numpy()
+    def _finish_generation(
+        self, requests: Sequence[GenerationRequest], out, rows: int, max_new: int
+    ) -> List[GenerationResult]:
+        """Host-side post-processing: decode, EOS/stop semantics (none under
+        ``pin_generation_budget``), token accounting (``tpu.py:1016-1060``)."""
+        generated, counts, hit_eos = self._fetch(out.tokens, out.num_generated, out.hit_eos)
+        # Decode-grid padding from the tokens actually emitted: EOS early
+        # exits and bucket-pad rows both show up as empty slots.
+        self.instruments.record_padding(
+            "generate_decode", rows, max_new, int(counts[: len(requests)].sum())
+        )
         results = []
         for row, request in enumerate(requests):
             emitted = int(counts[row])
@@ -658,7 +707,7 @@ class TorchBackend:
             # "stop" only if EOS arrived within the request's own cap.
             finish = "stop" if (hit_eos[row] and emitted <= request.max_tokens) else "length"
             truncated = False
-            for stop in request.stop:
+            for stop in () if self.pin_generation_budget else request.stop:
                 idx = text.find(stop)
                 if idx >= 0:
                     text = text[:idx]
@@ -666,7 +715,7 @@ class TorchBackend:
                     truncated = True
             if truncated:
                 ids = self.tokenizer.encode(text)
-            self.token_counts["generated"] += len(ids)
+            self._tally(self.token_counts, "generated", len(ids))
             results.append(GenerationResult(text=text, token_ids=tuple(ids), finish_reason=finish))
         return results
 
@@ -766,6 +815,8 @@ class TorchBackend:
         """Prefill one shared scoring context, right-padded to
         ``max_context`` columns -> (trunk, ctx_len, last_hidden)."""
         width = self.max_context
+        self.instruments.record_padding("score_trunk", 1, width, len(ctx_ids))
+        self.instruments.record_launch("score_trunk", (1, width))
         tokens = np.full((1, width), self.tokenizer.pad_id, np.int32)
         tokens[0, : len(ctx_ids)] = ctx_ids
         valid = np.zeros((1, width), bool)
@@ -778,10 +829,12 @@ class TorchBackend:
     def _score_shared_group(self, trunk_state, idxs: List[int], prepared, results, rows_cap: int) -> None:
         """Score one row chunk of a shared-context group against its trunk:
         rows bucket to powers of two from 32 up to ``rows_cap``."""
-        self.call_counts["score"] += len(idxs)
+        self._tally(self.call_counts, "score", len(idxs))
         conts = [prepared[i][2] for i in idxs]
         n_rows = min(rows_cap, _bucket(len(idxs), minimum=32))
         width = self._shared_cont_width(max(len(c) for c in conts))
+        self.instruments.record_padding("score_shared", n_rows, width, sum(len(c) for c in conts))
+        self.instruments.record_launch("score_shared", (n_rows, width))
         tokens = np.full((n_rows, width), self.tokenizer.pad_id, np.int32)
         valid = np.zeros((n_rows, width), bool)
         for row, ids in enumerate(conts):
@@ -789,13 +842,13 @@ class TorchBackend:
             valid[row, : len(ids)] = True
         trunk, ctx_len, last_hidden = trunk_state
         with torch.inference_mode():
-            logprobs = shared_context_cont_logprobs(
+            logprobs = self._fetch(shared_context_cont_logprobs(
                 self.params, self.config, trunk, ctx_len, last_hidden,
                 self._to_device(tokens), self._to_device(valid),
-            ).cpu().numpy()
+            ))
         for row, i in enumerate(idxs):
             ids = conts[row]
-            self.token_counts["scored"] += len(ids)
+            self._tally(self.token_counts, "scored", len(ids))
             results[i] = ScoreResult(
                 tokens=tuple(self.tokenizer.token_str(t) for t in ids),
                 logprobs=tuple(float(v) for v in logprobs[row, : len(ids)]),
@@ -808,8 +861,8 @@ class TorchBackend:
     ) -> List[ScoreResult]:
         """Full-sequence batch scorer (``tpu.py:1253-1338``).  ``prepared``
         carries already-encoded (context_ids, continuation_ids)."""
-        self.call_counts["score"] += len(requests)
-        self.call_counts["score_batches"] += 1
+        self._tally(self.call_counts, "score", len(requests))
+        self._tally(self.call_counts, "score_batches", 1)
         rows = []
         spans = []  # (context_len, continuation_len) per row
         for i, request in enumerate(requests):
@@ -852,17 +905,21 @@ class TorchBackend:
             if self.config.vocab_size > _STREAMED_VOCAB_THRESHOLD
             else token_logprobs
         )
+        self.instruments.record_padding(
+            "score", len(rows), width, sum(min(len(r), width) for r in rows[: len(requests)])
+        )
+        self.instruments.record_launch("score", (len(rows), width))
         with torch.inference_mode():
-            logprobs = scorer(
+            logprobs = self._fetch(scorer(
                 self.params, self.config, self._to_device(tokens), self._to_device(valid)
-            ).cpu().numpy()
+            ))
 
         results = []
         for i, (ctx_len, cont_len) in enumerate(spans):
             end = min(ctx_len + cont_len, width)
             span_lp = logprobs[i, ctx_len:end]
             span_ids = tokens[i, ctx_len:end]
-            self.token_counts["scored"] += len(span_lp)
+            self._tally(self.token_counts, "scored", len(span_lp))
             results.append(
                 ScoreResult(
                     tokens=tuple(self.tokenizer.token_str(t) for t in span_ids),
@@ -890,15 +947,17 @@ class TorchBackend:
         (``matrix_stats["fallbacks"]``)."""
         out = []
         for request in requests:
-            self.call_counts["score_matrix"] += 1
-            self.matrix_stats["calls"] += 1
+            self._tally(self.call_counts, "score_matrix", 1)
+            self._tally(self.matrix_stats, "calls", 1)
             if not request.candidates or not request.agents:
                 out.append(reduce_matrix(request, [], path="fused"))
                 continue
             result = self._score_matrix_fused(request)
             if result is None:
-                self.matrix_stats["fallbacks"] += 1
+                self._tally(self.matrix_stats, "fallbacks", 1)
                 result = fallback_score_matrix_many(self, [request])[0]
+            else:
+                record_matrix(result, len(request.agents))
             out.append(result)
         return out
 
@@ -981,19 +1040,18 @@ class TorchBackend:
                         state, chunk, prefix_ids, chunk_rows, width, layout
                     )
                     chunk_stats.append(tuple(t[: len(chunk)] for t in stats))
-                    self.matrix_stats["chunks"] += 1
+                    self._tally(self.matrix_stats, "chunks", 1)
                 del state
                 stats = tuple(torch.cat([cs[i] for cs in chunk_stats]) for i in range(4))
                 utilities, welfare_vals, aux = stepper.utility_matrix(
                     stats, n_candidates, n_agents, stat=request.stat,
                     rule=request.welfare_rule, default=request.default,
                 )
-                utilities_np = utilities.cpu().numpy()
-                welfare_np = welfare_vals.cpu().numpy()
-                aux_np = aux.cpu().numpy() if aux is not None else None
+                utilities_np, welfare_np = self._fetch(utilities, welfare_vals)
+                aux_np = self._fetch(aux) if aux is not None else None
         finally:
             self._session_budget.release(nbytes)
-        self.token_counts["scored"] += n_agents * sum(len(ids) for ids in cont_ids)
+        self._tally(self.token_counts, "scored", n_agents * sum(len(ids) for ids in cont_ids))
         return ScoreMatrixResult(
             utilities=utilities_np,
             welfare=welfare_np,
@@ -1043,6 +1101,7 @@ class TorchBackend:
             tokens[len(pre):] = tokens[0]
             valid[len(pre):] = valid[0]
             lengths[len(pre):] = lengths[0]
+            self.instruments.record_launch("score_matrix_prefill", (n_rows, chunk))
             stepper.paged_prefill_chunk(
                 self.params, self.config, *map(self._to_device, (tokens, valid)), state,
                 *map(self._to_device, (tables, lengths, write_pages, write_offsets)),
@@ -1084,6 +1143,10 @@ class TorchBackend:
         n_real = len(chunk)
         for array in (tokens, targets, chunk_valid, lengths, tables):
             array[n_real:] = array[0]
+        self.instruments.record_padding(
+            "score_matrix", n_rows, width, sum(q for (_, _, q, _) in chunk)
+        )
+        self.instruments.record_launch("score_matrix", (n_rows, width))
         return stepper.paged_score_chunk(
             self.params, self.config,
             *map(self._to_device, (tokens, targets, score_mask, chunk_valid)), state,
@@ -1113,13 +1176,19 @@ class TorchBackend:
         return np.vstack(pieces)
 
     def _embed_impl(self, texts: Sequence[str]) -> np.ndarray:
-        self.call_counts["embed"] += len(texts)
+        self._tally(self.call_counts, "embed", len(texts))
         token_lists = [self.tokenizer.encode(t, add_bos=True) for t in texts]
         token_lists += [[]] * (_bucket(len(texts), minimum=8) - len(texts))
         tokens, valid = self._left_pad_batch(token_lists)
+        width = int(tokens.shape[1])
+        self.instruments.record_padding(
+            "embed", len(token_lists), width,
+            sum(min(len(t), width) for t in token_lists[: len(texts)]),
+        )
+        self.instruments.record_launch("embed", (len(token_lists), width))
         with torch.inference_mode():
             hidden = _embed_forward(self.params, self.config, tokens, valid)
-        hidden = hidden[: len(texts)].cpu().numpy()
+        hidden = self._fetch(hidden[: len(texts)])
         norms = np.linalg.norm(hidden, axis=1, keepdims=True)
         return hidden / np.maximum(norms, 1e-12)
 
@@ -1139,8 +1208,8 @@ class TorchBackend:
     def _next_token_impl(
         self, requests: Sequence[NextTokenRequest]
     ) -> List[List[TokenCandidate]]:
-        self.call_counts["next_token"] += len(requests)
-        self.token_counts["scored"] += len(requests)
+        self._tally(self.call_counts, "next_token", len(requests))
+        self._tally(self.token_counts, "scored", len(requests))
         token_lists = [
             self.tokenizer.encode(self._render_prompt(r), add_bos=True) for r in requests
         ]
@@ -1167,13 +1236,21 @@ class TorchBackend:
             # Pure top-k batches are deterministic: the unseeded nonce is not
             # burned, so unrelated unseeded calls stay reproducible.
             keys = torch.zeros((len(gumbel_rows), 2), dtype=torch.int64, device=self.device)
+        width = int(tokens.shape[1])
+        all_rows = len(token_lists) + pad_rows
+        self.instruments.record_padding(
+            "next_token", all_rows, width, sum(min(len(t), width) for t in token_lists)
+        )
+        self.instruments.record_launch(
+            "next_token", (all_rows, width, k, int(bias_table is not None))
+        )
         with torch.inference_mode():
             ids, logprobs = gen.next_token_topk(
                 self.params, self.config, tokens, valid, keys, k, temperatures,
                 torch.tensor(gumbel_rows, dtype=torch.bool, device=self.device),
                 bias_table, bias_index, with_gumbel=any(gumbel_rows),
             )
-        ids, logprobs = ids.cpu().numpy(), logprobs.cpu().numpy()
+        ids, logprobs = self._fetch(ids, logprobs)
         out: List[List[TokenCandidate]] = []
         for row, request in enumerate(requests):
             # This request's k in score order (the without-replacement
@@ -1294,7 +1371,8 @@ class TorchTokenSearchSession:
         self._check_open()
         spec = self.spec
         # k candidates x (n_roles - 1) agent evaluations per slot.
-        self.backend.token_counts["scored"] += spec.n_slots * spec.k * (self.n_roles - 1)
+        scored = spec.n_slots * spec.k * (self.n_roles - 1)
+        self.backend._tally(self.backend.token_counts, "scored", scored)
         self.dispatch_count += 1
         out = search_prefill(
             self.backend.params, self.backend.config, self._tokens, self._valid,
@@ -1321,9 +1399,10 @@ class TorchTokenSearchSession:
         if self._step >= spec.max_steps:
             raise ValueError(f"session exhausted its {spec.max_steps} steps")
         self._step += 1
-        self.backend.token_counts["generated"] += spec.n_slots
-        self.backend.token_counts["scored"] += spec.n_slots * spec.k * (self.n_roles - 1)
-        self.backend.call_counts["search_advances"] += 1
+        backend = self.backend
+        backend._tally(backend.token_counts, "generated", spec.n_slots)
+        backend._tally(backend.token_counts, "scored", spec.n_slots * spec.k * (self.n_roles - 1))
+        backend._tally(backend.call_counts, "search_advances", 1)
         if self._proposer is not None:
             self._proposer.observe([c.token_id for c in chosen])
             self._trunk_ids.extend(c.token_id for c in chosen)
@@ -1374,7 +1453,8 @@ class TorchTokenSearchSession:
         spec = self.spec
         # Each path re-evaluates its span under every agent and proposes k
         # scored candidates.
-        self.backend.token_counts["scored"] += len(suffixes) * (span + spec.k) * (self.n_roles - 1)
+        scored = len(suffixes) * (span + spec.k) * (self.n_roles - 1)
+        self.backend._tally(self.backend.token_counts, "scored", scored)
         n_paths = _bucket(len(suffixes), minimum=4)
         tokens = np.zeros((n_paths, span), np.int32)
         for i, suffix in enumerate(suffixes):
@@ -1547,8 +1627,8 @@ class TorchTokenSearchSession:
         accounting (``tpu.py:2631-2642``)."""
         counted = rows[:, 1] > 0.5
         ids = [int(rows[t, 0]) for t in range(depth) if counted[t]]
-        self.backend.token_counts["generated"] += len(ids)
-        self.backend.token_counts["scored"] += len(ids) * (self.n_roles - 1)
+        self.backend._tally(self.backend.token_counts, "generated", len(ids))
+        self.backend._tally(self.backend.token_counts, "scored", len(ids) * (self.n_roles - 1))
         text = "".join(self.backend.tokenizer.token_str(i) for i in ids)
         totals = [float(v) for v in rows[counted, 2:].sum(axis=0)]
         return ids, text, totals, True

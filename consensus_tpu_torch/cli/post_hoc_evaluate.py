@@ -8,8 +8,8 @@ with any model, plus ad-hoc statements from a text file.
 The backend is the run config's (``backend: tpu`` or ``torch``: the
 resident ``TorchBackend`` with the config's ``backend_options``) unless
 ``--backend`` names another; it runs on the card unless ``--device`` names
-another device.  ``--backend fake`` raises ``NotImplementedError``: the
-fake backend is not ported yet (ROADMAP.md, queue A6).  In the
+another device.  ``--backend fake`` re-scores with the deterministic,
+hardware-free ``FakeBackend`` (it takes no model options).  In the
 statements-text mode the backend is ``--backend`` (default ``torch``)
 holding the first ``--evaluation-models`` entry.
 
@@ -32,12 +32,22 @@ import pandas as pd
 import yaml
 
 from consensus_tpu_torch.aggregation import aggregate_run_dir
-from consensus_tpu_torch.backends import get_backend
+from consensus_tpu_torch.backends import RESIDENT, get_backend
 from consensus_tpu_torch.cli.run_experiment import configure_logging
 from consensus_tpu_torch.embedding import get_embedder
 from consensus_tpu_torch.evaluation import StatementEvaluator
 
 logger = logging.getLogger(__name__)
+
+
+def _make_backend(name, options: dict, device: Optional[str]):
+    """The resident backend gets ``options`` and ``device``; another named
+    backend (``fake``) gets neither; an instance passes through."""
+    if isinstance(name, str) and name not in RESIDENT:
+        return get_backend(name)
+    if device is not None:
+        options = dict(options, device=device)
+    return get_backend(name, **options)
 
 
 def evaluate_run_dir(
@@ -52,10 +62,10 @@ def evaluate_run_dir(
     run_dir = pathlib.Path(results_dir)
     with open(run_dir / "config.yaml") as fh:
         config = yaml.safe_load(fh)
-    options = dict(config.get("backend_options") or {})
-    if device is not None:
-        options["device"] = device
-    backend = get_backend(backend_name or config.get("backend", "torch"), **options)
+    backend = _make_backend(
+        backend_name or config.get("backend", "torch"),
+        dict(config.get("backend_options") or {}), device,
+    )
     judge = backend if with_judge else None
     embedder = get_embedder((config.get("models") or {}).get("embedding_model_path"), backend)
     for model in evaluation_models:
@@ -85,10 +95,7 @@ def evaluate_adhoc_statements(
         for line in pathlib.Path(statements_file).read_text().splitlines()
         if line.strip()
     ]
-    options = {"model": evaluation_model}
-    if device is not None:
-        options["device"] = device
-    backend = get_backend(backend_name, **options)
+    backend = _make_backend(backend_name, {"model": evaluation_model}, device)
     evaluator = StatementEvaluator(backend, evaluation_model=evaluation_model)
     rows = []
     for statement in statements:

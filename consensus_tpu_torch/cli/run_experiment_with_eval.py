@@ -16,6 +16,9 @@ evaluation model to a backend of its own, built for its phase and freed
 after it, so a second 9B model never shares the card with a third.
 
 Every backend runs on the card unless ``--device`` names another device.
+With the config's ``profile_dir`` (``run_sweep --profile-dir``) the
+evaluation phases write their own ``torch.profiler`` trace under
+``{profile_dir}/{run_dir name}_eval``, beside the generation phase's.
 
 Usage: ``python -m consensus_tpu_torch.cli.run_experiment_with_eval -c config.yaml``
 """
@@ -42,6 +45,7 @@ from consensus_tpu_torch.embedding import get_embedder
 from consensus_tpu_torch.evaluation import StatementEvaluator, sanitize_model_name
 from consensus_tpu_torch.experiment import Experiment
 from consensus_tpu_torch.utils.identifiers import create_method_identifier
+from consensus_tpu_torch.utils.tracing import device_trace
 
 logger = logging.getLogger(__name__)
 
@@ -124,88 +128,97 @@ def run_pipeline(
     embedding_path = (config.get("models") or {}).get("embedding_model_path")
     embedder = get_embedder(embedding_path, backend)
 
-    # ---- Phase 2a: per-seed comparative ranking -----------------------
-    if not skip_comparative_ranking:
-        logger.info("=== Phase 2a: LLM-judge comparative ranking ===")
-        evaluator = StatementEvaluator(
-            backend,
-            judge_backend=judge_backend_lazy(),
-            llm_judge_model=llm_judge_model,
-            embedder=embedder,
-        )
-        for seed_index, seed in enumerate(sorted(results["seed"].unique())):
-            subset = results[
-                (results["seed"] == seed)
-                & (results["statement"].astype(str).str.strip() != "")
-                & ~results["statement"].astype(str).str.lstrip().str.startswith("[ERROR")
-                & (results["error_message"].fillna("").astype(str).str.strip() == "")
-            ]
-            method_statements = {}
-            for _, row in subset.iterrows():
-                params = {
-                    k: row[k]
-                    for k in subset.columns
-                    if k.startswith("param_") and pd.notna(row[k])
-                }
-                method_statements[create_method_identifier(row["method"], params)] = row["statement"]
-            if len(method_statements) < 2:
-                logger.info("Seed %s: <2 statements, skipping ranking", seed)
-                continue
-            ranking, reasoning, matrix = evaluator.evaluate_comparative_rankings(
-                method_statements, issue, agent_opinions, seed=int(seed)
+    # --profile-dir (the config's profile_dir): Phase 1 traced its own
+    # window inside Experiment.run; the scoring/evaluation phases get a
+    # separate trace window so the two profiles load side by side.
+    profile_dir = config.get("profile_dir") or None
+    eval_profile_dir = (
+        str(pathlib.Path(profile_dir) / f"{run_dir.name}_eval") if profile_dir else None
+    )
+    with device_trace(eval_profile_dir):
+        # ---- Phase 2a: per-seed comparative ranking -----------------------
+        if not skip_comparative_ranking:
+            logger.info("=== Phase 2a: LLM-judge comparative ranking ===")
+            evaluator = StatementEvaluator(
+                backend,
+                judge_backend=judge_backend_lazy(),
+                llm_judge_model=llm_judge_model,
+                embedder=embedder,
             )
-            seed_dir = run_dir / "evaluation" / "llm_judge" / f"seed_{seed_index}"
-            seed_dir.mkdir(parents=True, exist_ok=True)
-            ranking.to_csv(seed_dir / "ranking_results.csv", index=False)
-            reasoning.to_csv(seed_dir / "ranking_reasoning.csv", index=False)
-            with open(seed_dir / "comparative_ranking_matrix.json", "w") as fh:
-                json.dump(matrix, fh, indent=2)
+            for seed_index, seed in enumerate(sorted(results["seed"].unique())):
+                subset = results[
+                    (results["seed"] == seed)
+                    & (results["statement"].astype(str).str.strip() != "")
+                    & ~results["statement"].astype(str).str.lstrip().str.startswith("[ERROR")
+                    & (results["error_message"].fillna("").astype(str).str.strip() == "")
+                ]
+                method_statements = {}
+                for _, row in subset.iterrows():
+                    params = {
+                        k: row[k]
+                        for k in subset.columns
+                        if k.startswith("param_") and pd.notna(row[k])
+                    }
+                    key = create_method_identifier(row["method"], params)
+                    method_statements[key] = row["statement"]
+                if len(method_statements) < 2:
+                    logger.info("Seed %s: <2 statements, skipping ranking", seed)
+                    continue
+                ranking, reasoning, matrix = evaluator.evaluate_comparative_rankings(
+                    method_statements, issue, agent_opinions, seed=int(seed)
+                )
+                seed_dir = run_dir / "evaluation" / "llm_judge" / f"seed_{seed_index}"
+                seed_dir.mkdir(parents=True, exist_ok=True)
+                ranking.to_csv(seed_dir / "ranking_results.csv", index=False)
+                reasoning.to_csv(seed_dir / "ranking_reasoning.csv", index=False)
+                with open(seed_dir / "comparative_ranking_matrix.json", "w") as fh:
+                    json.dump(matrix, fh, indent=2)
 
-    # ---- Phase 2b: per-(model x seed) standard evaluation -------------
-    logger.info("=== Phase 2b: standard evaluation ===")
-    models = evaluation_models or experiment.evaluation_models or [
-        config.get("models", {}).get("generation_model", "model")
-    ]
-    # Optional per-model backend routing; without it every evaluation model
-    # shares the generation backend (same scores under different names).
-    eval_backends = config.get("evaluation_backends") or {}
-    if len(models) > 1 and not eval_backends:
-        logger.warning(
-            "%d evaluation models share ONE resident backend -- their metrics "
-            "will be identical; set config.evaluation_backends to route "
-            "models to distinct backends",
-            len(models),
-        )
-    # Per-agent judge scores run only when a judge backend is configured and
-    # --skip-llm-judge was not passed.
-    include_llm_judge = not skip_llm_judge and bool(config.get("judge_backend"))
-    for model in models:
-        own_backend = model in eval_backends
-        if own_backend:
-            spec = dict(eval_backends[model])
-            if device is not None:
-                spec.setdefault("device", device)
-            model_backend = get_backend(spec)
-        else:
-            model_backend = backend
-        evaluator = StatementEvaluator(
-            model_backend,
-            evaluation_model=model,
-            judge_backend=judge_backend_lazy() if include_llm_judge else None,
-            llm_judge_model=llm_judge_model,
-            # A path-based embedder is backend-independent: one instance.
-            embedder=embedder if embedding_path else get_embedder(None, model_backend),
-        )
-        evaluator.evaluate_results_file(
-            str(run_dir / "results.csv"),
-            config=config,
-            include_llm_judge=include_llm_judge,
-        )
-        logger.info("Evaluated with %s", sanitize_model_name(model))
-        if own_backend:
-            # Free this model's weights before the next phase loads its own.
-            del evaluator, model_backend
-            _free_device_memory()
+        # ---- Phase 2b: per-(model x seed) standard evaluation -------------
+        logger.info("=== Phase 2b: standard evaluation ===")
+        models = evaluation_models or experiment.evaluation_models or [
+            config.get("models", {}).get("generation_model", "model")
+        ]
+        # Optional per-model backend routing; without it every evaluation model
+        # shares the generation backend (same scores under different names).
+        eval_backends = config.get("evaluation_backends") or {}
+        if len(models) > 1 and not eval_backends:
+            logger.warning(
+                "%d evaluation models share ONE resident backend -- their metrics "
+                "will be identical; set config.evaluation_backends to route "
+                "models to distinct backends",
+                len(models),
+            )
+        # Per-agent judge scores run only when a judge backend is configured and
+        # --skip-llm-judge was not passed.
+        include_llm_judge = not skip_llm_judge and bool(config.get("judge_backend"))
+        for model in models:
+            own_backend = model in eval_backends
+            if own_backend:
+                spec = dict(eval_backends[model])
+                if device is not None:
+                    spec.setdefault("device", device)
+                model_backend = get_backend(spec)
+            else:
+                model_backend = backend
+            evaluator = StatementEvaluator(
+                model_backend,
+                evaluation_model=model,
+                judge_backend=judge_backend_lazy() if include_llm_judge else None,
+                llm_judge_model=llm_judge_model,
+                # A path-based embedder is backend-independent: one instance.
+                embedder=embedder if embedding_path else get_embedder(None, model_backend),
+            )
+            evaluator.evaluate_results_file(
+                str(run_dir / "results.csv"),
+                config=config,
+                include_llm_judge=include_llm_judge,
+            )
+            logger.info("Evaluated with %s", sanitize_model_name(model))
+            if own_backend:
+                # Free this model's weights before the next phase loads its own.
+                del evaluator, model_backend
+                _free_device_memory()
 
     # ---- Phase 3: aggregation (improved, basic fallback) --------------
     logger.info("=== Phase 3: aggregation ===")

@@ -10,10 +10,12 @@ with the same backend and backend options share one resident backend, so
 the model's weights load once per sweep.  Every backend runs on the card
 unless ``--device`` names another device.
 
-``--timing-pin-budget``, ``--profile-dir``, ``--resume`` and
-``--metrics-out`` select the JAX package's timing cells, device traces,
-journal and metrics aggregate, which are not ported yet: they raise
-``NotImplementedError`` (ROADMAP.md, queue A6).
+``--timing-pin-budget`` pins every generation to its full token budget
+(``pin_budget`` in every run config, ``pin_generation_budget`` on the
+resident backends), ``--profile-dir`` writes a ``torch.profiler`` trace per
+cell and per evaluation phase, ``--resume`` resumes each cell from its
+newest journaled run dir, and ``--metrics-out`` writes the merge of every
+cell's ``metrics.json`` delta (``write_sweep_metrics``).
 
 Usage: ``python -m consensus_tpu_torch.cli.run_sweep --configs-root configs/appendix
 [--model llama] [--scenario 1 2] [--method beam_search]``
@@ -32,21 +34,13 @@ from typing import Dict, List, Optional
 
 import yaml
 
-from consensus_tpu_torch.backends import get_backend
+from consensus_tpu_torch.backends import RESIDENT, get_backend
 from consensus_tpu_torch.cli.run_experiment import configure_logging
 from consensus_tpu_torch.cli.run_experiment_with_eval import run_pipeline
 
 logger = logging.getLogger(__name__)
 
 _SCENARIO_RE = re.compile(r"scenario_(\d+)")
-
-#: Sweep flags of the JAX CLI whose features wait for queue A6.
-_NOT_PORTED_FLAGS = {
-    "timing_pin_budget": "timing cells",
-    "profile_dir": "tracing",
-    "resume": "the journal and resume",
-    "metrics_out": "obs metrics",
-}
 
 
 def find_config_files(
@@ -86,27 +80,48 @@ def main(argv: Optional[List[str]] = None) -> int:
         "the error, 'fail' aborts the cell",
     )
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
-    parser.add_argument("--timing-pin-budget", action="store_true", help="not ported (A6)")
-    parser.add_argument("--profile-dir", default=None, help="not ported (A6)")
-    parser.add_argument("--resume", action="store_true", help="not ported (A6)")
-    parser.add_argument("--metrics-out", default=None, help="not ported (A6)")
+    parser.add_argument(
+        "--timing-pin-budget", action="store_true",
+        help="timing mode: pin every generation to its full token budget "
+        "(no EOS/terminator early exit) so random-weight timings measure "
+        "the full-budget workload; never use for quality runs",
+    )
+    parser.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace (CPU and CUDA activity) per cell "
+        "and per evaluation phase under this directory",
+    )
+    parser.add_argument(
+        "--metrics-out", default=None,
+        help="write a sweep-level metrics aggregate (merge of every cell's "
+        "metrics.json delta) to this path",
+    )
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="resume each cell from its newest journaled run dir: rows "
+        "already in journal.jsonl are reused, only missing (method, "
+        "config, seed) combos execute",
+    )
     parser.add_argument("--quiet", action="store_true")
     args = parser.parse_args(argv)
 
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP.md, queue A: A6, {item})"
-            )
     configure_logging(args.quiet)
     configs = find_config_files(args.configs_root, args.model, args.scenario, args.method)
     if not configs:
         logger.error("No configs matched under %s", args.configs_root)
         return 1
 
-    overrides = {"on_error": args.on_error} if args.on_error else None
+    overrides = {}
+    if args.timing_pin_budget:
+        overrides["timing_pin_budget"] = True
+    if args.profile_dir:
+        overrides["profile_dir"] = args.profile_dir
+    if args.resume:
+        overrides["resume"] = True
+    if args.on_error:
+        overrides["on_error"] = args.on_error
     backends: Dict[str, object] = {}
+    cell_dirs: List[pathlib.Path] = []
     logger.info("Running %d configs", len(configs))
     failures = 0
     for i, path in enumerate(configs, 1):
@@ -116,17 +131,21 @@ def main(argv: Optional[List[str]] = None) -> int:
             config = yaml.safe_load(path.read_text())
             name = config.get("backend", "torch")
             options = dict(config.get("backend_options") or {})
-            if args.device is not None:
-                options["device"] = args.device
+            if name in RESIDENT:
+                if args.device is not None:
+                    options["device"] = args.device
+                if args.timing_pin_budget:
+                    options["pin_generation_budget"] = True
             key = json.dumps([name, options], sort_keys=True, default=str)
             if key not in backends:
                 backends[key] = get_backend(name, **options)
             run_dir = run_pipeline(
                 str(path),
                 skip_comparative_ranking=args.skip_comparative_ranking,
-                config_overrides=overrides,
+                config_overrides=overrides or None,
                 backend=backends[key],
             )
+            cell_dirs.append(pathlib.Path(run_dir))
             logger.info(
                 "[%d/%d] done in %.1fs -> %s",
                 i, len(configs), time.perf_counter() - start, run_dir,
@@ -134,7 +153,46 @@ def main(argv: Optional[List[str]] = None) -> int:
         except Exception:
             logger.exception("[%d/%d] FAILED: %s", i, len(configs), path)
             failures += 1
+    if args.metrics_out:
+        write_sweep_metrics(cell_dirs, pathlib.Path(args.metrics_out))
     return 1 if failures else 0
+
+
+def write_sweep_metrics(cell_dirs: List[pathlib.Path], out_path: pathlib.Path) -> Optional[dict]:
+    """Aggregate every cell's metrics.json DELTA into one sweep snapshot.
+
+    Cell deltas are exact per-cell windows of the process-global registry
+    (``experiment.py`` records after - before), so summing them reconstructs
+    the sweep total without double-counting; plus the sweep's derived
+    padding efficiency / padded-shape count and a per-cell span-tree index
+    (schema ``consensus_tpu.metrics.sweep.v1``, the JAX package's)."""
+    from consensus_tpu_torch.obs import bucket_recompiles, merge_snapshots, padding_efficiency
+    from consensus_tpu_torch.utils.io_atomic import atomic_write_json
+
+    cells = []
+    for run_dir in cell_dirs:
+        path = run_dir / "metrics.json"
+        if not path.exists():
+            logger.warning("no metrics.json under %s; skipping", run_dir)
+            continue
+        cells.append((run_dir.name, json.loads(path.read_text())))
+    if not cells:
+        logger.warning("no cell metrics found; not writing %s", out_path)
+        return None
+    merged = merge_snapshots([payload["metrics"] for _, payload in cells])
+    aggregate = {
+        "schema": "consensus_tpu.metrics.sweep.v1",
+        "cells": [name for name, _ in cells],
+        "metrics": merged,
+        "derived": {
+            "padding_efficiency": padding_efficiency(merged),
+            "bucket_recompiles": bucket_recompiles(merged),
+        },
+        "spans_by_cell": {name: payload.get("spans", []) for name, payload in cells},
+    }
+    atomic_write_json(out_path, aggregate)
+    logger.info("Sweep metrics aggregate -> %s", out_path)
+    return aggregate
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ figures are in PERF.md.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -56,17 +57,28 @@ class LaunchCounter:
     the token-search path and reads it after.  ``shapes`` maps each (q,
     trunk, tail) shape launched to ``[launches, (starts, qpos, write_col)
     of its latest launch]``, so a benchmark can time the kernel at the
-    shapes and spans the path gave it."""
+    shapes and spans the path gave it.  Thread-safe: an experiment's worker
+    threads launch kernels at once."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
-        self.count = 0
-        self.shapes: Dict[tuple, list] = {}
+        with self._lock:
+            self.count = 0
+            self.shapes: Dict[tuple, list] = {}
+
+    def add(self, shape: tuple, args: tuple) -> None:
+        with self._lock:
+            self.count += 1
+            entry = self.shapes.setdefault(shape, [0, None])
+            entry[0] += 1
+            entry[1] = args
 
 
 launches = LaunchCounter()
+_SIGNATURE_LOCK = threading.Lock()
 
 
 def _masks(starts, qpos, write_col, w0, ts, window, device):
@@ -214,24 +226,25 @@ def decode_attention(
         load_library("decode_attention"), q, trunk_k, trunk_v, tail_k, tail_v,
         starts, qpos, write_col, out, n_slots, n_roles, scale, softcap, window,
     )
-    launches.count += 1
-    entry = launches.shapes.setdefault(
-        (tuple(q.shape), tuple(trunk_k.shape), tuple(tail_k.shape)), [0, None]
+    launches.add(
+        (tuple(q.shape), tuple(trunk_k.shape), tuple(tail_k.shape)), (starts, qpos, write_col)
     )
-    entry[0] += 1
-    entry[1] = (starts, qpos, write_col)
     return out
 
 
 def _kernel_call(lib: ctypes.CDLL):
+    """The kernel's entry point with its C signature declared (``restype``
+    before ``argtypes``, under a lock, as ``flash_attention._kernel_call``)."""
     fn = lib.consensus_decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 11
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+        with _SIGNATURE_LOCK:
+            if fn.argtypes is None:
+                fn.restype = ctypes.c_int
+                fn.argtypes = (
+                    [ctypes.c_void_p] * 10
+                    + [ctypes.c_int] * 11
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                )
     return fn
 
 

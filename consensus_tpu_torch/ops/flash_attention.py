@@ -34,6 +34,7 @@ computes the bound from each run's lengths; the figures are in PERF.md.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -47,18 +48,28 @@ class LaunchCounter:
     the main path and reads it after.  ``last_shapes`` holds the (q, k)
     shapes of the latest launch and ``last_spans`` its (lengths, starts)
     tensors, so a benchmark can time the kernel at the shapes and spans the
-    main path gave it."""
+    main path gave it.  Thread-safe: an experiment's worker threads launch
+    kernels at once."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
-        self.count = 0
-        self.last_shapes: Optional[tuple] = None
-        self.last_spans: Optional[tuple] = None
+        with self._lock:
+            self.count = 0
+            self.last_shapes: Optional[tuple] = None
+            self.last_spans: Optional[tuple] = None
+
+    def add(self, shapes: tuple, spans: tuple) -> None:
+        with self._lock:
+            self.count += 1
+            self.last_shapes = shapes
+            self.last_spans = spans
 
 
 launches = LaunchCounter()
+_SIGNATURE_LOCK = threading.Lock()
 
 
 def _span_mask(lengths: torch.Tensor, starts: torch.Tensor, seq: int) -> torch.Tensor:
@@ -107,16 +118,21 @@ def flash_attention_reference(
 
 
 def _kernel_call(lib: ctypes.CDLL):
+    """The kernel's entry point with its C signature declared.  ``restype``
+    is set before ``argtypes``, under a lock: a thread that sees
+    ``argtypes`` set sees the whole signature."""
     fn = lib.consensus_flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+        with _SIGNATURE_LOCK:
+            if fn.argtypes is None:
+                fn.restype = ctypes.c_int
+                fn.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p,
+                ]
     return fn
 
 
@@ -188,9 +204,7 @@ def flash_attention(
         load_library("flash_attention"), q, k, v, out, lengths, starts,
         scale, softcap, window, causal,
     )
-    launches.count += 1
-    launches.last_shapes = (tuple(q.shape), tuple(k.shape))
-    launches.last_spans = (lengths, starts)
+    launches.add((tuple(q.shape), tuple(k.shape)), (lengths, starts))
     return out
 
 

@@ -224,8 +224,9 @@ def test_get_backend_tpu_is_the_resident_backend():
     spec = {"name": "tpu", "model": MODEL, "device": "cpu", "dtype": "float32"}
     assert isinstance(get_backend(spec), TorchBackend)
     assert get_backend(backend) is backend
-    with pytest.raises(NotImplementedError, match="A6"):
-        get_backend("fake")
+    assert type(get_backend("fake")).__name__ == "FakeBackend"
+    with pytest.raises(NotImplementedError, match="API judge"):
+        get_backend("openai")
     with pytest.raises(ValueError, match="resident"):
         get_backend("nope")
 
@@ -233,7 +234,7 @@ def test_get_backend_tpu_is_the_resident_backend():
 @pytest.mark.parametrize(
     "option, value",
     [("tp", 2), ("dp", 2), ("mesh", "dp=1,tp=2"), ("checkpoint", "weights/"),
-     ("pin_generation_budget", True), ("quantize_frozen_kv", True)],
+     ("quantize_frozen_kv", True)],
 )
 def test_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -248,6 +249,8 @@ def test_unported_mesh_and_default_device():
             TorchBackend(model=MODEL)
 
 
-def test_experiment_refuses_unported_keys(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment({"concurrent_execution": True, "output_dir": str(tmp_path)}, device="cpu")
+@pytest.mark.parametrize("key, item", [("engine", "A8"), ("fault_plan", "faults"),
+                                       ("supervisor", "supervisor")])
+def test_experiment_refuses_unported_keys(tmp_path, key, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        Experiment({key: True, "output_dir": str(tmp_path)}, backend=get_backend("fake"))

@@ -197,18 +197,32 @@ def test_post_hoc_statements_text_mode(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize(
     "flag", [["--timing-pin-budget"], ["--profile-dir", "p"], ["--resume"], ["--metrics-out", "m"]]
 )
-def test_unported_sweep_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_sweep.main(["--configs-root", str(tmp_path), "--device", "cpu", *flag])
+def test_unported_sweep_flags_raise(flag, tmp_path, monkeypatch):
+    """The four flags are ported: on a tree with no configs each is accepted
+    and the sweep reports that nothing matched (exit 1), writing nothing."""
+    monkeypatch.chdir(tmp_path)
+    assert run_sweep.main(["--configs-root", str(tmp_path), "--device", "cpu", "--quiet", *flag]) == 1
+    assert not (tmp_path / "m").exists() and not (tmp_path / "p").exists()
 
 
 def test_fake_backend_raises(tmp_path):
-    run = tmp_path / "run"
-    run.mkdir()
-    (run / "config.yaml").write_text(yaml.safe_dump({"backend": "tpu"}))
-    with pytest.raises(NotImplementedError, match="A6"):
-        post_hoc_evaluate.main(["--results-dir", str(run), "--backend", "fake", "--quiet"])
-    assert run_sweep.main(["--configs-root", str(tmp_path), "--device", "cpu", "--quiet"]) == 1
+    """``--backend fake`` re-scores a run dir with the hardware-free fake
+    backend, whatever backend the run's config names."""
+    from consensus_tpu_torch.experiment import Experiment
+
+    config = yaml.safe_load(open(f"{ROOT}/configs/examples/fake_smoke.yaml").read())
+    config.update(num_seeds=1, methods_to_run=["zero_shot", "predefined"],
+                  output_dir=str(tmp_path), backend="fake")
+    experiment = Experiment(config)
+    experiment.run()
+    run = experiment.run_dir
+    (run / "config.yaml").write_text(yaml.safe_dump(dict(config, backend="tpu")))
+    assert post_hoc_evaluate.main(["--results-dir", str(run), "--backend", "fake",
+                                   "--evaluation-models", "fake-lm", "--quiet"]) == 0
+    frame = pd.read_csv(run / "evaluation" / "fake-lm" / "seed_0" / "evaluation_results.csv")
+    assert list(frame["method"]) == ["zero_shot", "predefined"]
+    assert run_sweep.main(["--configs-root", str(tmp_path / "none"), "--device", "cpu",
+                           "--quiet"]) == 1
 
 
 NORTH_STAR_MCTS = f"{ROOT}/configs/north_star/gemma/scenario_1/mcts.yaml"
