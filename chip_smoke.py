@@ -75,7 +75,7 @@ line each; any failure exits non-zero:
    scenario 1's agents) runs propose and 3 advances through the fused
    session and then through the fallback: logprobs within 0.1, top ids
    equal where the top-two margin exceeds 0.1.  Then beam_search (width 4)
-   and finite_lookahead (branching 2, depth 2) through ``Experiment``, 8
+   and finite_lookahead (branching 2, depth 2) through ``Experiment``, 6
    tokens each, every session a ``PrefixTokenSearchSession``.
 13. ``sweep_path`` -- ``configs/appendix/llama/scenario_1/beam_search.yaml``
    unedited (``backend: tpu``, beam widths 2/4/6/8, 50 tokens, brushup) as
@@ -116,6 +116,25 @@ line each; any failure exits non-zero:
    waiter's slice; concurrent rows equal the sequential ones or differ
    first at a draw of margin under 0.1; ``metrics.json``, ``journal.jsonl``
    and a resume that executes nothing; K1 and K2 launched in the windows.
+16. ``serve_path`` -- the serving entry point on llama3-8b (the token-search
+   config's backend options, ``use_flash_attention`` and
+   ``use_decode_attention``, budgets pinned): (a) ``python -m
+   consensus_tpu_torch.serve --backend torch`` as a subprocess, four
+   concurrent ``POST /v1/consensus`` (best_of_n n=4 150 tokens; the same
+   with per-call scoring, which reaches K1; beam_search width 2, 16 tokens,
+   which reaches K2; zero_shot; each evaluated), ``/healthz``, SIGTERM:
+   every response 200,
+   drained, exit 0, K1 and K2 launched (read from the server's
+   ``kernel_launches_total`` in ``/metrics``); (b) in process,
+   ``create_server`` over one backend with the same weights, the requests
+   cut to SERVE_CUT_TOKENS, unevaluated, four ways (engine cohorts, ``--no-engine``
+   flush, K=1 and K=4 decode streams): tokens equal or first differing at a
+   draw of margin under 0.1, statements equal or so explained, and one
+   cohort through ``generate_stream`` at K=1 and K=4 exactly equal; (c) the
+   cut requests without beam search under a fault plan (a transient error
+   on the first generate, a NaN in the first score call) and
+   ``supervise``: the retry gives the fault-free tokens, exactly one request
+   fails, its siblings are equal, the breaker ends closed.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -588,6 +607,11 @@ def decode_cases():
                     1024, 256, [0], wc, seed=30 + i)
         for i, wc in enumerate((0, 128, 255))
     ]
+    # serve_path's classic decode of a 9-row engine or flush cohort: one slot
+    # over 16 roles (rows bucketed to 16), each role a 1024-column prompt
+    # trunk, 64-column tails (48 pinned tokens bucketed).
+    rows.append(decode_case("llama3-8b classic decode, 9-row serving cohort (P=1, R=16)", 1, 16,
+                            32, 8, 128, 1024, 64, [0] * 8 + [300] + [0] * 7, 38, seed=34))
     # gemma2-2b MCTS trunk advances (mcts_path): one slot over 5 roles (the
     # north_star scenario 1: reference + 4 agents), 8 q / 4 kv heads (2 q
     # rows per group), hd 256, softcap 50, window 4096, 8-column tails.
@@ -1860,7 +1884,7 @@ SESSION_ATOL = 0.1
 #: (the last max_context tokens of prompt + sequence) see the same context.
 SESSION_PROMPT_TOKENS = 960
 SESSION_STEPS = 3
-FALLBACK_TOKENS = 8
+FALLBACK_TOKENS = 6
 
 
 def _session_rows_diff(fused_rows, fallback_rows, tokenizer):
@@ -2672,8 +2696,11 @@ def _draw_margin(backend, request, ids, step):
     from consensus_tpu_torch.models.transformer import forward
     from consensus_tpu_torch.utils import threefry
 
+    # The prompt is cut to max_context as generation cuts it; the generated
+    # tokens follow it at positions max_context and on (cutting prompt and
+    # tokens together would drop prompt tokens the draw attended).
     prompt = backend.tokenizer.encode(backend._render_prompt(request), add_bos=True)
-    seq = (prompt + list(ids[:step]))[-backend.max_context:]
+    seq = prompt[-backend.max_context:] + list(ids[:step])
     device = backend.device
     tokens = torch.tensor([seq], dtype=torch.int32, device=device)
     positions = torch.arange(len(seq), dtype=torch.int32, device=device)[None]
@@ -3125,12 +3152,367 @@ def concurrent_path(backend):
     return row, launches, shapes
 
 
+SERVE_CONFIG = TOKEN_SEARCH_CONFIG
+#: serve_path's requests: (method, params, seed).  The second reaches K1
+#: through per-call scoring; beam search reaches K2 through its fused
+#: session; best-of-N's drafts and zero_shot decode through the engine.
+SERVE_REQUESTS = (
+    ("best_of_n", {"n": 4, "max_tokens": 150}, 7),
+    ("best_of_n", {"n": 4, "max_tokens": 150, "matrix_scoring": False}, 7),
+    ("beam_search", {"beam_width": 2, "max_tokens": 16}, 5),
+    ("zero_shot", {"max_tokens": 50}, 42),
+)
+#: Depth cut of (b) and (c) for the time limit: max_tokens per method, and
+#: no evaluation ((a) evaluates every response).
+SERVE_CUT_TOKENS = {"best_of_n": 48, "beam_search": 8, "zero_shot": 32}
+#: (c): one transient error on the first generate call, one NaN in row 0
+#: of the first score call, under ``supervise``.
+SERVE_FAULT_PLAN = {"seed": 3, "faults": [
+    {"kind": "transient_error", "op": "generate", "call_index": 0},
+    {"kind": "nan_logprobs", "op": "score", "call_index": 0, "row_index": 0},
+]}
+SERVE_DEVICE = "cuda"
+SERVE_STARTUP_S = 600.0
+SERVE_REQUEST_S = 900.0
+
+
+def _serve_payloads(scenario, cut=False, methods=None):
+    out = []
+    for i, (method, params, seed) in enumerate(SERVE_REQUESTS):
+        if methods is not None and method not in methods:
+            continue
+        params = dict(params)
+        if cut:
+            params["max_tokens"] = SERVE_CUT_TOKENS[method]
+        out.append({"issue": scenario["issue"], "agent_opinions": scenario["agent_opinions"],
+                    "method": method, "params": params, "seed": seed, "evaluate": not cut,
+                    "request_id": f"serve-{i}-{method}", "timeout_s": SERVE_REQUEST_S})
+    return out
+
+
+def _http(url, payload=None, timeout=SERVE_REQUEST_S):
+    """(status, body text, seconds) of one GET (or POST of ``payload``)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    request = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=timeout) as response:
+            status, body = response.status, response.read().decode()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read().decode()
+    return status, body, time.perf_counter() - t0
+
+
+def _post_all(base, payloads):
+    """POST every payload at once -> ([(status, body dict, seconds)], wall s)."""
+    out = [None] * len(payloads)
+
+    def post(i):
+        status, body, seconds = _http(base + "/v1/consensus", payloads[i])
+        out[i] = (status, json.loads(body), seconds)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+def _launches_from_metrics(base):
+    """K1 / K2 launch counts from a server's ``kernel_launches_total``."""
+    _, text, _ = _http(base + "/metrics")
+    counts = {k: 0 for k in KERNELS}
+    for line in text.splitlines():
+        for kernel in KERNELS:
+            if line.startswith(f'kernel_launches_total{{kernel="{kernel}"}}'):
+                counts[kernel] = int(float(line.split()[-1]))
+    return counts
+
+
+def _latency_stats(results, wall):
+    latencies = sorted(seconds for _, _, seconds in results)
+    return {"statuses": [status for status, _, _ in results], "wall_s": wall,
+            "latency_p50_s": latencies[(len(latencies) - 1) // 2],
+            "latency_max_s": latencies[-1], "statements_per_s": len(results) / wall}
+
+
+def _engine_block(health):
+    engine = health.get("engine") or {}
+    keys = ("slots", "slot_occupancy_mean", "iterations", "kv_pages", "kv_page_size",
+            "kv_pages_high_water", "decode_steps", "decode_windows", "decoded_tokens",
+            "tokens_per_dispatch_mean")
+    return {k: engine.get(k) for k in keys}
+
+
+def _serve_subprocess(options, payloads, device):
+    """(a): ``python -m consensus_tpu_torch.serve --backend torch`` as a
+    subprocess; startup JSON, the payloads at once, /healthz, SIGTERM."""
+    import os
+    import select
+    import signal
+
+    cmd = [sys.executable, "-m", "consensus_tpu_torch.serve", "--backend", "torch",
+           "--backend-options", json.dumps(options), "--port", "0", "--max-inflight", "4",
+           "--default-timeout-s", str(SERVE_REQUEST_S), "--log-level", "WARNING",
+           "--blackbox", str(OUT_DIR / "serve_blackbox.json")]
+    if device != "cuda":
+        cmd += ["--device", device]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"command": cmd[2:4] + cmd[4:6]}
+    t0 = time.perf_counter()
+    with open(OUT_DIR / "serve_stderr.log", "w") as stderr:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=stderr, text=True,
+                                env=env)
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], SERVE_STARTUP_S)
+            line = proc.stdout.readline() if ready else ""
+            if not line:
+                out["error"] = f"no startup line (exit {proc.poll()})"
+                return out
+            startup = json.loads(line)
+            base = startup["serving"]
+            out["startup_s"] = time.perf_counter() - t0
+            out["startup"] = {k: startup.get(k) for k in ("backend", "engine", "max_inflight")}
+            before = _launches_from_metrics(base)
+            results, wall = _post_all(base, payloads)
+            after = _launches_from_metrics(base)
+            _, health, _ = _http(base + "/healthz")
+            health = json.loads(health)
+            out.update(_latency_stats(results, wall))
+            out["launches"] = {k: after[k] - before[k] for k in KERNELS}
+            out["healthz"] = {"status": health.get("status"), "engine": _engine_block(health),
+                              "device_batches": health.get("device_batches")}
+            out["statements"] = [body.get("statement") for _, body, _ in results]
+            out["errors"] = [body.get("error") for _, body, _ in results if "error" in body]
+            t_stop = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            out["exit_code"] = proc.wait(timeout=300)
+            out["drain_s"] = time.perf_counter() - t_stop
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _drain_stream(stream):
+    results = {}
+    while not stream.finished:
+        stream.dispatch()
+        results.update(stream.collect()[1])
+    stream.close()
+    return [results[i].token_ids for i in range(len(results))]
+
+
+def serve_path(params=None):
+    """The serving entry point on llama3-8b (the token-search config's
+    backend options, with ``use_flash_attention`` and
+    ``use_decode_attention``) -> (row, launches, decode shapes).  (a)
+    ``python -m consensus_tpu_torch.serve --backend torch`` as a
+    subprocess: SERVE_REQUESTS at once, /healthz, SIGTERM drain, launches
+    read from its ``/metrics``; (b) in process, ``create_server`` over one
+    backend instance (``params``: the same seeded weights), the cut
+    requests four ways: engine with blocking cohorts, ``--no-engine``
+    flush, engine with K=1 and K=4 decode streams; then one recorded cohort
+    through ``generate_stream`` at K=1 and K=4 directly; (c) the cut
+    requests without beam search under SERVE_FAULT_PLAN and ``supervise``."""
+    import torch
+    import yaml
+
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.methods.prompts import clean_statement
+    from consensus_tpu_torch.obs.metrics import Registry
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+    from consensus_tpu_torch.serve import create_server
+
+    config = yaml.safe_load((ROOT / SERVE_CONFIG).read_text())
+    # The timing mode's backend half: every generation runs its full budget
+    # (random weights draw EOS early), so decode rates are the workload's.
+    options = dict(config["backend_options"], pin_generation_budget=True)
+    scenario = config["scenario"]
+    on_card = SERVE_DEVICE == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) the CLI in a subprocess, at the full request depth.
+    cli = _serve_subprocess(options, _serve_payloads(scenario), SERVE_DEVICE)
+
+    # (b) in process over one backend instance.
+    started = time.perf_counter()
+    backend = TorchBackend(**options, params=params, device=SERVE_DEVICE)
+    sync()
+    init_s = time.perf_counter() - started
+    generated = {}  # mode -> request key -> [(request, token ids)]
+    texts = {}  # mode -> every generated text, cleaned as best-of-N cleans it
+    mode = {"name": ""}
+
+    def record(requests, results):
+        table = generated.setdefault(mode["name"], {})
+        for request, result in zip(requests, results):
+            table.setdefault(_request_key(request), []).append((request, tuple(result.token_ids)))
+            texts.setdefault(mode["name"], set()).add(clean_statement(result.text))
+
+    dense_generate, open_stream = backend.generate, backend.generate_stream
+
+    def generate(requests):
+        results = dense_generate(requests)
+        record(requests, results)
+        return results
+
+    def generate_stream(requests, decode_steps=1, speculative=False):
+        stream = open_stream(requests, decode_steps=decode_steps, speculative=speculative)
+        collect = stream.collect
+
+        def collect_and_record():
+            row_tokens, finished = collect()
+            rows = sorted(finished)
+            record([requests[i] for i in rows], [finished[i] for i in rows])
+            return row_tokens, finished
+        stream.collect = collect_and_record
+        return stream
+
+    backend.generate, backend.generate_stream = generate, generate_stream
+    windows = {}
+    shapes = {}
+    responses = {}
+
+    def window(name, payloads, **server_options):
+        mode["name"] = name
+        registry = Registry()
+        server = create_server(backend=backend, port=0, registry=registry, max_inflight=4,
+                               default_timeout_s=SERVE_REQUEST_S, **server_options).start()
+        fa.launches.reset()
+        da.launches.reset()
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            results, wall = _post_all(server.base_url, payloads)
+            sync()
+            _, health, _ = _http(server.base_url + "/healthz")
+            health = json.loads(health)
+        finally:
+            server.stop()
+        info = _latency_stats(results, wall)
+        info["launches"] = {"flash_attention": fa.launches.count,
+                            "decode_attention": da.launches.count}
+        for key, (count, args) in da.launches.shapes.items():
+            shapes[key] = (shapes.get(key, (0, None))[0] + count, args)
+        engine = _engine_block(health)
+        info["engine"] = engine
+        if engine.get("decoded_tokens"):
+            info["decode_tokens_per_s"] = engine["decoded_tokens"] / wall
+        info["breaker"] = (health.get("circuit_breaker") or {}).get("state")
+        info["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        families = registry.snapshot()["families"]
+        info["faults_injected"] = sum(
+            s["value"] for s in families.get("faults_injected_total", {}).get("series", []))
+        info["supervisor_retries"] = sum(
+            s["value"] for s in families.get("supervisor_retries_total", {}).get("series", []))
+        windows[name] = info
+        responses[name] = [body for _, body, _ in results]
+
+    cut = _serve_payloads(scenario, cut=True)
+    try:
+        window("b_engine", cut)
+        window("b_flush", cut, engine=False)
+        window("b_stream_k1", cut, engine_options={"decode_steps": 1})
+        window("b_stream_k4", cut, engine_options={"decode_steps": 4})
+        # The same cohort straight through generate_stream at K=1 and K=4.
+        cohort = [entries[0][0] for entries in generated["b_engine"].values()]
+        mode["name"] = "direct"
+        k_family = {k: _drain_stream(open_stream(cohort, decode_steps=k)) for k in (1, 4)}
+        # (c) faults under supervise (no beam search: the fault wrapper
+        # hides fused sessions, whose fallback is far slower).
+        fault_payloads = _serve_payloads(scenario, cut=True, methods=("best_of_n", "zero_shot"))
+        window("c_faults", fault_payloads, fault_plan=SERVE_FAULT_PLAN,
+               supervise={"backoff_s": 0.05})
+    finally:
+        backend.generate, backend.generate_stream = dense_generate, open_stream
+
+    # Each mode against the engine's blocking cohorts: generate tokens equal
+    # or first differing at a draw of margin under DRAW_MARGIN; a statement
+    # equal, or explained: by such a divergence, or (best-of-N picking
+    # another of the same candidates on a welfare near-tie of per-call
+    # scores batched differently) by being one of the engine run's texts.
+    ref = {body.get("request_id"): body.get("statement") for body in responses["b_engine"]}
+    compares, statements = {}, {}
+    for name in ("b_flush", "b_stream_k1", "b_stream_k4", "c_faults"):
+        compare = _compare_generations(backend, generated.get(name, {}), generated["b_engine"])
+        compare["all_diverged_ok"] = all(d["ok"] for d in compare["diverged"])
+        compares[name] = compare
+        statements[name] = [{
+            "request_id": body.get("request_id"), "failed": "error" in body,
+            "equal": body.get("statement") == ref.get(body.get("request_id")),
+            "an_engine_candidate": body.get("statement") in texts.get("b_engine", ()),
+        } for body in responses[name]]
+    del backend
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def statements_ok(name):
+        diverged = bool(compares[name]["diverged"]) and compares[name]["all_diverged_ok"]
+        return all(r["equal"] or diverged or r["an_engine_candidate"]
+                   for r in statements[name] if not r["failed"])
+
+    faults = windows["c_faults"]
+    failed = [r for r in statements["c_faults"] if r["failed"]]
+    checks = {
+        "a_served_every_request": cli.get("statuses") == [200] * len(SERVE_REQUESTS),
+        "a_drained_and_exited_0": cli.get("exit_code") == 0,
+        "a_launched_flash_attention": cli.get("launches", {}).get("flash_attention", 0) > 0,
+        "a_launched_decode_attention": cli.get("launches", {}).get("decode_attention", 0) > 0,
+        "a_engine_served": (cli.get("healthz", {}).get("engine", {}).get("decode_windows") or 0) > 0,
+        "b_served_every_request": all(
+            windows[n]["statuses"] == [200] * len(cut)
+            for n in ("b_engine", "b_flush", "b_stream_k1", "b_stream_k4")),
+        "b_streams_ran": all(windows[f"b_stream_k{k}"]["engine"]["decode_steps"] == k
+                             and windows[f"b_stream_k{k}"]["engine"]["decode_windows"] > 0
+                             for k in (1, 4)),
+        "b_tokens_equal_or_diverge_below_margin": all(
+            compares[n]["all_diverged_ok"] and not compares[n]["only_one_mode"]
+            for n in ("b_flush", "b_stream_k1", "b_stream_k4")),
+        "b_statements_equal_or_explained": all(
+            statements_ok(n) for n in ("b_flush", "b_stream_k1", "b_stream_k4")),
+        "b_stream_k1_equals_k4": k_family[1] == k_family[4],
+        "c_transient_retried": faults["supervisor_retries"] >= 1,
+        "c_faults_injected": faults["faults_injected"] == 2,
+        "c_exactly_one_request_failed": len(failed) == 1,
+        "c_siblings_equal_or_explained": statements_ok("c_faults")
+        and compares["c_faults"]["all_diverged_ok"],
+        "c_breaker_closed": faults["breaker"] == "closed",
+    }
+    row = {
+        "phase": "serve_path", "model": options["model"], "config": SERVE_CONFIG,
+        "requests": [[m, p, s] for m, p, s in SERVE_REQUESTS], "cut_tokens": SERVE_CUT_TOKENS,
+        "a_cli": cli, "b_init_s": init_s, "windows": windows,
+        "generation_compare": {n: {k: (v if k != "diverged" else v[:12]) for k, v in c.items()}
+                               for n, c in compares.items()},
+        "statements": statements,
+        "k_family_cohort_rows": len(cohort),
+        "checks": checks, "ok": all(checks.values()),
+    }
+    launches = {k: cli.get("launches", {}).get(k, 0)
+                + sum(w["launches"][k] for w in windows.values()) for k in KERNELS}
+    return row, launches, shapes
+
+
 def late_phases_alone(names) -> int:
-    """``python3 chip_smoke.py sweep_path mcts_path concurrent_path`` (any
-    of them): those phases alone, for iterating on them; concurrent_path
-    runs on mcts_path's backend.  Prints their lines, no summary and no
-    ``ok`` line; exits 1 if a phase failed."""
-    unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path"}
+    """``python3 chip_smoke.py sweep_path mcts_path concurrent_path
+    serve_path`` (any of them): those phases alone, for iterating on them;
+    concurrent_path runs on mcts_path's backend.  Prints their lines, no
+    summary and no ``ok`` line; exits 1 if a phase failed."""
+    unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     rows = []
@@ -3141,6 +3523,13 @@ def late_phases_alone(names) -> int:
         rows.append(mcts[0])
         if "concurrent_path" in names:
             rows.append(concurrent_path(mcts[4])[0])
+    if "serve_path" in names:
+        from consensus_tpu_torch.ops import build
+
+        # Built here, once: the server subprocess and this process load it.
+        for name in KERNELS:
+            build.build(name)
+        rows.append(serve_path()[0])
     for row in rows:
         emit(row)
     return 0 if all(row["ok"] for row in rows) else 1
@@ -3231,7 +3620,6 @@ def main() -> int:
     if next_token_case is None:
         fail("the fallback session path launched no flash-attention kernel in next_token_topk")
     sweep_row, sweep_launches, sweep_shapes = sweep_path(params)
-    del params
     emit(sweep_row)
     mcts_row, mcts_launches, mcts_shapes, mcts_case, backend = mcts_path()
     emit(mcts_row)
@@ -3241,6 +3629,10 @@ def main() -> int:
     del backend
     torch.cuda.empty_cache()
     emit(concurrent_row)
+    serve_row, serve_launches, serve_shapes = serve_path(params)
+    del params
+    torch.cuda.empty_cache()
+    emit(serve_row)
 
     paths = {
         "main_path": launches, "token_search_path": search_launches,
@@ -3248,6 +3640,7 @@ def main() -> int:
         "shared_trunk_decode_path": generate_launches, "habermas_eval_path": habermas_launches,
         "fallback_session_path": fallback_launches, "sweep_path": sweep_launches,
         "mcts_path": mcts_launches, "concurrent_path": concurrent_launches,
+        "serve_path": serve_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
@@ -3263,7 +3656,8 @@ def main() -> int:
     flash_entry["next_token_topk"] = {key: next_token_case[key] for key in case_keys}
     flash_entry["gemma2_2b_evaluation"] = {key: mcts_case[key] for key in case_keys}
     decode_shapes = dict(search_shapes)
-    for more in (generate_shapes, fallback_shapes, sweep_shapes, mcts_shapes, concurrent_shapes):
+    for more in (generate_shapes, fallback_shapes, sweep_shapes, mcts_shapes, concurrent_shapes,
+                 serve_shapes):
         for key, (count, args) in more.items():
             decode_shapes[key] = (decode_shapes.get(key, (0, None))[0] + count, args)
     decode_entry, decode_ok = summary_decode(
@@ -3275,7 +3669,8 @@ def main() -> int:
     emit({"kernels": [flash_entry, decode_entry]})
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
-              greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row]
+              greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
+              serve_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

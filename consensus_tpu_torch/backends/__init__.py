@@ -12,13 +12,24 @@ unchanged.  The default stays ``torch``: the port's entry points run on the
 card unless told otherwise (the JAX package defaults to ``fake``).  The HTTP
 backends ``api`` and ``openai`` (the API judge) raise
 ``NotImplementedError`` naming their queue item.
+
+``wrap_backend`` layers the fault-tolerance stack over a resolved backend:
+``supervisor(faults(backend))``.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-from consensus_tpu_torch.backends.base import Backend
+from consensus_tpu_torch.backends.base import (  # noqa: F401
+    Backend,
+    BackendError,
+    BackendIntegrityError,
+    BackendLostError,
+    PartialBatchError,
+    RequestCancelled,
+    TransientBackendError,
+)
 
 #: Names of the resident on-device backend: the backend that takes model
 #: options, a device and ``pin_generation_budget``.
@@ -55,4 +66,36 @@ def get_backend(name: Any = "torch", **options) -> Backend:
     return TorchBackend(**options)
 
 
-__all__ = ["RESIDENT", "Backend", "get_backend"]
+def wrap_backend(
+    backend: Backend,
+    fault_plan=None,
+    supervise=None,
+    registry=None,
+) -> Backend:
+    """Layer the fault-tolerance wrappers onto a resolved backend.
+
+    Order matters: faults are injected BELOW supervision so the supervisor
+    has to handle them — ``supervisor(faults(engine))`` is the chaos-test
+    stack.
+
+    ``fault_plan``: a :class:`~consensus_tpu_torch.backends.faults.FaultPlan`,
+    dict, or JSON string; ``supervise``: ``True`` for defaults or a dict of
+    :class:`~consensus_tpu_torch.backends.supervisor.SupervisedBackend` kwargs.
+    A fault plan without explicit ``supervise=False`` implies supervision —
+    injecting faults nothing handles just breaks the run.
+    """
+    if fault_plan is not None:
+        from consensus_tpu_torch.backends.faults import FaultInjectingBackend
+
+        backend = FaultInjectingBackend(backend, fault_plan, registry=registry)
+        if supervise is None:
+            supervise = True
+    if supervise:
+        from consensus_tpu_torch.backends.supervisor import SupervisedBackend
+
+        options = dict(supervise) if isinstance(supervise, dict) else {}
+        backend = SupervisedBackend(backend, registry=registry, **options)
+    return backend
+
+
+__all__ = ["RESIDENT", "Backend", "get_backend", "wrap_backend"]

@@ -2,7 +2,7 @@
 
 A copy of the protocol and the request/result dataclasses of
 ``consensus_tpu/backends/base.py`` (the port imports nothing of the JAX
-package); the supervision layer's error taxonomy waits for its port.
+package), with the typed error taxonomy the supervision layer raises.
 
 The reference funnels every model interaction through a module-global HTTP
 client (``src/utils.py:69-74``) with four call shapes: chat/raw text
@@ -30,6 +30,63 @@ import numpy as np
 #: Logit bias value used to effectively ban tokens (reference src/utils.py:86,
 #: beam_search.py:56 use -1_000_000 through the API's logit_bias map).
 BAN_BIAS = -1.0e6
+
+
+# -- error taxonomy ----------------------------------------------------------
+#
+# Raw backends raise whatever their transport raises (RuntimeError from the
+# device runtime, TimeoutError/OSError from sockets).  The supervision layer
+# (backends/supervisor.py) classifies those into this typed hierarchy so
+# every caller above the backend seam — batching, the experiment harness,
+# the serving scheduler — can decide retry-vs-fail-vs-isolate by type
+# instead of by string matching.
+
+
+class BackendError(Exception):
+    """Base of the typed backend failure taxonomy."""
+
+
+class TransientBackendError(BackendError):
+    """A retryable failure (flaky dispatch, timeout, dropped connection):
+    the same call MAY succeed if reissued.  Raised by the supervisor after
+    its own bounded retry budget is exhausted — seeing this type means
+    retrying already happened below you."""
+
+
+class BackendIntegrityError(BackendError):
+    """The backend returned, but the payload is poisoned (NaN/Inf logprobs,
+    a deterministically-failing row).  Never retryable: the same input
+    produces the same poison."""
+
+
+class BackendLostError(BackendError):
+    """The device/backend is gone for good (or fenced off by an open
+    circuit breaker).  Not retryable within this process."""
+
+
+class RequestCancelled(BackendError):
+    """The caller abandoned this request before its batch dispatched
+    (serving ticket cancelled / deadline passed), so the batching layer
+    dropped it at the flush snapshot instead of spending device time on it.
+    Not a backend failure and never retryable: the work was withdrawn, not
+    lost.  Deliberately NOT in the scheduler's TRANSIENT_EXCEPTIONS — a
+    cancelled request must not be resurrected by the retry loop."""
+
+
+class PartialBatchError(BackendError):
+    """Some rows of a batched call failed and the rest succeeded.
+
+    ``results`` is the full-length result list (or array) with valid
+    entries at surviving indices; ``row_errors`` maps failing row index →
+    the typed error for that row.  ``BatchingBackend`` unpacks this so one
+    poisoned row fails only the session that submitted it; direct callers
+    can either treat it as a whole-call failure or pick out ``results``.
+    """
+
+    def __init__(self, message: str, results, row_errors):
+        super().__init__(message)
+        self.results = results
+        self.row_errors = dict(row_errors)
 
 
 @dataclasses.dataclass(frozen=True)

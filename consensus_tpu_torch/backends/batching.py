@@ -1,5 +1,5 @@
 """Cross-run device batching (PyTorch port of
-``consensus_tpu/backends/batching.py``, its flush-snapshot path).
+``consensus_tpu/backends/batching.py``).
 
 The reference hides HTTP latency by fanning (method x param x seed) combos
 across a ``ThreadPoolExecutor``.  On the device the model is the
@@ -35,11 +35,19 @@ batch can flip a greedy pick or a sampled near-tie
 (``TorchBackend.deterministic_greedy`` is False there).  On the CPU in
 float32, merged batches give the sequential statements.
 
-The JAX package's continuous-batching decode engine (``engine=True``, its
-constructor default) waits for the serving port (ROADMAP.md, queue A8) and
-raises here; this constructor defaults to ``engine=False``.  ``Experiment``
-passes ``engine=False`` in both packages, so the flush-snapshot path is the
-one experiments run.
+With ``engine=True`` (the constructor default, as in the JAX package)
+every protocol call routes into the continuous-batching decode engine
+(``backends/engine.py``) and the flush-snapshot path is unreachable; fused
+sessions still take turns and are tracked on the engine's pressure surface
+(``DecodeEngine.track_session``).  ``Experiment`` passes
+``engine=bool(config.get("engine", False))`` in both packages, so the
+flush-snapshot path is the one experiments run by default; the serving
+scheduler runs the engine.
+
+A session's cancellation probe (``session(cancelled=...)``) drops its
+queued calls at the flush snapshot with :class:`RequestCancelled`; a
+:class:`PartialBatchError` from the inner backend (the supervisor's poison
+isolation) is distributed row by row, so one bad row fails one waiter.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ from consensus_tpu_torch.backends.base import (
     GenerationRequest,
     GenerationResult,
     NextTokenRequest,
+    PartialBatchError,
+    RequestCancelled,
     ScoreRequest,
     ScoreResult,
     TokenCandidate,
@@ -69,9 +79,12 @@ from consensus_tpu_torch.obs.metrics import (
 
 
 class _Pending:
-    __slots__ = ("requests", "result", "error", "done", "enqueued", "in_flight")
+    __slots__ = (
+        "requests", "result", "error", "done", "enqueued", "in_flight",
+        "cancelled",
+    )
 
-    def __init__(self, requests):
+    def __init__(self, requests, cancelled=None):
         self.requests = requests
         self.result = None
         self.error = None
@@ -81,6 +94,14 @@ class _Pending:
         #: waiter then parks on the kind's DISPATCH condition, which is only
         #: notified when the entry's own batch completes (or aborts).
         self.in_flight = False
+        #: Session-scoped cancellation probe (the serving ticket's
+        #: ``cancelled`` flag), or None.  Consulted ONCE, at the flush
+        #: snapshot: a cancelled entry is dropped from the merged batch and
+        #: failed with :class:`RequestCancelled` before any device time is
+        #: spent on it.  Once an entry is in flight it always completes —
+        #: device programs are not preemptible, and co-batched siblings'
+        #: slices must stay bit-identical.
+        self.cancelled = cancelled
 
 
 class _DeviceTurns:
@@ -146,7 +167,14 @@ class _TurnTakingSession:
 
 
 class BatchingBackend:
-    """Merge concurrent sessions' backend calls into shared device batches."""
+    """Merge concurrent sessions' backend calls into shared device batches.
+
+    ``engine_options`` passes through to the decode engine verbatim —
+    notably ``{"decode_steps": K}`` turns on multi-token decode: the engine
+    dispatches K-step on-device decode windows per cohort
+    (``inner.generate_stream``) instead of one blocking ``generate`` call,
+    overlapping host admission/prefill with device decode.
+    """
 
     name = "batching"
 
@@ -156,13 +184,21 @@ class BatchingBackend:
         flush_ms: float = 10.0,
         expected_sessions: int = 1,
         registry: Optional[Registry] = None,
-        engine: bool = False,
+        engine: bool = True,
+        engine_options: Optional[Dict[str, Any]] = None,
+        prefix_cache: bool = False,
+        mesh: Optional[Any] = None,
     ):
-        if engine:
+        if mesh is not None:
             raise NotImplementedError(
-                "BatchingBackend(engine=True), the continuous-batching decode "
-                "engine, is not ported yet (ROADMAP.md, queue A8)"
+                "BatchingBackend(mesh=...), the decode engine's data-parallel "
+                "shards, is not ported yet (ROADMAP.md, queue A9)"
             )
+        #: Convenience flag: ``prefix_cache=True`` folds into the engine
+        #: options (engine mode only — the flush-snapshot path has no page
+        #: pool to cache into).  An explicit ``engine_options`` key wins.
+        if prefix_cache:
+            engine_options = {"prefix_cache": True, **dict(engine_options or {})}
         self.inner = inner
         self.flush_s = flush_ms / 1000.0
         # obs: queue-wait (enqueue -> dispatch), batch-fill (sessions merged
@@ -200,8 +236,23 @@ class BatchingBackend:
             "wakeup per other kind's dispatch.",
             labels=("kind",),
         )
-        #: The JAX engine's dedup family: identical score rows merged into
-        #: one flush are computed once.
+        self._row_errors = reg.counter(
+            "batching_row_errors_total",
+            "Rows of a merged device batch that failed with a typed "
+            "per-row error while sibling rows succeeded (PartialBatchError "
+            "unpacking; poison-row isolation).",
+            labels=("kind",),
+        )
+        self._cancelled_requests = reg.counter(
+            "batching_cancelled_requests_total",
+            "Queued calls dropped at the flush snapshot because their "
+            "session's cancellation probe fired before dispatch (failed "
+            "with RequestCancelled; no device time spent).",
+            labels=("kind",),
+        )
+        #: Shares the engine's dedup family: identical score rows merged
+        #: into one flush are computed once regardless of which dispatch
+        #: loop (engine iteration or flush-snapshot) runs them.
         self._score_dedup = reg.counter(
             "engine_score_dedup_total",
             "Duplicate score rows removed from merged dispatches — "
@@ -246,6 +297,29 @@ class BatchingBackend:
             "generate": 0, "score": 0, "next_token": 0, "embed": 0,
             "score_matrix": 0,
         }
+        #: Per-thread session cancellation probe (set by ``session()``).
+        self._tls = threading.local()
+        #: Continuous-batching engine (backends/engine.py): when enabled,
+        #: every protocol call routes straight into the engine's iteration
+        #: loop and the whole flush-snapshot path above is UNREACHABLE —
+        #: no quiescence windows, so ``flush_reason="timeout"`` can never
+        #: be emitted and ``batching_spurious_wakeups_total`` stays pinned
+        #: at 0.  ``engine=False`` is the explicit opt-out for the
+        #: flush-snapshot path.
+        self.engine = None
+        if engine:
+            from consensus_tpu_torch.backends.engine import DecodeEngine
+
+            self.engine = DecodeEngine(
+                inner,
+                registry=reg,
+                cancelled_counter=self._cancelled_requests,
+                **dict(engine_options or {}),
+            )
+            # Serve stats read ``batch_counts`` for device-batch totals;
+            # alias it to the engine's dispatch counters so the surface
+            # keeps one meaning across both paths.
+            self.batch_counts = self.engine.dispatch_counts
 
     @property
     def deterministic_greedy(self) -> bool:
@@ -277,11 +351,20 @@ class BatchingBackend:
             )
         # Opening may wait for another session to close: not on a turn.
         self._device.give_up()
-        return _TurnTakingSession(maker(spec), self._device)
+        session = _TurnTakingSession(maker(spec), self._device)
+        if self.engine is not None:
+            # Fused sessions dispatch their own programs, but their slot
+            # footprint still counts as engine pressure (/healthz).  The
+            # engine wraps ``close``, which still takes and gives up the
+            # turn through the wrapper.
+            session = self.engine.track_session(session, spec)
+        return session
 
     def close(self) -> None:
-        """Nothing to stop: the flush-snapshot path holds no threads of its
-        own (the JAX engine path stops its iteration loop here)."""
+        """Stop the decode engine's iteration loop (no-op on the
+        flush-snapshot path, which holds no threads of its own)."""
+        if self.engine is not None:
+            self.engine.close()
 
     def _notify(self, kinds) -> None:
         """Wake the given kinds' waiters.  Caller holds ``_lock`` (every
@@ -290,8 +373,17 @@ class BatchingBackend:
             self._conds[kind].notify_all()
 
     @contextlib.contextmanager
-    def session(self):
-        """Register the calling thread as an active run for flush accounting."""
+    def session(self, cancelled: Optional[Callable[[], bool]] = None):
+        """Register the calling thread as an active run for flush accounting.
+
+        ``cancelled`` (optional) is a zero-arg probe — typically the serving
+        ticket's cancellation flag — attached to every call this thread
+        enqueues while the session is open.  Queued calls whose probe fires
+        are dropped at the next flush snapshot with
+        :class:`RequestCancelled` instead of riding the merged device batch;
+        calls already in flight complete normally (their co-batched
+        siblings' results must not change)."""
+        self._tls.cancelled = cancelled
         with self._lock:
             self._active += 1
             self._started += 1
@@ -300,6 +392,7 @@ class BatchingBackend:
         finally:
             # A run that left a fused session open must not keep the device.
             self._device.give_up()
+            self._tls.cancelled = None
             with self._lock:
                 self._active -= 1
                 # A departing session may complete the "all blocked"
@@ -371,9 +464,16 @@ class BatchingBackend:
         if not requests:
             return fn(requests)
         # A session's thread that queues a call hands the device on: the
-        # flush that serves the call needs it.
+        # flush (or engine iteration) that serves the call needs it, and the
+        # engine's loop may wait on the session budget.
         self._device.give_up()
-        entry = _Pending(requests)
+        probe = getattr(self._tls, "cancelled", None)
+        if self.engine is not None:
+            # Engine path: the iteration loop replaces both flush triggers
+            # (all-blocked snapshot AND the quiescence timeout), so none of
+            # the flush-reason/window accounting below runs.
+            return self.engine.submit(kind, requests, probe=probe)
+        entry = _Pending(requests, cancelled=probe)
         cond = self._conds[kind]
         with cond:
             self._queues[kind].append(entry)
@@ -436,17 +536,46 @@ class BatchingBackend:
         waiters)."""
         self._flushing = True
         snapshot: Dict[str, List[_Pending]] = {k: [] for k in self._queues}
+        dropped_kinds = set()
         released = False
         try:
             for k in kinds:
-                snapshot[k], self._queues[k] = self._queues[k], []
-                for entry in snapshot[k]:
-                    entry.in_flight = True
+                queue = self._queues[k]
+                self._queues[k] = []
+                live: List[_Pending] = []
+                for entry in queue:
+                    # Cancellation seam: consult the session's probe exactly
+                    # once, here, before the entry joins the merged batch.
+                    # Dropping pre-dispatch keeps sibling slices unchanged
+                    # and spends zero device time on abandoned work.  A
+                    # broken probe must not abort the whole flush — treat it
+                    # as not cancelled.
+                    probe = entry.cancelled
+                    try:
+                        is_cancelled = probe is not None and probe()
+                    except Exception:
+                        is_cancelled = False
+                    if is_cancelled:
+                        entry.error = RequestCancelled(
+                            f"session cancelled before its {k} call "
+                            "dispatched"
+                        )
+                        entry.done = True
+                        self._cancelled_requests.labels(k).inc()
+                        dropped_kinds.add(k)
+                    else:
+                        entry.in_flight = True
+                        live.append(entry)
+                snapshot[k] = live
             # Snapshotted kinds' waiters may be sitting in TIMED queue-cond
             # waits; wake them (still under the lock) so they re-park on the
             # dispatch condition — otherwise they'd miss their completion
             # wakeup and sleep out the rest of their quiescence window.
-            self._notify(k for k in kinds if snapshot[k])
+            # Kinds that only had entries DROPPED also wake: those waiters'
+            # entries are done (RequestCancelled) and must return now.
+            self._notify(
+                k for k in kinds if snapshot[k] or k in dropped_kinds
+            )
             self._lock.release()
             released = True
             self._run_batches(snapshot, reason)
@@ -536,6 +665,18 @@ class BatchingBackend:
                         entry.result = list(results[cursor : cursor + n])
                     cursor += n
                     entry.done = True
+            except PartialBatchError as exc:
+                # Typed per-row propagation (supervisor poison isolation):
+                # a waiter whose rows all survived gets its slice; a waiter
+                # owning a failed row gets that row's typed error — one bad
+                # row fails one session's call, not the whole device batch.
+                if mapping is not None:
+                    from consensus_tpu_torch.backends.score_matrix import (
+                        expand_partial_error,
+                    )
+
+                    exc = expand_partial_error(exc, mapping)
+                self._distribute_partial(kind, queue, exc)
             except Exception as exc:  # fail every waiter in this batch
                 for entry in queue:
                     entry.error = exc
@@ -554,3 +695,40 @@ class BatchingBackend:
             cond = self._dispatch_conds[kind]
             with cond:
                 cond.notify_all()
+
+    def _distribute_partial(
+        self, kind: str, queue: List[_Pending], exc: PartialBatchError
+    ) -> None:
+        """Slice a PartialBatchError back onto its waiters.
+
+        Entries with only surviving rows get their result slice (the same
+        as a clean batch's: per-request keys).  Entries owning failed rows
+        get the typed row error — the single-row error itself when the
+        whole slice failed, or a per-entry PartialBatchError when the entry
+        mixes good and bad rows."""
+        cursor = 0
+        for entry in queue:
+            n = len(entry.requests)
+            slice_errors = {
+                i - cursor: err
+                for i, err in exc.row_errors.items()
+                if cursor <= i < cursor + n
+            }
+            if not slice_errors:
+                if kind == "embed":
+                    entry.result = np.asarray(exc.results[cursor : cursor + n])
+                else:
+                    entry.result = list(exc.results[cursor : cursor + n])
+            else:
+                self._row_errors.labels(kind).inc(len(slice_errors))
+                if len(slice_errors) == n:
+                    entry.error = next(iter(slice_errors.values()))
+                else:
+                    entry.error = PartialBatchError(
+                        f"{len(slice_errors)}/{n} rows of this session's "
+                        f"{kind} call failed inside a merged device batch",
+                        results=list(exc.results[cursor : cursor + n]),
+                        row_errors=slice_errors,
+                    )
+            cursor += n
+            entry.done = True

@@ -17,8 +17,9 @@ testable end-to-end:
 * prompts asking for the ``<answer>/<sep>`` statement envelope get a
   well-formed envelope wrapping pseudo-text.
 
-The JAX version's ``generate_stream`` (the decode engine's multi-token
-seam) waits for the engine's port.
+``generate_stream`` is the decode engine's multi-token seam, windowed
+release of the ``generate`` results (the speculative windows wait for
+queue A8 and raise).
 """
 
 from __future__ import annotations
@@ -209,6 +210,25 @@ class FakeBackend:
             )
         return results
 
+    def generate_stream(
+        self,
+        requests: Sequence[GenerationRequest],
+        decode_steps: int = 1,
+        speculative: bool = False,
+    ) -> "_FakeGenerateStream":
+        """Multi-token decode seam (engine ``decode_steps``): same bytes as
+        ``generate`` — the full results are computed up front here, and each
+        ``dispatch``/``collect`` window releases up to ``decode_steps``
+        pseudo-tokens per unfinished row, so the engine's stream scheduling
+        (windowed retirement, tokens-per-dispatch accounting) is exercised
+        without a device in the loop."""
+        if speculative:
+            raise NotImplementedError(
+                "generate_stream(speculative=True), the speculative decode "
+                "windows, is not ported yet (ROADMAP.md, queue A8)"
+            )
+        return _FakeGenerateStream(list(self.generate(requests)), self._tokenize, decode_steps)
+
     # -- scoring ------------------------------------------------------------
 
     def _tokenize(self, text: str) -> List[str]:
@@ -294,3 +314,50 @@ class FakeBackend:
         )
         norms = np.linalg.norm(vectors, axis=1, keepdims=True)
         return vectors / np.maximum(norms, 1e-12)
+
+
+class _FakeGenerateStream:
+    """Windowed release of precomputed generate results.
+
+    Mirrors ``TorchBackend``'s ``_PagedGenerateStream`` surface so the
+    engine's multi-token scheduling is testable on the fake backend:
+    ``dispatch()`` enqueues one K-step window, ``collect()`` returns
+    ``(row_tokens, finished)`` where ``row_tokens[i]`` is the number of
+    pseudo-tokens row i emitted in that window and ``finished`` maps row
+    index -> GenerationResult for rows that completed inside it.
+    """
+
+    def __init__(self, results, tokenize, decode_steps: int):
+        self._results = results
+        self._token_rows = [tokenize(r.text) for r in results]
+        self._cursors = [0] * len(results)
+        self._done = [False] * len(results)
+        self._decode_steps = max(1, int(decode_steps))
+        self._pending = False
+
+    @property
+    def finished(self) -> bool:
+        return all(self._done)
+
+    def dispatch(self) -> None:
+        self._pending = True
+
+    def collect(self):
+        if not self._pending:
+            raise RuntimeError("collect() without a dispatched window")
+        self._pending = False
+        row_tokens = [0] * len(self._results)
+        finished = {}
+        for i, toks in enumerate(self._token_rows):
+            if self._done[i]:
+                continue
+            step = min(self._decode_steps, len(toks) - self._cursors[i])
+            self._cursors[i] += step
+            row_tokens[i] = step
+            if self._cursors[i] >= len(toks):
+                self._done[i] = True
+                finished[i] = self._results[i]
+        return row_tokens, finished
+
+    def close(self) -> None:
+        self._pending = False

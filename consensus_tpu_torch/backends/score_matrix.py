@@ -10,7 +10,7 @@ is the fused path and falls back here per matrix; best-of-N and the
 evaluator's ``stat="moments"`` utilities both come through this seam.
 Every matrix is recorded into the obs registry (``record_matrix``: cells,
 D2H bytes, agents per call).  The welfare telemetry sink of the JAX
-version waits for the serving port.
+version waits for ``obs/welfare.py`` (ROADMAP.md, queue A8).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from consensus_tpu_torch.backends.base import ScoreRequest, ScoreResult
+from consensus_tpu_torch.backends.base import PartialBatchError, ScoreRequest, ScoreResult
 from consensus_tpu_torch.ops.welfare import (
     DEFAULT_REWARD,
     WELFARE_RULES,
@@ -177,6 +177,26 @@ def dedup_score_requests(
 
 def expand_deduped(values: Sequence, mapping: Sequence[int]) -> List:
     return [values[j] for j in mapping]
+
+
+def expand_partial_error(
+    error: PartialBatchError, mapping: Sequence[int]
+) -> PartialBatchError:
+    """Re-shape a PartialBatchError over unique rows back to caller rows:
+    every caller row sharing a failed unique row fails the same way."""
+    results = (
+        expand_deduped(error.results, mapping)
+        if error.results is not None
+        else None
+    )
+    row_errors = {
+        i: error.row_errors[j]
+        for i, j in enumerate(mapping)
+        if j in error.row_errors
+    }
+    return PartialBatchError(
+        str(error) or "partial batch failure", results, row_errors
+    )
 
 
 # ---------------------------------------------------------------------------

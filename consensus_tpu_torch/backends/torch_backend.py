@@ -35,6 +35,11 @@ config) and runs each protocol call as padded device batches:
   speculative; its step attends through the hand-written decode kernel when
   ``use_decode_attention`` is set (the rollouts take the einsum route, as
   the reference's do).
+* ``generate_stream`` -- the decode engine's multi-token seam
+  (``tpu.py:619-643, 1797-2138``): a cohort prefilled into a private page
+  pool and decoded in K-step windows of ``stepper.paged_decode_steps``
+  (plain ``paged_attention``, as in the reference); ``suggest_kv_page_pool``
+  sizes the engine's page pool from the session budget.
 
 ``pin_generation_budget`` is the reference's timing mode (every generation
 to its full budget: no EOS stop, no stop strings).  Every call records into
@@ -100,6 +105,7 @@ from consensus_tpu_torch.models.transformer import (
     forward,
     init_params,
     params_dtype,
+    project_logits,
     shared_context_cont_logprobs,
     shared_context_prefill,
     token_logprobs,
@@ -322,6 +328,20 @@ class TorchBackend:
         """Content-key identity for cross-request prefix KV reuse: model,
         KV mode (``tpu.py:423-436``) and tensor-parallel width (1 here)."""
         return (self.model_name, "int8" if self.kv_quant else "dense", ("tp", 1))
+
+    def suggest_kv_page_pool(self, page_size: int = 16) -> int:
+        """Size the decode engine's KV page pool from the session budget
+        (``tpu.py:438-459``): half the budget goes to pages (the rest stays
+        for fused search sessions); one page holds ``page_size`` tokens of
+        per-layer K+V, at 1.25 bytes an element under ``kv_quant`` (int8
+        plus its per-token scale).  The count includes the prefix cache's
+        share, which the engine's LRU budget bounds."""
+        c = self.config
+        kv_itemsize = (
+            1.25 if self.kv_quant else torch.finfo(params_dtype(self.params)).bits // 8
+        )
+        bytes_per_token = int(2 * c.n_layers * c.n_kv_heads * c.head_dim * kv_itemsize) or 1
+        return max(64, (self._session_budget.cap // 2) // (bytes_per_token * page_size))
 
     def _sliced(self, requests, fn, limit: Optional[int] = None):
         limit = limit or self.max_batch_rows
@@ -549,6 +569,28 @@ class TorchBackend:
             for i, result in zip(classic, sub):
                 results[i] = result
         return results  # type: ignore[return-value]
+
+    def generate_stream(
+        self,
+        requests: Sequence[GenerationRequest],
+        decode_steps: int = 1,
+        speculative: bool = False,
+    ) -> "_PagedGenerateStream":
+        """Multi-token decode stream, the engine's ``decode_steps`` seam
+        (``tpu.py:619-643``): the cohort is prefilled into a private page
+        pool and then served in K-step windows of
+        ``stepper.paged_decode_steps``.  ``dispatch()`` launches one window
+        and returns without a host sync (CUDA launches are asynchronous, so
+        the engine's host phases overlap the device), ``collect()`` fetches
+        the window and finalises the rows that froze inside it with
+        ``_finish_generation``'s semantics.  Sampling replays the sequential
+        per-row key splits, so the tokens do not depend on K."""
+        if speculative:
+            raise _not_ported(
+                "generate_stream(speculative=True), the speculative decode "
+                "windows (paged_verify_steps)", "A8",
+            )
+        return _PagedGenerateStream(self, list(requests), decode_steps)
 
     def _prep_generation_rows(self, requests: Sequence[GenerationRequest], allowed: int):
         """Row bucketing + per-row sampling state shared by the classic and
@@ -1266,6 +1308,230 @@ class TorchBackend:
         return out
 
 
+#: Page size and prefill chunk of a generate stream's private page pool
+#: (``tpu.py:1784-1787``).
+_STREAM_PAGE_SIZE = 16
+_STREAM_PREFILL_CHUNK = 64
+
+
+class _PagedGenerateStream:
+    """One generate cohort served as K-step decode windows
+    (``tpu.py:1797-2138``, without the speculative windows).
+
+    Construction prefills every prompt into a PRIVATE page pool (contiguous
+    block tables, fixed-width chunks) and projects the first sampling
+    logits.  Then the engine's stream protocol:
+
+    - ``dispatch()`` launches ONE ``paged_decode_steps`` window and returns
+      without reading anything back: the window's tensors stay on the
+      device until ``collect()``.
+    - ``collect()`` fetches the window's tokens / emitted / done / hit_eos,
+      extends per-row ids, and returns ``(per_row_token_counts, {row:
+      GenerationResult})`` for rows that froze inside the window, finalised
+      with ``_finish_generation``'s semantics (max_tokens truncation, stop
+      strings, token accounting).
+    - ``finished`` / ``close()`` manage drain and teardown.
+
+    Sampling state (keys, budgets, bias, penalties) comes from the same
+    ``_prep_generation_rows`` the dense paths use, and the window replays
+    the sequential key-split schedule, so the tokens match the dense paths
+    for any ``decode_steps``, up to paged-vs-dense forward numerics."""
+
+    def __init__(self, backend: TorchBackend, requests: List[GenerationRequest], decode_steps: int):
+        be = self.backend = backend
+        self.requests = requests
+        self.decode_steps = max(1, int(decode_steps))
+        self._pending = None
+        self._closed = False
+        self._finished_rows: set = set()
+        self._results: Dict[int, GenerationResult] = {}
+
+        be._tally(be.call_counts, "generate", len(requests))
+        tok = be.tokenizer
+        prompt_ids = [
+            tok.encode(be._render_prompt(r), add_bos=True)[-be.max_context:] for r in requests
+        ]
+        (target, pad_rows, temperatures, bias_table, bias_index, keys,
+         eos_ids, rep_penalty) = be._prep_generation_rows(
+            requests, allowed=_bucket(len(requests), minimum=8)
+        )
+        self._n_rows = len(requests)
+        self._ids: List[List[int]] = [[] for _ in requests]
+
+        # Contiguous block tables over a bucketed private pool: each row
+        # reserves ceil((prompt + max_tokens) / page) pages up front, so
+        # every page a window's cursor can reach exists before the first
+        # window; the eos-check token lands in the sink.
+        ps = _STREAM_PAGE_SIZE
+        pages_per = [
+            -(-(len(ids) + r.max_tokens) // ps) for ids, r in zip(prompt_ids, requests)
+        ] + [1] * pad_rows
+        max_blocks = _bucket(max(pages_per), minimum=8)
+        num_pages = min(_width_bucket(sum(pages_per), minimum=16), target * max_blocks)
+        tables = np.full((target, max_blocks), -1, np.int32)
+        off = 0
+        for row, n in enumerate(pages_per):
+            tables[row, :n] = np.arange(off, off + n)
+            off += n
+        be.instruments.record_launch(
+            "generate_stream", (target, num_pages, max_blocks, self.decode_steps)
+        )
+        state = stepper.make_page_state(
+            be.config, num_pages, ps, dtype=params_dtype(be.params), device=be.device
+        )
+        sink = num_pages
+        tables_t = be._to_device(tables)
+
+        # Fixed-width chunked prefill; each row's final-prompt hidden is
+        # taken from the chunk that holds its last prompt token.
+        chunk = _STREAM_PREFILL_CHUNK
+        maxlen = max(len(ids) for ids in prompt_ids)
+        lengths = np.zeros(target, np.int32)
+        final_hidden = None
+        with torch.inference_mode():
+            for start in range(0, maxlen, chunk):
+                ctok = np.zeros((target, chunk), np.int32)
+                cval = np.zeros((target, chunk), bool)
+                wp = np.full((target, chunk), sink, np.int32)
+                wo = np.zeros((target, chunk), np.int32)
+                is_last = np.zeros(target, bool)
+                for row, ids in enumerate(prompt_ids):
+                    piece = ids[start : start + chunk]
+                    if not piece:
+                        continue
+                    ctok[row, : len(piece)] = piece
+                    cval[row, : len(piece)] = True
+                    pos = start + np.arange(len(piece))
+                    wp[row, : len(piece)] = tables[row, pos // ps]
+                    wo[row, : len(piece)] = pos % ps
+                    lengths[row] = start + len(piece)
+                    is_last[row] = start + len(piece) >= len(ids)
+                hid, state = stepper.paged_prefill_chunk(
+                    be.params, be.config, be._to_device(ctok), be._to_device(cval), state,
+                    tables_t, be._to_device(lengths.copy()), be._to_device(wp), be._to_device(wo),
+                )
+                mask = be._to_device(is_last)[:, None]
+                final_hidden = hid if final_hidden is None else torch.where(mask, hid, final_hidden)
+            self._logits = project_logits(be.params, be.config, final_hidden.to(torch.float32))
+        be.instruments.record_padding(
+            "generate_trunk", target, -(-maxlen // chunk) * chunk,
+            int(sum(len(ids) for ids in prompt_ids)),
+        )
+        self._state = state
+        self._tables = tables_t
+        self._lengths = be._to_device(lengths)
+        self._keys = keys
+        # Bucket-pad rows start done with budget 0: they sample pad ids into
+        # the sink and never show up in collect().
+        row_pad = np.zeros(target, bool)
+        row_pad[len(requests):] = True
+        self._done = be._to_device(row_pad)
+        self._budgets = be._to_device(
+            np.asarray([r.max_tokens for r in requests] + [0] * pad_rows, np.int32)
+        )
+        self._hit_eos = torch.zeros(target, dtype=torch.bool, device=be.device)
+        self._temperatures = temperatures
+        #: Whether any row samples, known on the host: a greedy window
+        #: splits no keys and needs no host read of the temperatures.
+        self._sampling = any(r.temperature > 0 for r in requests)
+        self._eos_ids = eos_ids
+        self._bias_table = bias_table
+        self._bias_index = bias_index
+        self._rep_penalty = rep_penalty
+        self._presence = None
+        if rep_penalty is not None:
+            width = max(maxlen, 1)
+            ptok = np.full((target, width), tok.pad_id, np.int32)
+            pval = np.zeros((target, width), bool)
+            for row, ids in enumerate(prompt_ids):
+                ptok[row, width - len(ids):] = ids
+                pval[row, width - len(ids):] = True
+            self._presence = gen._prompt_presence(
+                be._to_device(ptok), be._to_device(pval), be.config.vocab_size
+            )
+
+    @property
+    def finished(self) -> bool:
+        return self._closed or len(self._finished_rows) >= self._n_rows
+
+    def dispatch(self) -> None:
+        """Launch one K-step window; nothing is read back until ``collect()``."""
+        if self._closed or self._pending is not None or self.finished:
+            return
+        be = self.backend
+        with torch.inference_mode():
+            (tokens, emitted, self._logits, self._state, self._lengths, self._keys,
+             self._done, self._budgets, self._hit_eos, self._presence) = stepper.paged_decode_steps(
+                be.params, be.config, self._logits, self._state, self._tables,
+                self._lengths, self._keys, self._done, self._budgets, self._hit_eos,
+                temperature=self._temperatures, eos_ids=self._eos_ids,
+                num_steps=self.decode_steps, bias_table=self._bias_table,
+                bias_index=self._bias_index, pad_id=be.tokenizer.pad_id,
+                presence=self._presence, rep_penalty=self._rep_penalty,
+                sampling=self._sampling,
+            )
+        self._pending = (tokens, emitted, self._done, self._hit_eos)
+
+    def collect(self) -> Tuple[List[int], Dict[int, GenerationResult]]:
+        """Wait for the pending window; return (per-row emitted counts,
+        {row: result}) for the rows that froze inside it."""
+        if self._pending is None:
+            raise RuntimeError("collect() before dispatch()")
+        tokens, emitted, done, hit = self.backend._fetch(*self._pending)
+        self._pending = None
+        row_tokens = [0] * self._n_rows
+        newly_finished: Dict[int, GenerationResult] = {}
+        for row in range(self._n_rows):
+            if row in self._finished_rows:
+                continue
+            ids = [int(t) for t, e in zip(tokens[row], emitted[row]) if e]
+            self._ids[row].extend(ids)
+            row_tokens[row] = len(ids)
+            if bool(done[row]):
+                self._finished_rows.add(row)
+                result = self._finish_row(row, bool(hit[row]))
+                self._results[row] = result
+                newly_finished[row] = result
+        if self.finished:
+            self.backend.instruments.record_padding(
+                "generate_decode", self._n_rows,
+                max((r.max_tokens for r in self.requests), default=0),
+                sum(len(ids) for ids in self._ids),
+            )
+        return row_tokens, newly_finished
+
+    def _finish_row(self, row: int, hit_eos: bool) -> GenerationResult:
+        """One row of ``_finish_generation``: the same truncation,
+        stop-string, finish-reason and token-accounting semantics."""
+        be = self.backend
+        request = self.requests[row]
+        emitted = len(self._ids[row])
+        ids = self._ids[row][: request.max_tokens]
+        text = be.tokenizer.decode(ids)
+        finish = "stop" if (hit_eos and emitted <= request.max_tokens) else "length"
+        truncated = False
+        for stop in () if be.pin_generation_budget else request.stop:
+            idx = text.find(stop)
+            if idx >= 0:
+                text = text[:idx]
+                finish = "stop"
+                truncated = True
+        if truncated:
+            ids = be.tokenizer.encode(text)
+        be._tally(be.token_counts, "generated", len(ids))
+        return GenerationResult(text=text, token_ids=tuple(ids), finish_reason=finish)
+
+    def results(self) -> List[GenerationResult]:
+        """All results in request order (valid once ``finished``)."""
+        return [self._results[row] for row in range(self._n_rows)]
+
+    def close(self) -> None:
+        self._closed = True
+        self._pending = None
+        self._state = None
+        self._logits = None
+
+
 def _embed_forward(params, config: ModelConfig, tokens, valid) -> torch.Tensor:
     """Masked mean-pool of final hidden states -> (B, D) float32
     (``tpu.py:1769-1778``)."""
@@ -1352,14 +1618,25 @@ class TorchTokenSearchSession:
         self._eos_ids = tuple(tok.eos_ids)
         #: Speculative rollout verification (``backends/speculative.py`` +
         #: ``stepper.rollout_verify_many``): an n-gram self-draft proposer
-        #: seeded from the reference prompt and every trunk advance.  The
-        #: reference's ``spec_draft_*_tokens_total`` obs counters wait for
-        #: the obs port (ROADMAP queue A6); the session keeps plain counts.
+        #: seeded from the reference prompt and every trunk advance; counted
+        #: in ``draft_tokens`` and the reference's
+        #: ``spec_draft_{proposed,verified}_tokens_total`` families.
         self._proposer = None
         self.draft_tokens = {"proposed": 0, "verified": 0, "verify_dispatches": 0}
         if spec.speculative:
             self._proposer = NGramProposer()
             self._proposer.observe(token_lists[0])
+            reg = backend.instruments.registry
+            self._obs_spec_proposed = reg.counter(
+                "spec_draft_proposed_tokens_total",
+                "Draft tokens proposed for speculative rollout verification",
+                ("backend",),
+            ).labels(backend.name)
+            self._obs_spec_verified = reg.counter(
+                "spec_draft_verified_tokens_total",
+                "Draft tokens accepted by the parallel verify pass",
+                ("backend",),
+            ).labels(backend.name)
             #: Trunk token ids (reference prompt + advances): the drafting
             #: context every rollout continues from.
             self._trunk_ids = list(token_lists[0])
@@ -1562,6 +1839,7 @@ class TorchTokenSearchSession:
                         accepted = [int(r[0]) for r in emitted[i]]
                         fresh = self._proposer.draft(contexts[i] + accepted, depth - len(accepted))
                         self.draft_tokens["proposed"] += len(fresh)
+                        self._obs_spec_proposed.inc(len(fresh))
                         drafts[i] = accepted + fresh
                     tokens, salt_arr = self._path_arrays(
                         [suffixes[i] for i in active], span, [salts[i] for i in active]
@@ -1589,6 +1867,7 @@ class TorchTokenSearchSession:
                             matched = chosen == int(drafts[i][t])
                             if matched:
                                 self.draft_tokens["verified"] += 1
+                                self._obs_spec_verified.inc()
                             t += 1
                             if is_eos:
                                 # Post-EOS tokens are uncounted in the

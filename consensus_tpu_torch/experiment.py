@@ -23,9 +23,10 @@ runs a cell's pending (seed x method x param) runs on
 ``max_concurrent_methods`` (default 4) worker threads whose backend calls
 merge into shared device batches through
 :class:`~consensus_tpu_torch.backends.batching.BatchingBackend`
-(a 10 ms flush window; ``engine=False``, the flush-snapshot path, as the
-JAX engine passes); one pending run, or ``concurrent_execution:
-false``, runs them one after another.  ``timing_pin_budget`` is the timing
+(a 10 ms flush window; the config key ``engine`` (default false, as in
+the JAX engine) routes them through the continuous-batching decode engine
+instead, with ``engine_options``); one pending run, or
+``concurrent_execution: false``, runs them one after another.  ``timing_pin_budget`` is the timing
 mode: ``pin_budget`` in every run config, and ``pin_generation_budget`` on a
 ``tpu`` / ``torch`` backend built here.  ``profile_dir`` wraps the cell in a
 ``torch.profiler`` window (``utils/tracing.py``).
@@ -33,8 +34,9 @@ mode: ``pin_budget`` in every run config, and ``pin_generation_budget`` on a
 The backend named by the config defaults to ``torch``, the resident
 ``TorchBackend`` on the card unless ``device`` names another device; the
 JAX engine's default is ``fake`` (``consensus_tpu/experiment.py:133``).
-``engine``, ``fault_plan`` and ``supervisor`` raise ``NotImplementedError``
-naming their queue items (ROADMAP.md, queue A).
+``fault_plan`` and ``supervisor`` layer the fault-tolerance stack,
+``supervisor(faults(backend))`` (``backends.wrap_backend``), as in the JAX
+engine; a fault plan implies supervision unless ``supervisor: false``.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import pandas as pd
 import yaml
 
-from consensus_tpu_torch.backends import RESIDENT, get_backend
+from consensus_tpu_torch.backends import RESIDENT, get_backend, wrap_backend
 from consensus_tpu_torch.backends.base import Backend
 from consensus_tpu_torch.data.scenarios.registry import maybe_resolve_scenario
 from consensus_tpu_torch.methods import get_method_generator
@@ -88,14 +90,6 @@ _LEAD_COLUMNS = [
 #: ``on_error`` policies for a failed (method, config, seed) run.
 ON_ERROR_POLICIES = ("skip", "fail", "retry")
 
-#: Config keys of the JAX engine whose features wait for a later slice.
-_NOT_PORTED_KEYS = {
-    "engine": "A8 (the continuous-batching decode engine, backends/engine.py)",
-    "fault_plan": "A6 (fault injection, backends/faults.py)",
-    "supervisor": "A6 (backend supervision, backends/supervisor.py)",
-}
-
-
 def run_config_hash(run_config: Dict[str, Any]) -> str:
     """Stable short hash of a run config (seed excluded — the journal key
     carries the seed separately, so the same grid point across seeds shares
@@ -112,11 +106,6 @@ class Experiment:
         backend: Optional[Backend] = None,
         device: Optional[str] = None,
     ):
-        for key, item in _NOT_PORTED_KEYS.items():
-            if config.get(key):
-                raise NotImplementedError(
-                    f"experiment option {key!r} is not ported yet (ROADMAP.md, queue A: {item})"
-                )
         self.config = config
         self.base_seed = int(config.get("seed", 42))
         self.num_seeds = int(config.get("num_seeds", 1))
@@ -149,6 +138,15 @@ class Experiment:
             if device is not None and name in RESIDENT:
                 options["device"] = device
             self.backend = get_backend(name, **options)
+
+        # Fault-tolerance stack: supervisor(faults(engine)).  ``fault_plan``
+        # (chaos runs) implies supervision unless explicitly disabled.
+        fault_plan = config.get("fault_plan")
+        supervise = config.get("supervisor")
+        if fault_plan is not None or supervise:
+            self.backend = wrap_backend(
+                self.backend, fault_plan=fault_plan, supervise=supervise
+            )
 
         self.on_error = str(config.get("on_error", "skip"))
         if self.on_error not in ON_ERROR_POLICIES:
@@ -386,8 +384,9 @@ class Experiment:
                 parent_path = tracer.current_path()
                 if concurrent and len(pending) > 1 and max_workers > 1:
                     # Independent runs (all seeds flattened) share device
-                    # batches through the BatchingBackend's flush-snapshot
-                    # path (``engine=False``, as the JAX engine passes).
+                    # batches through the BatchingBackend: its flush-snapshot
+                    # path, or the continuous-batching decode engine with
+                    # ``engine: true``.
                     from concurrent.futures import ThreadPoolExecutor
 
                     from consensus_tpu_torch.backends.batching import BatchingBackend
@@ -395,6 +394,8 @@ class Experiment:
                     batching = BatchingBackend(
                         self.backend,
                         expected_sessions=min(max_workers, len(pending)),
+                        engine=bool(self.config.get("engine", False)),
+                        engine_options=self.config.get("engine_options"),
                     )
 
                     def worker(item):

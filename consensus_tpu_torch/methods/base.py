@@ -10,7 +10,6 @@ the seam that lets the same decoder logic run against any backend.
 from __future__ import annotations
 
 import abc
-import logging
 from typing import Any, Dict, Optional
 
 from consensus_tpu_torch.backends.base import Backend
@@ -18,9 +17,8 @@ from consensus_tpu_torch.methods.anytime import (
     AnytimeResult,
     BudgetClock,
     BudgetExpired,
+    record_early_exit,
 )
-
-logger = logging.getLogger(__name__)
 
 
 class BaseGenerator(abc.ABC):
@@ -42,8 +40,9 @@ class BaseGenerator(abc.ABC):
     Search methods call :meth:`_checkpoint` after each completed
     wave/round to record the best-so-far statement, and guard device
     dispatches with ``if self.budget_clock.expired(): return
-    self._degrade()``.  Offline runs can bound a statement with the
-    ``budget_s`` / ``budget_scale`` config keys.  With no bound
+    self._degrade()``.  The serving scheduler injects a per-request clock
+    via the ``budget_clock`` setter; offline runs can bound a statement
+    with the ``budget_s`` / ``budget_scale`` config keys.  With no bound
     configured the clock is unbounded and the seam is inert — outputs are
     bit-identical to a build without it.
 
@@ -72,7 +71,7 @@ class BaseGenerator(abc.ABC):
         #: True when the returned statement used less than the configured
         #: budget (early exit OR brownout-scaled search).
         self.degraded: bool = False
-        #: Why (``deadline`` | ``budget_scaled``), or None.
+        #: Why (``deadline`` | ``cancelled`` | ``budget_scaled``), or None.
         self.degraded_reason: Optional[str] = None
         #: Budget accounting for the returned statement (method-specific).
         self.budget_spent: Dict[str, Any] = {}
@@ -95,6 +94,10 @@ class BaseGenerator(abc.ABC):
         if self._budget_clock is None:
             self._budget_clock = BudgetClock.from_config(self.config)
         return self._budget_clock
+
+    @budget_clock.setter
+    def budget_clock(self, clock: BudgetClock) -> None:
+        self._budget_clock = clock
 
     def _checkpoint(
         self,
@@ -124,7 +127,7 @@ class BaseGenerator(abc.ABC):
         self.degraded = True
         self.degraded_reason = reason
         self.budget_spent = dict(self.anytime.budget_spent)
-        logger.info("%s: early exit (%s)", self.method_name, reason)
+        record_early_exit(self.method_name, reason)
         return self.anytime.statement
 
     def _mark_scaled(self, **budget_spent: Any) -> None:

@@ -41,9 +41,9 @@ salt sequence).
 
 ``search_stats`` reports per statement the session's device dispatches,
 waves, selections, virtual-loss collisions and the per-step root visit
-log.  The reference's ``mcts_*`` obs families (dispatches, statements,
-wave widths, selections, collisions) wait for the obs port (ROADMAP queue
-A6), as ``methods/anytime.py``'s do.
+log.  Obs families, as the reference's: ``mcts_device_dispatches_total`` /
+``mcts_statements_total``, ``mcts_wave_selections_total``, the
+``mcts_wave_width`` histogram and ``mcts_virtual_loss_collisions_total``.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from consensus_tpu_torch.methods.base import BaseGenerator
 from consensus_tpu_torch.methods.beam_search import BIAS_AGAINST_TOKENS, EOS_TOKENS
 from consensus_tpu_torch.methods.brushup import brushup_statement_ending
 from consensus_tpu_torch.methods.prompts import agent_prompt, reference_prompt
+from consensus_tpu_torch.obs import DEFAULT_COUNT_BUCKETS, get_registry
 
 FAILURE_REWARD = -100.0
 
@@ -172,6 +173,34 @@ class MCTSGenerator(BaseGenerator):
         )
         self._salt = 0
 
+        registry = get_registry()
+        label = getattr(self.backend, "name", "unknown")
+        self._obs_wave_width = registry.histogram(
+            "mcts_wave_width",
+            "Realized MCTS wave widths (leaf selections per wave)",
+            ("backend",),
+            DEFAULT_COUNT_BUCKETS,
+        ).labels(label)
+        self._obs_selections = registry.counter(
+            "mcts_wave_selections_total",
+            "MCTS leaf selections across all waves",
+            ("backend",),
+        ).labels(label)
+        self._obs_collisions = registry.counter(
+            "mcts_virtual_loss_collisions_total",
+            "Duplicate-leaf wave selections that yielded no fresh child",
+            ("backend",),
+        ).labels(label)
+        obs_dispatches = registry.counter(
+            "mcts_device_dispatches_total",
+            "Session device dispatches issued by MCTS statements",
+            ("backend",),
+        ).labels(label)
+        obs_statements = registry.counter(
+            "mcts_statements_total",
+            "MCTS statements generated",
+            ("backend",),
+        ).labels(label)
         #: Per-statement stats surfaced for tests and chip_smoke.py.
         self.search_stats: Dict[str, object] = {
             "device_dispatches": 0,
@@ -192,6 +221,8 @@ class MCTSGenerator(BaseGenerator):
             )
             self._session.close()
         self.search_stats["device_dispatches"] = dispatches
+        obs_dispatches.inc(dispatches)
+        obs_statements.inc()
         if self._expired_exit:
             # The search committed what it could; skip brushup and return
             # the latest checkpoint tagged degraded.
@@ -317,6 +348,8 @@ class MCTSGenerator(BaseGenerator):
                 node.total_reward += node.value - self._virtual_loss
                 node.visits += 1
                 node = node.parent
+        self._obs_wave_width.observe(width)
+        self._obs_selections.inc(width)
 
         # ONE batched proposal call for all never-expanded selected leaves.
         need: List[Node] = []
@@ -403,6 +436,8 @@ class MCTSGenerator(BaseGenerator):
             if reward is None:
                 reward = target.immediate_reward
             self._backpropagate(target, reward)
+        if collisions:
+            self._obs_collisions.inc(collisions)
         self.search_stats["waves"] += 1
         self.search_stats["selections"] += width
         self.search_stats["collisions"] += collisions

@@ -68,12 +68,16 @@ def sample_tokens(
     rep_penalty: Optional[torch.Tensor] = None,  # (B,)
     keys: Optional[torch.Tensor] = None,  # (B, 2) per-row threefry keys
     noise: Optional[torch.Tensor] = None,  # (B, V) Gumbel noise
+    all_greedy: Optional[bool] = None,
 ) -> torch.Tensor:
     """One token id per row (int32); temperature <= 0 means greedy argmax
     (``sampling.py:62-91`` with per-row keys: ``vmap(categorical)``).
 
     Noise is drawn (from ``keys``) only when some row samples; a batch that
-    is greedy throughout needs neither ``keys`` nor ``noise``."""
+    is greedy throughout needs neither ``keys`` nor ``noise``.  Whether it
+    is comes from ``all_greedy`` when the caller knows it on the host;
+    otherwise it is read off ``temperature``, a host sync for a tensor on
+    the card (the paged decode windows pass it to stay sync-free)."""
     logits = logits.to(torch.float32)
     if presence is not None and rep_penalty is not None:
         logits = apply_repetition_penalty(logits, presence, rep_penalty)
@@ -85,7 +89,9 @@ def sample_tokens(
     if temp.dim() == 1:
         temp = temp[:, None]
     use_greedy = (temp <= 0.0).reshape(-1)
-    if bool(use_greedy.all()):
+    if all_greedy is None:
+        all_greedy = bool(use_greedy.all())
+    if all_greedy:
         return greedy.to(torch.int32)
 
     filtered = _top_p_filter(_top_k_filter(logits, top_k), top_p)

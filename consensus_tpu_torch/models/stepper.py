@@ -33,8 +33,11 @@ The scored rollouts of MCTS and finite lookahead's leaves follow
 ``rollout_verify_many``), then the paged programs of the fused (candidates
 x agents) score matrix (``stepper.py:647-832, 1228-1350``): a page pool
 with a write sink, chunked prefill of shared context pages, and a
-teacher-forced scoring pass reduced on the device.  The engine's paged
-decode steps wait for queue A8.
+teacher-forced scoring pass reduced on the device; and the decode
+engine's paged programs (``stepper.py:835-1006, 1353-1391``): one decode
+step, the K-step window ``paged_decode_steps`` with per-row freezing into
+the sink page, and the read-only gather step over shared prefix pages.
+The speculative window (``paged_verify_steps``) waits for queue A8.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import torch
 from consensus_tpu_torch.models.config import ModelConfig
 from consensus_tpu_torch.models.generate import left_pad_positions
 from consensus_tpu_torch.models.quant import matmul
-from consensus_tpu_torch.models.sampling import gumbel_noise
+from consensus_tpu_torch.models.sampling import gumbel_noise, sample_tokens
 from consensus_tpu_torch.models.transformer import (
     KVCache,
     _embed,
@@ -701,6 +704,154 @@ def paged_score_chunk(
         sum_exp = sum_exp + torch.where(m, torch.exp(t_lp), zero)
         counts = counts + m.to(torch.int32)
     return (sum_lp, last_lp, sum_exp, counts), state
+
+
+@torch.no_grad()
+def paged_decode_step(
+    params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (B,) int -- one token per slot
+    state: PagedSlotState,
+    block_tables: torch.Tensor,  # (B, max_blocks)
+    lengths: torch.Tensor,  # (B,) int -- stream length INCLUDING this token
+    write_pages: torch.Tensor,  # (B,) int -- the sink for inactive slots
+    write_offsets: torch.Tensor,  # (B,) int
+) -> Tuple[torch.Tensor, PagedSlotState]:
+    """One decode position for the whole slot table (``stepper.py:835-868``):
+    every slot advances one position through its own block table.  Returns
+    (float32 logits (B, V), state updated in place)."""
+    hidden, state = _paged_forward(
+        params, config, tokens[:, None], (lengths - 1)[:, None], state,
+        block_tables, lengths, write_pages[:, None], write_offsets[:, None],
+    )
+    return project_logits(params, config, hidden[:, 0, :]), state
+
+
+@torch.no_grad()
+def paged_decode_steps(
+    params,
+    config: ModelConfig,
+    logits: torch.Tensor,  # (B, V) float32 -- sampling logits carried IN
+    state: PagedSlotState,
+    block_tables: torch.Tensor,  # (B, max_blocks) int, -1 padded
+    lengths: torch.Tensor,  # (B,) int32 -- tokens WRITTEN so far
+    keys: torch.Tensor,  # (B, 2) per-row threefry keys
+    done: torch.Tensor,  # (B,) bool -- frozen rows (EOS / budget spent / pads)
+    budgets: torch.Tensor,  # (B,) int32 -- remaining emit budget
+    hit_eos: torch.Tensor,  # (B,) bool -- row sampled EOS
+    temperature: torch.Tensor,  # (B,) float32
+    eos_ids: Optional[torch.Tensor] = None,  # (E,) int
+    num_steps: int = 1,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    logit_bias: Optional[torch.Tensor] = None,  # (V,) or (B, V) additive
+    bias_table: Optional[torch.Tensor] = None,
+    bias_index: Optional[torch.Tensor] = None,
+    pad_id: int = 0,
+    presence: Optional[torch.Tensor] = None,  # (B, V) bool seen-token mask
+    rep_penalty: Optional[torch.Tensor] = None,  # (B,) float32
+    sampling: bool = True,
+):
+    """Decode up to ``num_steps`` tokens per slot in ONE window
+    (``stepper.py:871-1004``), with no host sync inside it.
+
+    Each step samples from the carried logits with the per-row key-split
+    schedule of the sequential loops (``generate._decode_segment``: every
+    row's key splits once per step, done rows included, and a row's t-th
+    emitted token is drawn from its t-th split), so the tokens do not
+    depend on ``num_steps``; then it advances one position through the
+    paged forward.  ``sampling`` says, from the host, whether any row
+    samples: a window that is greedy throughout splits no keys, as the
+    sequential loops do not (their keys are then never read).
+
+    Early exit is a MASK: a row freezes when it samples EOS or when its
+    budget was already spent at step start.  Frozen rows sample pad ids,
+    write K/V only to the sink page (index ``num_pages``) and stop
+    advancing ``lengths``.  The one extra sample at ``budgets == 0`` is the
+    eos-check step that decides ``hit_eos``, as the sequential path's
+    bucketed windows sample past the budget before the host truncates.
+    Page cursors advance inside the window; every page a row can reach was
+    reserved when the stream was built.
+
+    Returns ``(tokens (B, K) int32, emitted (B, K) bool, logits, state,
+    lengths, keys, done, budgets, hit_eos, presence)``; the trailing tensors
+    re-enter the next window unchanged, the state updated in place."""
+    batch = logits.shape[0]
+    device = logits.device
+    page_size = state.k_pages.shape[2]
+    sink = state.k_pages.shape[1] - 1
+    max_blocks = block_tables.shape[1]
+    if bias_table is not None:
+        logit_bias = bias_table[bias_index.long()]
+    use_rp = presence is not None and rep_penalty is not None
+    rows = torch.arange(batch, device=device)
+    pad = torch.full((batch,), pad_id, dtype=torch.int32, device=device)
+    tokens_out, emitted_out = [], []
+    for _ in range(num_steps):
+        sub = None
+        if sampling:
+            pairs = threefry.split(keys)
+            keys, sub = pairs[:, 0], pairs[:, 1]
+        token = sample_tokens(
+            logits, temperature=temperature, top_k=top_k, top_p=top_p,
+            logit_bias=logit_bias, presence=presence if use_rp else None,
+            rep_penalty=rep_penalty if use_rp else None, keys=sub,
+            all_greedy=not sampling,
+        )
+        token = torch.where(done, pad, token)
+        if use_rp:
+            presence[rows, token.long()] = True
+        if eos_ids is None or eos_ids.numel() == 0:
+            token_is_eos = torch.zeros_like(done)
+        else:
+            token_is_eos = (token[:, None] == eos_ids[None, :]).any(dim=-1) & ~done
+        emitted = ~done & ~token_is_eos & (budgets > 0)
+        new_done = done | token_is_eos | (budgets <= 0)
+        hit_eos = hit_eos | token_is_eos
+        budgets = budgets - emitted.to(budgets.dtype)
+
+        page_idx = torch.clamp(lengths // page_size, max=max_blocks - 1).long()
+        page = torch.gather(block_tables, 1, page_idx[:, None])[:, 0]
+        write_pages = torch.where(new_done | (page < 0), torch.full_like(page, sink), page)
+        write_offsets = torch.where(new_done, torch.zeros_like(lengths), lengths % page_size)
+        attn_lengths = torch.where(new_done, lengths, lengths + 1)
+        hidden, state = _paged_forward(
+            params, config, token[:, None], lengths[:, None], state, block_tables,
+            attn_lengths, write_pages[:, None], write_offsets[:, None],
+        )
+        logits = project_logits(params, config, hidden[:, 0, :])
+        lengths, done = attn_lengths, new_done
+        tokens_out.append(token)
+        emitted_out.append(emitted)
+    return (
+        torch.stack(tokens_out, dim=1), torch.stack(emitted_out, dim=1),
+        logits, state, lengths, keys, done, budgets, hit_eos, presence,
+    )
+
+
+@torch.no_grad()
+def paged_gather_step(
+    params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # (B,) int -- each slot's LAST cached token
+    state: PagedSlotState,
+    block_tables: torch.Tensor,  # (B, max_blocks) -- may name SHARED pages
+    lengths: torch.Tensor,  # (B,) int -- cached stream length
+) -> Tuple[torch.Tensor, PagedSlotState]:
+    """Read-only decode step over shared prefix pages (``stepper.py:1353-1391``):
+    re-forward each slot's last cached token through its block table, with
+    the recomputed K/V routed to the write SINK, so pages another slot (or
+    the prefix cache) owns are read in place and never mutated.  Attention
+    reads the stored page for the query's own position, so the logits match
+    the owner's prefill logits at that position to float tolerance.
+    Returns (float32 logits (B, V), state) -- only the sink page changed."""
+    b = tokens.shape[0]
+    sink = torch.full((b, 1), state.k_pages.shape[1] - 1, dtype=torch.int32, device=tokens.device)
+    hidden, state = _paged_forward(
+        params, config, tokens[:, None], (lengths - 1)[:, None], state, block_tables,
+        lengths, sink, torch.zeros_like(sink),
+    )
+    return project_logits(params, config, hidden[:, 0, :]), state
 
 
 def utility_matrix(

@@ -1,12 +1,14 @@
-"""Observability: labeled metrics + hierarchical spans (PyTorch port of the
-experiment-side part of ``consensus_tpu/obs``; the serving modules --
-traces, SLOs, welfare telemetry and quantile sketches -- wait for the
-serving port).
+"""Observability: labeled metrics, hierarchical spans and request traces
+(PyTorch port of ``consensus_tpu/obs``; SLOs, welfare telemetry and
+quantile sketches wait for queue A8).
 
 * :mod:`consensus_tpu_torch.obs.metrics` -- a thread-safe registry of
   labeled counters, gauges and log-bucketed histograms with a JSON ``snapshot()`` and Prometheus text exposition;
 * :mod:`consensus_tpu_torch.obs.spans` -- hierarchical (parent/child) spans
   behind ``utils.tracing.get_tracer()`` / ``timing.json``;
+* :mod:`consensus_tpu_torch.obs.trace` -- request-scoped span trees and
+  their critical path, the engine's iteration ledger, the flight recorder
+  (``--blackbox``) and rolling windows;
 * :mod:`consensus_tpu_torch.obs.backends` -- the shared instrument set
   backends record into: padding efficiency, first sightings of padded
   shapes, host<->device transfer timings.

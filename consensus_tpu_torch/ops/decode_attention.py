@@ -58,11 +58,26 @@ class LaunchCounter:
     trunk, tail) shape launched to ``[launches, (starts, qpos, write_col)
     of its latest launch]``, so a benchmark can time the kernel at the
     shapes and spans the path gave it.  Thread-safe: an experiment's worker
-    threads launch kernels at once."""
+    threads launch kernels at once.  Each launch also adds one to the obs
+    registry's ``kernel_launches_total{kernel}`` counter, which a server's
+    ``/metrics`` exposes (``reset`` leaves that monotonic counter alone)."""
 
-    def __init__(self) -> None:
+    def __init__(self, kernel: str) -> None:
         self._lock = threading.Lock()
+        self._registry_counter = None
+        self.kernel = kernel
         self.reset()
+
+    def _count_in_registry(self) -> None:
+        if self._registry_counter is None:
+            from consensus_tpu_torch.obs.metrics import get_registry
+
+            self._registry_counter = get_registry().counter(
+                "kernel_launches_total",
+                "Launches of the hand-written CUDA kernels, by kernel.",
+                labels=("kernel",),
+            ).labels(self.kernel)
+        self._registry_counter.inc()
 
     def reset(self) -> None:
         with self._lock:
@@ -70,6 +85,7 @@ class LaunchCounter:
             self.shapes: Dict[tuple, list] = {}
 
     def add(self, shape: tuple, args: tuple) -> None:
+        self._count_in_registry()
         with self._lock:
             self.count += 1
             entry = self.shapes.setdefault(shape, [0, None])
@@ -77,7 +93,7 @@ class LaunchCounter:
             entry[1] = args
 
 
-launches = LaunchCounter()
+launches = LaunchCounter("decode_attention")
 _SIGNATURE_LOCK = threading.Lock()
 
 

@@ -49,11 +49,26 @@ class LaunchCounter:
     shapes of the latest launch and ``last_spans`` its (lengths, starts)
     tensors, so a benchmark can time the kernel at the shapes and spans the
     main path gave it.  Thread-safe: an experiment's worker threads launch
-    kernels at once."""
+    kernels at once.  Each launch also adds one to the obs registry's
+    ``kernel_launches_total{kernel}`` counter, which a server's ``/metrics``
+    exposes (``reset`` leaves that monotonic counter alone)."""
 
-    def __init__(self) -> None:
+    def __init__(self, kernel: str) -> None:
         self._lock = threading.Lock()
+        self._registry_counter = None
+        self.kernel = kernel
         self.reset()
+
+    def _count_in_registry(self) -> None:
+        if self._registry_counter is None:
+            from consensus_tpu_torch.obs.metrics import get_registry
+
+            self._registry_counter = get_registry().counter(
+                "kernel_launches_total",
+                "Launches of the hand-written CUDA kernels, by kernel.",
+                labels=("kernel",),
+            ).labels(self.kernel)
+        self._registry_counter.inc()
 
     def reset(self) -> None:
         with self._lock:
@@ -62,13 +77,14 @@ class LaunchCounter:
             self.last_spans: Optional[tuple] = None
 
     def add(self, shapes: tuple, spans: tuple) -> None:
+        self._count_in_registry()
         with self._lock:
             self.count += 1
             self.last_shapes = shapes
             self.last_spans = spans
 
 
-launches = LaunchCounter()
+launches = LaunchCounter("flash_attention")
 _SIGNATURE_LOCK = threading.Lock()
 
 

@@ -55,7 +55,7 @@ class CountingBackend:
 class TestBatchingBackend:
     def test_concurrent_sessions_share_one_batch(self):
         counting = CountingBackend()
-        batching = BatchingBackend(counting, flush_ms=50.0)
+        batching = BatchingBackend(counting, engine=False, flush_ms=50.0)
         results = {}
         barrier = threading.Barrier(3)
 
@@ -76,7 +76,7 @@ class TestBatchingBackend:
 
     def test_batched_results_match_solo(self):
         counting = CountingBackend()
-        batching = BatchingBackend(counting, flush_ms=20.0)
+        batching = BatchingBackend(counting, engine=False, flush_ms=20.0)
         requests = [
             GenerationRequest(user_prompt=f"prompt {i}", max_tokens=6, seed=i)
             for i in range(3)
@@ -100,7 +100,7 @@ class TestBatchingBackend:
 
     def test_mixed_kinds_flush_independently(self):
         counting = CountingBackend()
-        batching = BatchingBackend(counting, flush_ms=20.0)
+        batching = BatchingBackend(counting, engine=False, flush_ms=20.0)
         out = {}
         barrier = threading.Barrier(2)
 
@@ -131,7 +131,7 @@ class TestBatchingBackend:
 
     def test_embed_slicing(self):
         counting = CountingBackend()
-        batching = BatchingBackend(counting, flush_ms=20.0)
+        batching = BatchingBackend(counting, engine=False, flush_ms=20.0)
         out = {}
         barrier = threading.Barrier(2)
 
@@ -159,7 +159,7 @@ class TestBatchingBackend:
             def generate(self, requests):
                 raise RuntimeError("device on fire")
 
-        batching = BatchingBackend(Exploding(), flush_ms=20.0)
+        batching = BatchingBackend(Exploding(), engine=False, flush_ms=20.0)
         errors = []
         barrier = threading.Barrier(2)
 
@@ -192,7 +192,7 @@ class TestBatchingMetrics:
         registry = Registry()
         counting = CountingBackend()
         batching = BatchingBackend(
-            counting, flush_ms=50.0, expected_sessions=3, registry=registry)
+            counting, engine=False, flush_ms=50.0, expected_sessions=3, registry=registry)
         barrier = threading.Barrier(3)
 
         def worker(tag):
@@ -243,7 +243,7 @@ class TestBatchingMetrics:
 
         registry = Registry()
         batching = BatchingBackend(
-            CountingBackend(), flush_ms=5.0, expected_sessions=4,
+            CountingBackend(), engine=False, flush_ms=5.0, expected_sessions=4,
             registry=registry)
         with batching.session():
             batching.score([ScoreRequest(context="ctx", continuation=" more")])
@@ -352,7 +352,7 @@ class TestFlushSingleFile:
                 return self.inner.embed(texts)
 
         inner = SlowInner()
-        batching = BatchingBackend(inner, flush_ms=5.0, expected_sessions=6)
+        batching = BatchingBackend(inner, engine=False, flush_ms=5.0, expected_sessions=6)
         inner.batching = batching
         done = []
 
@@ -423,7 +423,7 @@ class TestAbortedFlushFailsWaiters:
         # only the all-blocked path (triggered by the generate below) may
         # flush, so both kinds land in one snapshot.
         batching = BatchingBackend(
-            AbortingInner(), flush_ms=30_000.0, expected_sessions=2)
+            AbortingInner(), engine=False, flush_ms=30_000.0, expected_sessions=2)
         score_outcome = {}
 
         def scorer():
@@ -480,7 +480,7 @@ class TestPerKindWakeups:
         registry = Registry()
         inner = SlowGenerate()
         batching = BatchingBackend(
-            inner, flush_ms=500.0, expected_sessions=2, registry=registry)
+            inner, engine=False, flush_ms=500.0, expected_sessions=2, registry=registry)
         out = {}
 
         def gen_worker():
@@ -527,8 +527,8 @@ class TestPerKindWakeups:
 
 class TestPortSpecifics:
     def test_engine_raises_naming_its_queue_item(self):
-        with pytest.raises(NotImplementedError, match="A8"):
-            BatchingBackend(CountingBackend(), engine=True)
+        with pytest.raises(NotImplementedError, match="A9"):
+            BatchingBackend(CountingBackend(), engine=True, mesh={"dp": 2, "tp": 1})
 
     def test_duplicate_score_rows_computed_once(self):
         """Identical score rows of two sessions merged into one flush are
@@ -545,7 +545,7 @@ class TestPortSpecifics:
             return score(requests)
 
         inner.score = recording
-        batching = BatchingBackend(inner, flush_ms=500.0, expected_sessions=2,
+        batching = BatchingBackend(inner, engine=False, flush_ms=500.0, expected_sessions=2,
                                    registry=registry)
         shared = ScoreRequest(context="c", continuation=" ok")
         requests = {"a": [shared, ScoreRequest(context="c", continuation=" fine")],
@@ -643,7 +643,7 @@ class SessionInner(CountingBackend):
 class TestFusedSessionTurns:
     def test_sessions_never_drive_the_device_at_once(self):
         inner = SessionInner()
-        batching = BatchingBackend(inner, flush_ms=5.0, expected_sessions=5)
+        batching = BatchingBackend(inner, engine=False, flush_ms=5.0, expected_sessions=5)
         inner.batching = batching
         sessions = []
 
@@ -678,7 +678,7 @@ class TestFusedSessionTurns:
         """A session open and a flush that wait on a budget another open
         session holds: that session still steps and closes, so all finish."""
         inner = SessionInner(budget=threading.Semaphore(1))
-        batching = BatchingBackend(inner, flush_ms=5.0, expected_sessions=3)
+        batching = BatchingBackend(inner, engine=False, flush_ms=5.0, expected_sessions=3)
         inner.batching = batching
         first_open = threading.Event()
         steps = []
@@ -717,7 +717,7 @@ class TestFusedSessionTurns:
         session's thread that queues a protocol call between its steps
         hands the device to the flush (no deadlock)."""
         inner = SessionInner()
-        batching = BatchingBackend(inner, flush_ms=5.0, expected_sessions=2)
+        batching = BatchingBackend(inner, engine=False, flush_ms=5.0, expected_sessions=2)
         inner.batching = batching
         order = []
         started = threading.Barrier(2)
@@ -749,7 +749,7 @@ class TestFusedSessionTurns:
 
     def test_session_attributes_read_through(self):
         inner = SessionInner()
-        batching = BatchingBackend(inner)
+        batching = BatchingBackend(inner, engine=False)
         inner.batching = batching
         session = batching.open_fused_token_search("spec")
         assert session.steps == 0
@@ -765,14 +765,14 @@ class TestFusedSessionTurns:
         )
 
         inner = SessionInner()
-        batching = BatchingBackend(inner)
+        batching = BatchingBackend(inner, engine=False)
         inner.batching = batching
         with pytest.raises(FusedSessionUnavailable):
             batching.open_fused_token_search("declined")
         assert batching._device._owner is None
         spec = SearchSpec(ref_system=None, ref_user="u", agent_prompts=((None, "a"),),
                           n_slots=1, k=2)
-        fallback = open_token_search(BatchingBackend(CountingBackend()), spec)
+        fallback = open_token_search(BatchingBackend(CountingBackend(), engine=False), spec)
         assert isinstance(fallback, PrefixTokenSearchSession)
 
 
