@@ -2,8 +2,9 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
-(``python3 chip_smoke.py sweep_path mcts_path concurrent_path`` runs those
-late phases alone, with no summary and no ``ok`` line).  Phases, one JSON
+(``python3 chip_smoke.py sweep_path mcts_path concurrent_path serve_path
+fleet_path`` runs any of those late phases alone, with no summary and no
+``ok`` line).  Phases, one JSON
 line each; any failure exits non-zero:
 
 1. ``device``  -- the card (nvidia-smi name and power limit), torch and CUDA.
@@ -55,13 +56,14 @@ line each; any failure exits non-zero:
 9. ``threefry_on_card`` -- the port's threefry (bit for bit ``jax.random``
    on the CPU, pinned by the tests) on the card equals the same calls on
    the CPU, bit for bit; ms per decode step of split + gumbel + argmax.
-10. ``greedy_batch_invariance`` -- one greedy 64-token request of the
+10. ``greedy_batch_invariance`` -- one greedy 32-token request of the
    habermas-eval config decoded inside batches of 1, 8, 9 and 32 distinct
    requests: token for token the same, or the first step that differs;
    the backend's ``deterministic_greedy`` must match the result.
 11. ``habermas_eval_path`` -- the habermas-eval config through
    ``run_pipeline`` (``cli/run_experiment_with_eval.py``): best_of_n,
-   habermas_machine and predefined, the resident judge's comparative
+   habermas_machine (HABERMAS_TOKENS of its 700 tokens a phase) and
+   predefined, the resident judge's comparative
    ranking, evaluation under gemma2-9b and llama3-8b (each at full width,
    the gemma2-9b backend freed after its phase), aggregation; counts
    zeroed just before and read just after; evaluation embeds through
@@ -108,7 +110,7 @@ line each; any failure exits non-zero:
    ``run_sweep`` finds it, through ``run_pipeline`` with its evaluation
    under gemma2-2b, in the timing mode (``timing_pin_budget``), cut to one
    seed of 5, best_of_n n in {1, 3, 5, 10}, habermas num_candidates in {1,
-   3} and 64 of its 700 tokens; then the same runs one after another; (b)
+   3} and 32 of its 700 tokens; then the same runs one after another; (b)
    scenario 1's beam_search config, widths {2, 4}, 8 of 50 tokens, pinned,
    with brushup, concurrent then sequential: every session fused and opened
    through ``BatchingBackend.open_fused_token_search``.  Checks: a recorded
@@ -135,6 +137,25 @@ line each; any failure exits non-zero:
    on the first generate, a NaN in the first score call) and
    ``supervise``: the retry gives the fault-free tokens, exactly one request
    fails, its siblings are equal, the breaker ends closed.
+17. ``fleet_path`` -- the serving fleet on llama3-8b (serve_path's backend
+   options): (a) ``python -m consensus_tpu_torch.serve --backend torch
+   --fleet 2 --elastic --telemetry --slo --state-dir`` as a subprocess with
+   the prefix cache on, 8 requests offered open loop at 0.5/s by the port's
+   load generator (``fixed:2``; best_of_n n=4, the same with per-call
+   scoring, zero_shot; 64 tokens; evaluated) while replica r1 is lost to a
+   sticky device loss mid-load: every request 200, a failover, a respawn
+   warm-seeded from the page store, the time to recover, the federated
+   ``replica="fleet"`` latency sketch counting every request, a state per
+   SLO at ``/v1/slo``, K1 and K2 launched, every statement equal to a
+   one-replica run in process or a near-tie (margin under 0.1) on the
+   reference trajectory, SIGTERM drain to exit 0, and the card's used
+   memory after the respawn within 1.25x of before the loss; (b) the
+   port's durability harness (SIGKILL under load, relaunch on the same
+   state dir): replayed > 0, none lost, duplicated or mismatched; (c) in
+   process, serve_path's cut requests through K=4 engine windows with and
+   without speculation, and one cohort through ``generate_stream`` both
+   ways: tokens equal or first differing at a draw of margin under 0.1,
+   drafts proposed, accepted tokens per dispatch printed.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -869,6 +890,11 @@ def decode_route_check(backend, config):
     return agent_err, ref_err, launched
 
 
+#: token_search_path's finite lookahead at seed 43: cut from the config's
+#: 200 tokens for time.
+LOOKAHEAD_SEED_TOKENS = 64
+
+
 def token_search_path():
     import pandas as pd
     import torch
@@ -903,12 +929,13 @@ def token_search_path():
     # lookahead stops at its first pick when that is a terminator, and then
     # writes an empty statement as the reference's method does on the same
     # draws (tests/test_torch_search_methods.py, sampled statements).  So the
-    # method also runs at scenario 1's seed 43 (seed 44 is cut for time),
-    # whose statement must advance its trunk session through
-    # decode_attention (P=1, R=6).
+    # method also runs at scenario 1's seed 43 (seed 44 is cut for time, and
+    # its budget to LOOKAHEAD_SEED_TOKENS), whose statement must advance its
+    # trunk session through decode_attention (P=1, R=6).
     lookahead_config = dict(
         config, experiment_name=config["experiment_name"] + "_lookahead_seeds",
         seed=config["seed"] + 1, num_seeds=1, methods_to_run=["finite_lookahead"],
+        finite_lookahead=dict(config["finite_lookahead"], max_tokens=LOOKAHEAD_SEED_TOKENS),
     )
     # The brushups' classic generation decodes one forward_trunk_tail per
     # step through decode_attention, as the reference's does: counted here.
@@ -1220,11 +1247,12 @@ def reference_defaults_path():
 #: dense tail by einsum.  Each int8 route is held against its own bf16
 #: layout (frozen_int8 vs frozen, classic_int8 vs classic), so that gap is
 #: the quantization error alone, and to INT8_ATOL.
-#: 128 steps in two 64-column segments: cut from 256 steps in 128-column
-#: segments to keep the whole script well inside its time limit.
-GEN_ROUTE_STEPS = 128
+#: 64 steps in two 32-column segments: cut from 256 steps in 128-column
+#: segments (and then 128 in 64) to keep the whole script inside its time
+#: limit.
+GEN_ROUTE_STEPS = 64
 GEN_ROUTE_ROWS = 4
-GEN_SEGMENT = 64
+GEN_SEGMENT = 32
 GEN_ROUTES = ("einsum", "kernel", "frozen", "frozen_int8", "classic", "classic_int8")
 #: route -> the route it is held against.
 GEN_ROUTE_BASE = {"kernel": "einsum", "frozen": "einsum", "classic": "einsum",
@@ -1536,7 +1564,7 @@ def threefry_on_card():
 # -- greedy batch invariance -------------------------------------------------------
 
 GREEDY_WIDTHS = (1, 8, 9, 32)
-GREEDY_TOKENS = 64
+GREEDY_TOKENS = 32
 
 
 def greedy_batch_invariance():
@@ -1622,6 +1650,12 @@ def _evaluation_columns(agents):
     return columns
 
 
+#: Habermas's budget a phase: cut from the config's 700 for time (its
+#: rankings decode every agent's ranking to the full pinned budget, the
+#: retries included).
+HABERMAS_TOKENS = 256
+
+
 def habermas_eval_path():
     """``run_pipeline`` on the habermas-eval config -> (row, K1 launches,
     the K1 case at gemma2-9b's last evaluation launch)."""
@@ -1644,7 +1678,8 @@ def habermas_eval_path():
         # Random weights never write the <answer> envelope: the method's
         # own timing fallbacks (raw text as candidate and critique, identity
         # ranking) make every phase run its real workload.
-        "habermas_machine": dict(config["habermas_machine"], pin_budget=True),
+        "habermas_machine": dict(config["habermas_machine"], pin_budget=True,
+                                 max_tokens=HABERMAS_TOKENS),
     }
     base_seed = config["seed"]
     timers = {}
@@ -1803,7 +1838,7 @@ def habermas_eval_path():
         retried = following is not None and following["attempt"] == 1
         expected = unparsed > 0 and not batch["deterministic_greedy"]
         retry_semantics &= retried == expected and (not retried or following["rows"] == unparsed)
-    long_budget = 768  # 700 tokens on the {1, 1.5} x power-of-two ladder
+    long_budget = 256  # HABERMAS_TOKENS on the {1, 1.5} x power-of-two ladder
     long_routes = [name for name, budget in budgets if budget == long_budget]
     judge_dir = run_dir / "evaluation" / "llm_judge" / "seed_0"
     gemma, llama = (evaluations.get(m, {}) for m in models)
@@ -1833,7 +1868,7 @@ def habermas_eval_path():
         "flash_launches_under_each_evaluation_model": all(
             evaluations.get(m, {}).get("flash_launches", 0) > 0 for m in models
         ),
-        "segmented_route_for_700_token_budgets": bool(long_routes) and all(
+        "segmented_route_for_habermas_budgets": bool(long_routes) and all(
             name.endswith("segmented") for name in long_routes
         ),
         "gemma_backend_freed": bool(gemma) and bool(llama)
@@ -1884,7 +1919,7 @@ SESSION_ATOL = 0.1
 #: (the last max_context tokens of prompt + sequence) see the same context.
 SESSION_PROMPT_TOKENS = 960
 SESSION_STEPS = 3
-FALLBACK_TOKENS = 6
+FALLBACK_TOKENS = 4
 
 
 def _session_rows_diff(fused_rows, fallback_rows, tokenizer):
@@ -2669,7 +2704,7 @@ CONCURRENT_ROOT = "configs/north_star"
 CONCURRENT_CUTS = {
     "num_seeds": 1,
     "best_of_n": {"n": [1, 3, 5, 10]},
-    "habermas_machine": {"num_candidates": [1, 3], "max_tokens": 64},
+    "habermas_machine": {"num_candidates": [1, 3], "max_tokens": 32},
 }
 CONCURRENT_BEAM_CUTS = {"num_seeds": 1, "beam_search": {"beam_width": [2, 4], "max_tokens": 8}}
 #: A concurrent row differing from its sequential twin passes when the
@@ -3164,7 +3199,7 @@ SERVE_REQUESTS = (
 )
 #: Depth cut of (b) and (c) for the time limit: max_tokens per method, and
 #: no evaluation ((a) evaluates every response).
-SERVE_CUT_TOKENS = {"best_of_n": 48, "beam_search": 8, "zero_shot": 32}
+SERVE_CUT_TOKENS = {"best_of_n": 32, "beam_search": 8, "zero_shot": 32}
 #: (c): one transient error on the first generate call, one NaN in row 0
 #: of the first score call, under ``supervise``.
 SERVE_FAULT_PLAN = {"seed": 3, "faults": [
@@ -3507,12 +3542,525 @@ def serve_path(params=None):
     return row, launches, shapes
 
 
+#: fleet_path: the serve_path (a) mix cut to FLEET_TOKENS, cycled over
+#: FLEET_REQUESTS requests of the load generator's ``fixed:2`` scenario mix,
+#: offered open loop at FLEET_RATE requests/s.
+FLEET_MIX = (
+    ("best_of_n", {"n": 4}),
+    ("best_of_n", {"n": 4, "matrix_scoring": False}),
+    ("zero_shot", {}),
+)
+FLEET_TOKENS = 64
+FLEET_REQUESTS = 8
+FLEET_RATE = 0.5
+#: Replica r1 is lost at its first backend call this many seconds after its
+#: backend was built (the load starts 1-2 s after that): a sticky device
+#: loss that the supervisor, engine and router see as a real one, while r1
+#: holds the requests it was given.  A call-index trigger lands later: one
+#: replica's cohorts and scoring stretch under the other's host work (the
+#: first score call came 41 s into the load on the card).
+FLEET_KILL_AFTER_S = 8.0
+#: Peak device memory after the respawn, over the peak before the loss.
+FLEET_MEMORY_RATIO = 1.25
+FLEET_DRAW_STEPS = 64
+#: (b): requests resolved before the SIGKILL and left in flight by it.
+DURABILITY_RESOLVED = 2
+DURABILITY_INFLIGHT = 3
+#: (c): the speculative windows' K.
+SPEC_STEPS = 4
+
+
+def _fleet_payloads():
+    from consensus_tpu_torch.serve.loadgen import scenario_requests
+
+    base = scenario_requests(FLEET_REQUESTS, method="best_of_n", params={}, base_seed=100,
+                             evaluate=True, timeout_s=SERVE_REQUEST_S,
+                             scenario_repeat="fixed:2")
+    out = []
+    for i, payload in enumerate(base):
+        method, params = FLEET_MIX[i % len(FLEET_MIX)]
+        out.append(dict(payload, method=method, params=dict(params, max_tokens=FLEET_TOKENS),
+                        request_id=f"fleet-{i}-{method}"))
+    return out
+
+
+def _device_used_gb():
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 1e9
+
+
+class _FleetWatch:
+    """Polls the server's ``/healthz`` and the card's used memory while the
+    load runs: when the fleet first reads a member short, when it reads
+    whole again, and the device memory on either side."""
+
+    def __init__(self, base):
+        self.base = base
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(30)
+
+    def _run(self):
+        while not self._stop.wait(0.25):
+            try:
+                _, body, _ = _http(self.base + "/healthz", timeout=10)
+                fleet = json.loads(body).get("fleet") or {}
+            except Exception:
+                continue
+            manager = fleet.get("manager") or {}
+            self.samples.append({
+                "t": time.perf_counter() - self.t0, "size": fleet.get("size"),
+                "healthy": fleet.get("healthy"), "losses": manager.get("losses", 0),
+                "respawns": manager.get("respawns", 0), "used_gb": _device_used_gb(),
+            })
+
+    def summary(self):
+        lost_at = next((s["t"] for s in self.samples
+                        if s["losses"] >= 1 or (s["healthy"] or 0) < (s["size"] or 0)), None)
+        back_at = None
+        if lost_at is not None:
+            back_at = next((s["t"] for s in self.samples
+                            if s["t"] > lost_at and s["respawns"] >= 1
+                            and s["healthy"] == s["size"] == 2), None)
+        used = [(s["t"], s["used_gb"]) for s in self.samples if s["used_gb"] is not None]
+        before = [u for t, u in used if lost_at is None or t < lost_at]
+        after = [u for t, u in used if back_at is not None and t >= back_at]
+        during = [u for t, u in used if lost_at is not None and t >= lost_at
+                  and (back_at is None or t < back_at)]
+        timeline, last = [], None
+        for s in self.samples:
+            if last is None or s["t"] - last >= 1.0:
+                last = s["t"]
+                timeline.append([round(s["t"], 2), s["healthy"], s["size"], s["losses"],
+                                 s["respawns"], None if s["used_gb"] is None
+                                 else round(s["used_gb"], 2)])
+        return {
+            "loss_seen_s": lost_at, "whole_again_s": back_at,
+            "time_to_recover_s": None if back_at is None else back_at - lost_at,
+            "timeline_t_healthy_size_losses_respawns_used_gb": timeline,
+            "peak_used_gb_before_loss": max(before) if before else None,
+            "peak_used_gb_during_respawn": max(during) if during else None,
+            "peak_used_gb_after_respawn": max(after) if after else None,
+            "samples": len(self.samples),
+        }
+
+
+def _federated_sketch_count(text, family="serve_latency_sketch_seconds"):
+    for line in text.splitlines():
+        if line.startswith(f'{family}_count{{replica="fleet",outcome="ok"}}'):
+            return int(float(line.split()[-1]))
+    return None
+
+
+def _fleet_cli(options, payloads, device, state_dir):
+    """(a): ``python -m consensus_tpu_torch.serve --backend torch --fleet 2
+    --elastic --telemetry --slo --state-dir`` as a subprocess, driven open
+    loop by the port's load generator while r1 dies and respawns."""
+    import os
+    import select
+    import signal
+
+    from consensus_tpu_torch.serve.loadgen import run_loadgen
+
+    fleet_options = {
+        "fault_plans": [None, {"seed": 0, "faults": [
+            {"kind": "device_lost", "op": "*", "after_s": FLEET_KILL_AFTER_S}]}],
+    }
+    cmd = [sys.executable, "-m", "consensus_tpu_torch.serve", "--backend", "torch",
+           "--backend-options", json.dumps(options), "--port", "0", "--max-inflight", "4",
+           "--default-timeout-s", str(SERVE_REQUEST_S), "--log-level", "WARNING",
+           "--fleet", "2", "--elastic", "--telemetry", "--slo", "--state-dir", str(state_dir),
+           "--fleet-options", json.dumps(fleet_options),
+           "--engine-options", json.dumps({"prefix_cache": True})]
+    if device != "cuda":
+        cmd += ["--device", device]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"command": cmd[2:4] + ["--fleet", "2", "--elastic", "--telemetry", "--slo",
+                                  "--state-dir"]}
+    t0 = time.perf_counter()
+    with open(OUT_DIR / "fleet_stderr.log", "w") as stderr:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=stderr, text=True,
+                                env=env)
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], SERVE_STARTUP_S)
+            line = proc.stdout.readline() if ready else ""
+            if not line:
+                out["error"] = f"no startup line (exit {proc.poll()})"
+                return out
+            startup = json.loads(line)
+            base = startup["serving"]
+            out["startup_s"] = time.perf_counter() - t0
+            out["startup"] = {k: startup.get(k) for k in ("fleet", "elastic", "engine")}
+            before = _launches_from_metrics(base)
+            with _FleetWatch(base) as watch:
+                report = run_loadgen(base, payloads, FLEET_RATE, client_timeout_s=SERVE_REQUEST_S,
+                                     include_slo=True, scenario_mix="fixed:2")
+                # The fleet reads whole again once the respawn joins.
+                deadline = time.perf_counter() + SERVE_STARTUP_S
+                while time.perf_counter() < deadline:
+                    summary = watch.summary()
+                    if summary["whole_again_s"] is not None or summary["loss_seen_s"] is None:
+                        break
+                    time.sleep(0.5)
+                time.sleep(1.0)
+            after = _launches_from_metrics(base)
+            out["watch"] = watch.summary()
+            _, health, _ = _http(base + "/healthz")
+            health = json.loads(health)
+            status, slo, _ = _http(base + "/v1/slo")
+            _, metrics_text, _ = _http(base + "/metrics")
+            fleet = health.get("fleet") or {}
+            manager = fleet.get("manager") or {}
+            outcomes = report.pop("outcomes")
+            out["report"] = {k: report.get(k) for k in (
+                "completed", "availability", "wall_s", "throughput_rps", "latency_ms", "fleet",
+                "replica_request_counts", "failover_fraction", "welfare", "slo",
+                "prefix_hit_fraction")}
+            out["outcomes"] = [{"request_id": o.request_id, "status": o.status,
+                                "served_by": o.served_by, "latency_s": o.latency_s,
+                                "started_s": o.started_s, "statement": o.statement}
+                               for o in outcomes]
+            out["launches"] = {k: after[k] - before[k] for k in KERNELS}
+            out["fleet"] = {k: fleet.get(k) for k in (
+                "size", "healthy", "lost", "failovers_total", "failovers", "affinity_hit_rate",
+                "routed")}
+            out["manager"] = {k: manager.get(k) for k in (
+                "losses", "respawns", "warm_seeded", "quarantined")}
+            out["page_store"] = {k: (manager.get("page_store") or {}).get(k)
+                                 for k in ("runs", "disk")}
+            out["health_status"] = health.get("status")
+            out["health_blocks"] = sorted(k for k in ("slo", "welfare", "fleet") if k in health)
+            out["slo_status"] = status
+            out["slo_states"] = {s.get("name"): s.get("state")
+                                 for s in json.loads(slo).get("specs", [])} if status == 200 else {}
+            out["federated_ok_count"] = _federated_sketch_count(metrics_text)
+            t_stop = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            out["exit_code"] = proc.wait(timeout=300)
+            out["drain_s"] = time.perf_counter() - t_stop
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _trajectory_near_tie(backend, entries):
+    """The first sampled draw along the recorded reference trajectories
+    ``[(request, ids)]`` whose margin is under DRAW_MARGIN, or None."""
+    checked = 0
+    for request, ids in entries:
+        for step in range(min(len(ids), FLEET_DRAW_STEPS)):
+            checked += 1
+            margin = _draw_margin(backend, request, ids, step)
+            if margin < DRAW_MARGIN:
+                return {"seed": request.seed, "step": step, "margin": margin,
+                        "draws_checked": checked}
+    return None
+
+
+def _durability_run(options, device, state_dir):
+    """(b): the port's SIGKILL harness on ``--backend torch``."""
+    import os
+
+    cmd = [sys.executable, "consensus_tpu_torch/scripts/durability_smoke.py",
+           "--state-dir", str(state_dir), "--backend", "torch",
+           "--backend-options", json.dumps(options),
+           "--resolved", str(DURABILITY_RESOLVED), "--inflight", str(DURABILITY_INFLIGHT)]
+    if device != "cuda":
+        cmd += ["--device", device]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, env=env,
+                          timeout=2 * SERVE_STARTUP_S)
+    try:
+        verdict = json.loads(done.stdout)
+    except ValueError:
+        verdict = {"ok": False, "error": (done.stdout + done.stderr)[-2000:]}
+    verdict["exit_code"] = done.returncode
+    verdict["wall_s"] = time.perf_counter() - t0
+    return verdict
+
+
+def fleet_path(params=None):
+    """The serving fleet on llama3-8b (serve_path's backend options, budgets
+    pinned) -> (row, launches, decode shapes).  (a) ``python -m
+    consensus_tpu_torch.serve --backend torch --fleet 2 --elastic
+    --telemetry --slo --state-dir`` as a subprocess with the prefix cache
+    on, driven open loop by the port's load generator (FLEET_REQUESTS at
+    FLEET_RATE, ``fixed:2``) while r1 is lost mid-load and respawns; every
+    statement against a one-replica run in process over ``params`` (the
+    same seeded weights); (b) the port's durability harness: SIGKILL under
+    load, relaunch, replay, beside (c): in process over ``params``,
+    serve_path's cut requests through the engine with K=SPEC_STEPS windows,
+    speculative and not, and one recorded cohort through ``generate_stream``
+    with and without speculation."""
+    import shutil
+
+    import torch
+    import yaml
+
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.obs.metrics import Registry
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+    from consensus_tpu_torch.serve import create_server
+
+    config = yaml.safe_load((ROOT / SERVE_CONFIG).read_text())
+    options = dict(config["backend_options"], pin_generation_budget=True)
+    on_card = SERVE_DEVICE == "cuda"
+    payloads = _fleet_payloads()
+    state_root = OUT_DIR / "fleet_state"
+    shutil.rmtree(state_root, ignore_errors=True)
+
+    # (a) the fleet CLI under load, with a replica lost mid-run.
+    started = time.perf_counter()
+    cli = _fleet_cli(options, payloads, SERVE_DEVICE, state_root / "fleet")
+    cli["wall_s"] = time.perf_counter() - started
+
+    # One backend in process for the reference run and for (c).
+    started = time.perf_counter()
+    backend = TorchBackend(**options, params=params, device=SERVE_DEVICE)
+    init_s = time.perf_counter() - started
+    generated = {}
+    mode = {"name": ""}
+    dense_generate, open_stream = backend.generate, backend.generate_stream
+
+    def record(requests, results):
+        table = generated.setdefault(mode["name"], {})
+        for request, result in zip(requests, results):
+            table.setdefault(_request_key(request), []).append((request, tuple(result.token_ids)))
+
+    def generate(requests):
+        results = dense_generate(requests)
+        record(requests, results)
+        return results
+
+    def generate_stream(requests, decode_steps=1, speculative=False):
+        stream = open_stream(requests, decode_steps=decode_steps, speculative=speculative)
+        collect = stream.collect
+
+        def collect_and_record():
+            row_tokens, finished = collect()
+            rows = sorted(finished)
+            record([requests[i] for i in rows], [finished[i] for i in rows])
+            return row_tokens, finished
+        stream.collect = collect_and_record
+        return stream
+
+    backend.generate, backend.generate_stream = generate, generate_stream
+    windows = {}
+    launches = {k: cli.get("launches", {}).get(k, 0) for k in KERNELS}
+    shapes = {}
+
+    def drafts_proposed():
+        family = backend.instruments.registry.snapshot()["families"].get(
+            "spec_draft_proposed_tokens_total") or {}
+        return sum(s["value"] for s in family.get("series", []))
+
+    def window(name, batch, **server_options):
+        mode["name"] = name
+        registry = Registry()
+        server = create_server(backend=backend, port=0, registry=registry, max_inflight=4,
+                               default_timeout_s=SERVE_REQUEST_S, **server_options).start()
+        proposed_before = drafts_proposed()
+        fa.launches.reset()
+        da.launches.reset()
+        try:
+            results, wall = _post_all(server.base_url, batch)
+            if on_card:
+                torch.cuda.synchronize()
+            _, health, _ = _http(server.base_url + "/healthz")
+            health = json.loads(health)
+        finally:
+            server.stop()
+        info = _latency_stats(results, wall)
+        latencies = sorted(seconds for _, _, seconds in results)
+        info["latency_p95_s"] = latencies[max(0, -(-95 * len(latencies) // 100) - 1)]
+        info["launches"] = {"flash_attention": fa.launches.count,
+                            "decode_attention": da.launches.count}
+        for key in KERNELS:
+            launches[key] += info["launches"][key]
+        for key, (count, args) in da.launches.shapes.items():
+            shapes[key] = (shapes.get(key, (0, None))[0] + count, args)
+        engine = health.get("engine") or {}
+        info["engine"] = _engine_block(health)
+        info["speculative"] = engine.get("speculative")
+        info["spec_draft_proposed_tokens_total"] = drafts_proposed() - proposed_before
+        info["statements"] = {body.get("request_id"): body.get("statement")
+                              for _, body, _ in results}
+        windows[name] = info
+
+    # (b) durability (its own server processes) runs beside the in-process
+    # reference run and (c); neither is timed against the other.
+    durability = {}
+    durability_thread = threading.Thread(target=lambda: durability.update(
+        _durability_run(options, SERVE_DEVICE, state_root / "durable")))
+    durability_thread.start()
+    try:
+        # The one-replica reference for (a): the same payloads and engine,
+        # unevaluated (the statement is chosen before the evaluation).
+        window("a_one_replica", [dict(p, evaluate=False) for p in payloads],
+               engine_options={"prefix_cache": True})
+        # (c) speculative windows against plain ones.
+        cut = _serve_payloads(config["scenario"], cut=True)
+        window("c_engine_plain", cut, engine_options={"decode_steps": SPEC_STEPS})
+        window("c_engine_speculative", cut,
+               engine_options={"decode_steps": SPEC_STEPS, "speculative": True})
+        cohort = [entries[0][0] for entries in generated["c_engine_plain"].values()]
+        mode["name"] = "c_stream"
+        plain_stream = _drain_stream(open_stream(cohort, decode_steps=SPEC_STEPS))
+        spec = open_stream(cohort, decode_steps=SPEC_STEPS, speculative=True)
+        spec_stream = _drain_stream(spec)
+        stream_spec = {"proposed": spec.spec_proposed, "accepted": spec.spec_accepted}
+    finally:
+        backend.generate, backend.generate_stream = dense_generate, open_stream
+        durability_thread.join()
+
+    # (a)'s statements against the one-replica run: equal, or the reference
+    # trajectory of that request holds a sampled draw under DRAW_MARGIN
+    # (the server returns statements, not token ids, so the divergence is
+    # bounded from the reference side).
+    reference = windows["a_one_replica"]["statements"]
+    by_request = {}
+    for entries in generated.get("a_one_replica", {}).values():
+        for request, ids in entries:
+            by_request.setdefault(request.user_prompt, []).append((request, ids))
+    statement_rows = []
+    for payload, outcome in zip(payloads, cli.get("outcomes", [])):
+        rid = payload["request_id"]
+        row = {"request_id": rid, "served_by": outcome["served_by"],
+               "started_s": round(outcome["started_s"], 2),
+               "latency_s": round(outcome["latency_s"], 2),
+               "equal": outcome["statement"] == reference.get(rid)}
+        if not row["equal"]:
+            prompts = [key for key in by_request if payload["issue"] in key]
+            entries = [e for key in prompts for e in by_request[key]
+                       if e[0].seed is not None]
+            row["near_tie"] = _trajectory_near_tie(backend, entries)
+        statement_rows.append(row)
+    spec_compare = _compare_generations(backend, generated.get("c_engine_speculative", {}),
+                                        generated["c_engine_plain"])
+    stream_compare = sum(a == b for a, b in zip(spec_stream, plain_stream))
+    stream_diverged = []
+    for request, a, b in zip(cohort, spec_stream, plain_stream):
+        if a != b:
+            first = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]),
+                         min(len(a), len(b)))
+            margin = _draw_margin(backend, request, b, first)
+            stream_diverged.append({"seed": request.seed, "step": first, "margin": margin,
+                                    "ok": margin < DRAW_MARGIN})
+    del backend
+    if on_card:
+        torch.cuda.empty_cache()
+
+    report = cli.get("report") or {}
+    watch = cli.get("watch") or {}
+    manager = cli.get("manager") or {}
+    completed = report.get("completed")
+    before, after = watch.get("peak_used_gb_before_loss"), watch.get("peak_used_gb_after_respawn")
+    spec_window = windows["c_engine_speculative"]
+    spec_stats = spec_window.get("speculative") or {}
+    checks = {
+        "a_completed_every_request": completed == FLEET_REQUESTS,
+        "a_availability_1": report.get("availability") == 1.0,
+        "a_replica_lost": (manager.get("losses") or 0) >= 1,
+        "a_failed_over": ((cli.get("fleet") or {}).get("failovers_total") or 0) >= 1,
+        "a_respawned": (manager.get("respawns") or 0) >= 1,
+        "a_time_to_recover_reported": watch.get("time_to_recover_s") is not None,
+        "a_respawn_warm_seeded": sum((manager.get("warm_seeded") or {}).values()) > 0,
+        "a_federated_sketch_count_eq_completed": cli.get("federated_ok_count") == completed,
+        "a_slo_state_per_spec": cli.get("slo_status") == 200 and bool(cli.get("slo_states"))
+        and all(state in ("ok", "burning", "violated")
+                for state in cli.get("slo_states", {}).values()),
+        "a_launched_flash_attention": cli.get("launches", {}).get("flash_attention", 0) > 0,
+        "a_launched_decode_attention": cli.get("launches", {}).get("decode_attention", 0) > 0,
+        "a_statements_equal_one_replica_or_near_tie": bool(statement_rows) and all(
+            r["equal"] or r.get("near_tie") is not None for r in statement_rows),
+        "a_drained_and_exited_0": cli.get("exit_code") == 0,
+        "a_memory_after_respawn_within_ratio": (
+            before is not None and after is not None and after <= FLEET_MEMORY_RATIO * before)
+        if on_card else True,
+        "b_replayed": (durability.get("replayed") or 0) > 0,
+        "b_lost_0": durability.get("lost") == 0,
+        "b_dup_0": durability.get("dup") == 0,
+        "b_mismatches_0": durability.get("mismatches") == 0,
+        "c_served_every_request": all(
+            windows[n]["statuses"] == [200] * len(cut)
+            for n in ("c_engine_plain", "c_engine_speculative")),
+        "c_engine_tokens_equal_or_diverge_below_margin": all(
+            d["ok"] for d in spec_compare["diverged"]) and not spec_compare["only_one_mode"],
+        "c_stream_tokens_equal_or_diverge_below_margin": all(d["ok"] for d in stream_diverged),
+        "c_drafts_proposed": spec_window["spec_draft_proposed_tokens_total"] > 0
+        and stream_spec["proposed"] > 0,
+    }
+    def part(info):
+        return {k: info.get(k) for k in ("wall_s", "latency_p50_s", "latency_p95_s",
+                                         "statements_per_s")}
+    row = {
+        "phase": "fleet_path", "model": options["model"], "config": SERVE_CONFIG,
+        "requests": FLEET_REQUESTS, "rate_rps": FLEET_RATE, "tokens": FLEET_TOKENS,
+        "mix": [[m, p] for m, p in FLEET_MIX], "kill_after_s": FLEET_KILL_AFTER_S,
+        "a_cli": {
+            "wall_s": cli.get("wall_s"), "startup_s": cli.get("startup_s"),
+            "latency_ms": report.get("latency_ms"),
+            "statements_per_s": report.get("throughput_rps"),
+            "failovers": (cli.get("fleet") or {}).get("failovers_total"),
+            "time_to_recover_s": watch.get("time_to_recover_s"),
+            "affinity_hit_rate": (cli.get("fleet") or {}).get("affinity_hit_rate"),
+            "replica_request_counts": report.get("replica_request_counts"),
+            "manager": manager, "page_store": cli.get("page_store"),
+            "watch": watch,
+            "slo_states": cli.get("slo_states"), "welfare": report.get("welfare"),
+            "federated_ok_count": cli.get("federated_ok_count"),
+            "launches": cli.get("launches"), "drain_s": cli.get("drain_s"),
+            "exit_code": cli.get("exit_code"), "error": cli.get("error"),
+            "statements": statement_rows,
+        },
+        "a_one_replica": part(windows["a_one_replica"]),
+        "b_durability": durability,
+        "c_speculative": {
+            "init_s": init_s,
+            "engine_plain": part(windows["c_engine_plain"]),
+            "engine_speculative": part(spec_window),
+            "engine_spec_stats": spec_stats,
+            "accepted_tokens_per_dispatch": spec_stats.get("accepted_tokens_per_dispatch"),
+            "draft_acceptance_rate": spec_stats.get("draft_acceptance_rate"),
+            "engine_compare": {k: (v if k != "diverged" else v[:12])
+                               for k, v in spec_compare.items()},
+            "stream": dict(stream_spec, rows=len(cohort), equal_rows=stream_compare,
+                           diverged=stream_diverged),
+        },
+        "launches": launches,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return row, launches, shapes
+
+
 def late_phases_alone(names) -> int:
     """``python3 chip_smoke.py sweep_path mcts_path concurrent_path
-    serve_path`` (any of them): those phases alone, for iterating on them;
-    concurrent_path runs on mcts_path's backend.  Prints their lines, no
+    serve_path fleet_path`` (any of them): those phases alone, for
+    iterating on them; concurrent_path runs on mcts_path's backend, and
+    fleet_path builds its own in-process weights.  Prints their lines, no
     summary and no ``ok`` line; exits 1 if a phase failed."""
-    unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path"}
+    unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path",
+                            "fleet_path"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     rows = []
@@ -3523,13 +4071,16 @@ def late_phases_alone(names) -> int:
         rows.append(mcts[0])
         if "concurrent_path" in names:
             rows.append(concurrent_path(mcts[4])[0])
-    if "serve_path" in names:
+    if {"serve_path", "fleet_path"} & set(names):
         from consensus_tpu_torch.ops import build
 
-        # Built here, once: the server subprocess and this process load it.
+        # Built here, once: the server subprocesses and this process load it.
         for name in KERNELS:
             build.build(name)
+    if "serve_path" in names:
         rows.append(serve_path()[0])
+    if "fleet_path" in names:
+        rows.append(fleet_path()[0])
     for row in rows:
         emit(row)
     return 0 if all(row["ok"] for row in rows) else 1
@@ -3630,9 +4181,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(concurrent_row)
     serve_row, serve_launches, serve_shapes = serve_path(params)
+    emit(serve_row)
+    fleet_row, fleet_launches, fleet_shapes = fleet_path(params)
     del params
     torch.cuda.empty_cache()
-    emit(serve_row)
+    emit(fleet_row)
 
     paths = {
         "main_path": launches, "token_search_path": search_launches,
@@ -3640,7 +4193,7 @@ def main() -> int:
         "shared_trunk_decode_path": generate_launches, "habermas_eval_path": habermas_launches,
         "fallback_session_path": fallback_launches, "sweep_path": sweep_launches,
         "mcts_path": mcts_launches, "concurrent_path": concurrent_launches,
-        "serve_path": serve_launches,
+        "serve_path": serve_launches, "fleet_path": fleet_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
@@ -3657,7 +4210,7 @@ def main() -> int:
     flash_entry["gemma2_2b_evaluation"] = {key: mcts_case[key] for key in case_keys}
     decode_shapes = dict(search_shapes)
     for more in (generate_shapes, fallback_shapes, sweep_shapes, mcts_shapes, concurrent_shapes,
-                 serve_shapes):
+                 serve_shapes, fleet_shapes):
         for key, (count, args) in more.items():
             decode_shapes[key] = (decode_shapes.get(key, (0, None))[0] + count, args)
     decode_entry, decode_ok = summary_decode(
@@ -3670,7 +4223,7 @@ def main() -> int:
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
-              serve_row]
+              serve_row, fleet_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

@@ -11,7 +11,10 @@ a ``{"name": ..., **options}`` dict and passes Backend instances through
 unchanged.  The default stays ``torch``: the port's entry points run on the
 card unless told otherwise (the JAX package defaults to ``fake``).  The HTTP
 backends ``api`` and ``openai`` (the API judge) raise
-``NotImplementedError`` naming their queue item.
+``NotImplementedError`` naming their queue item.  Every call builds a new
+instance (the port caches none), so ``fresh=True``, which fleet serving
+passes to keep replicas from aliasing one backend, is accepted and changes
+nothing.
 
 ``wrap_backend`` layers the fault-tolerance stack over a resolved backend:
 ``supervisor(faults(backend))``.
@@ -42,7 +45,7 @@ _NOT_PORTED = {
 }
 
 
-def get_backend(name: Any = "torch", **options) -> Backend:
+def get_backend(name: Any = "torch", *, fresh: bool = False, **options) -> Backend:
     if isinstance(name, dict):
         options = {**name, **options}
         name = options.pop("name", "torch")

@@ -205,18 +205,20 @@ class DecodeEngine:
         self.decode_steps = (
             max(1, int(decode_steps)) if decode_steps is not None else None
         )
-        #: Engine-native speculative decoding (draft-and-verify windows over
-        #: ``paged_verify_steps``) is not ported: it raises.  The draft
-        #: counters below stay, at zero, so ``stats()`` keeps the JAX
-        #: engine's shape.
-        if speculative:
-            raise NotImplementedError(
-                "DecodeEngine(speculative=True), the speculative decode "
-                "windows (paged_verify_steps), is not ported yet "
-                "(ROADMAP.md, queue A8)"
-            )
-        self.speculative = False
-        #: Cumulative draft accounting across streams (stats / ledger).
+        #: Engine-native speculative decoding: each decode window drafts K
+        #: tokens per row (n-gram self-draft) and verifies them in ONE
+        #: dispatch of ``paged_verify_steps``, emitting ``1 + accepted`` real
+        #: tokens instead of 1.  Off by default (the plain
+        #: ``paged_decode_steps`` path is untouched); on, the sampled tokens
+        #: replay the sequential key schedule exactly, so results equal the
+        #: plain windows up to the verify forward's numerics.  Requires
+        #: ``decode_steps`` (the draft window IS the decode window); backends
+        #: without the stream seam fall back like plain multi-token decode.
+        self.speculative = bool(speculative)
+        if self.speculative and self.decode_steps is None:
+            # Speculative alone implies a default K, so
+            # ``{"speculative": true}`` works.
+            self.decode_steps = 4
         self.spec_proposed_tokens = 0
         self.spec_accepted_tokens = 0
         self._stream_spec_seen = (0, 0)
@@ -1076,9 +1078,15 @@ class DecodeEngine:
                 decode_steps=self.decode_steps)
         t_disp = time.perf_counter()
         try:
-            stream = self.inner.generate_stream(
-                requests, decode_steps=self.decode_steps
-            )
+            if self.speculative:
+                stream = self.inner.generate_stream(
+                    requests, decode_steps=self.decode_steps,
+                    speculative=True,
+                )
+            else:
+                stream = self.inner.generate_stream(
+                    requests, decode_steps=self.decode_steps
+                )
             stream.dispatch()
         except Exception as exc:
             self._iter_dispatch_s += time.perf_counter() - t_disp

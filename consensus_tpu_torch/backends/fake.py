@@ -18,8 +18,8 @@ testable end-to-end:
   well-formed envelope wrapping pseudo-text.
 
 ``generate_stream`` is the decode engine's multi-token seam, windowed
-release of the ``generate`` results (the speculative windows wait for
-queue A8 and raise).
+release of the ``generate`` results, with the speculative windows' real
+n-gram self-draft when asked.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from __future__ import annotations
 import hashlib
 import math
 import re
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -221,13 +221,23 @@ class FakeBackend:
         ``dispatch``/``collect`` window releases up to ``decode_steps``
         pseudo-tokens per unfinished row, so the engine's stream scheduling
         (windowed retirement, tokens-per-dispatch accounting) is exercised
-        without a device in the loop."""
-        if speculative:
-            raise NotImplementedError(
-                "generate_stream(speculative=True), the speculative decode "
-                "windows, is not ported yet (ROADMAP.md, queue A8)"
-            )
-        return _FakeGenerateStream(list(self.generate(requests)), self._tokenize, decode_steps)
+        without a device in the loop.
+
+        With ``speculative=True`` each window instead runs a REAL per-row
+        ``NGramProposer`` self-draft against the precomputed pseudo-token
+        stream and releases ``accepted + 1`` tokens — byte-identical by
+        construction, with the same variable tokens-per-dispatch and
+        draft-accounting surface (``spec_proposed`` / ``spec_accepted``)
+        ``TorchBackend``'s stream exposes."""
+        prompt_rows = (
+            [self._tokenize(self._full_prompt(r)) for r in requests]
+            if speculative else None
+        )
+        return _FakeGenerateStream(
+            list(self.generate(requests)), self._tokenize, decode_steps,
+            prompt_rows=prompt_rows,
+            registry=self.instruments.registry if speculative else None,
+        )
 
     # -- scoring ------------------------------------------------------------
 
@@ -327,13 +337,51 @@ class _FakeGenerateStream:
     index -> GenerationResult for rows that completed inside it.
     """
 
-    def __init__(self, results, tokenize, decode_steps: int):
+    def __init__(
+        self, results, tokenize, decode_steps: int,
+        prompt_rows=None, registry=None,
+    ):
         self._results = results
         self._token_rows = [tokenize(r.text) for r in results]
         self._cursors = [0] * len(results)
         self._done = [False] * len(results)
         self._decode_steps = max(1, int(decode_steps))
         self._pending = False
+        #: Cumulative draft accounting the engine reads after collect().
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.speculative = prompt_rows is not None
+        if self.speculative:
+            from consensus_tpu_torch.backends.speculative import NGramProposer
+
+            # Pseudo-tokens are strings; the proposer wants int ids — map
+            # them through a per-stream first-seen vocabulary.
+            self._vocab: Dict[str, int] = {}
+            self._id_rows = [
+                [self._token_id(t) for t in toks]
+                for toks in self._token_rows
+            ]
+            self._proposers = []
+            self._ctx: List[List[int]] = []
+            for prompt in prompt_rows:
+                ids = [self._token_id(t) for t in prompt]
+                proposer = NGramProposer()
+                proposer.observe(ids)
+                self._proposers.append(proposer)
+                self._ctx.append(list(ids))
+            self._obs_spec_proposed = registry.counter(
+                "spec_draft_proposed_tokens_total",
+                "Draft tokens proposed for speculative rollout verification",
+                ("backend",),
+            ).labels("fake")
+            self._obs_spec_verified = registry.counter(
+                "spec_draft_verified_tokens_total",
+                "Draft tokens accepted by the parallel verify pass",
+                ("backend",),
+            ).labels("fake")
+
+    def _token_id(self, token: str) -> int:
+        return self._vocab.setdefault(token, len(self._vocab))
 
     @property
     def finished(self) -> bool:
@@ -351,13 +399,38 @@ class _FakeGenerateStream:
         for i, toks in enumerate(self._token_rows):
             if self._done[i]:
                 continue
-            step = min(self._decode_steps, len(toks) - self._cursors[i])
+            if self.speculative:
+                step = self._verify_window(i, len(toks))
+            else:
+                step = min(self._decode_steps, len(toks) - self._cursors[i])
             self._cursors[i] += step
             row_tokens[i] = step
             if self._cursors[i] >= len(toks):
                 self._done[i] = True
                 finished[i] = self._results[i]
         return row_tokens, finished
+
+    def _verify_window(self, row: int, total: int) -> int:
+        """Draft K ids, accept the longest matched prefix against the
+        precomputed stream, release ``accepted + 1`` tokens (the exact
+        device rejection rule — the '+1' is the correction/bonus token)."""
+        k = self._decode_steps
+        upcoming = self._id_rows[row][self._cursors[row]:]
+        draft = self._proposers[row].draft(self._ctx[row], k)
+        self.spec_proposed += k
+        self._obs_spec_proposed.inc(k)
+        matched = 0
+        while matched < min(len(draft), len(upcoming)) \
+                and draft[matched] == upcoming[matched]:
+            matched += 1
+        released = min(matched + 1, len(upcoming), total)
+        accepted = min(matched, released)
+        self.spec_accepted += accepted
+        self._obs_spec_verified.inc(accepted)
+        ids = upcoming[:released]
+        self._proposers[row].observe(ids)
+        self._ctx[row].extend(ids)
+        return released
 
     def close(self) -> None:
         self._pending = False

@@ -9,8 +9,8 @@ expressions the per-call consumers used.  ``TorchBackend.score_matrix``
 is the fused path and falls back here per matrix; best-of-N and the
 evaluator's ``stat="moments"`` utilities both come through this seam.
 Every matrix is recorded into the obs registry (``record_matrix``: cells,
-D2H bytes, agents per call).  The welfare telemetry sink of the JAX
-version waits for ``obs/welfare.py`` (ROADMAP.md, queue A8).
+D2H bytes, agents per call) and, when a server installed one, into the
+welfare telemetry sink (``obs/welfare.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from consensus_tpu_torch.backends.base import PartialBatchError, ScoreRequest, ScoreResult
+from consensus_tpu_torch.obs.welfare import get_welfare_sink
 from consensus_tpu_torch.ops.welfare import (
     DEFAULT_REWARD,
     WELFARE_RULES,
@@ -223,11 +224,22 @@ def matrix_metrics(registry=None):
     return cells, d2h, agents_hist
 
 
-def record_matrix(result: ScoreMatrixResult, n_agents: int, registry=None) -> None:
+def record_matrix(
+    result: ScoreMatrixResult,
+    n_agents: int,
+    registry=None,
+    welfare_rule: Optional[str] = None,
+) -> None:
     cells, d2h, agents_hist = matrix_metrics(registry)
     cells.inc(result.cells)
     d2h.inc(result.d2h_bytes)
     agents_hist.observe(n_agents)
+    # Welfare telemetry plane: when a server installed a sink, the chosen
+    # candidate's welfare and worst-agent utility feed the score-path
+    # sketches.  Off (the default) this is one global read.
+    sink = get_welfare_sink()
+    if sink is not None:
+        sink.record_matrix(result, welfare_rule)
 
 
 def fallback_score_matrix_many(
@@ -248,7 +260,7 @@ def fallback_score_matrix_many(
     out = []
     for request, (lo, hi) in zip(requests, spans):
         matrix = reduce_matrix(request, results[lo:hi], path="fallback")
-        record_matrix(matrix, len(request.agents))
+        record_matrix(matrix, len(request.agents), welfare_rule=request.welfare_rule)
         out.append(matrix)
     return out
 

@@ -37,8 +37,10 @@ config) and runs each protocol call as padded device batches:
   the reference's do).
 * ``generate_stream`` -- the decode engine's multi-token seam
   (``tpu.py:619-643, 1797-2138``): a cohort prefilled into a private page
-  pool and decoded in K-step windows of ``stepper.paged_decode_steps``
-  (plain ``paged_attention``, as in the reference); ``suggest_kv_page_pool``
+  pool and decoded in K-step windows of ``stepper.paged_decode_steps``, or
+  with ``speculative`` in draft-and-verify windows of
+  ``stepper.paged_verify_steps`` (plain ``paged_attention``, as in the
+  reference); ``suggest_kv_page_pool``
   sizes the engine's page pool from the session budget.
 
 ``pin_generation_budget`` is the reference's timing mode (every generation
@@ -584,13 +586,13 @@ class TorchBackend:
         the engine's host phases overlap the device), ``collect()`` fetches
         the window and finalises the rows that froze inside it with
         ``_finish_generation``'s semantics.  Sampling replays the sequential
-        per-row key splits, so the tokens do not depend on K."""
-        if speculative:
-            raise _not_ported(
-                "generate_stream(speculative=True), the speculative decode "
-                "windows (paged_verify_steps)", "A8",
-            )
-        return _PagedGenerateStream(self, list(requests), decode_steps)
+        per-row key splits, so the tokens do not depend on K.
+
+        With ``speculative=True`` each window instead drafts K tokens per
+        row from an n-gram self-proposer and verifies them in ONE
+        ``stepper.paged_verify_steps`` dispatch: ``1 + accepted`` real
+        tokens per window, on the same sequential key schedule."""
+        return _PagedGenerateStream(self, list(requests), decode_steps, speculative=speculative)
 
     def _prep_generation_rows(self, requests: Sequence[GenerationRequest], allowed: int):
         """Row bucketing + per-row sampling state shared by the classic and
@@ -999,7 +1001,7 @@ class TorchBackend:
                 self._tally(self.matrix_stats, "fallbacks", 1)
                 result = fallback_score_matrix_many(self, [request])[0]
             else:
-                record_matrix(result, len(request.agents))
+                record_matrix(result, len(request.agents), welfare_rule=request.welfare_rule)
             out.append(result)
         return out
 
@@ -1316,7 +1318,7 @@ _STREAM_PREFILL_CHUNK = 64
 
 class _PagedGenerateStream:
     """One generate cohort served as K-step decode windows
-    (``tpu.py:1797-2138``, without the speculative windows).
+    (``tpu.py:1797-2138``).
 
     Construction prefills every prompt into a PRIVATE page pool (contiguous
     block tables, fixed-width chunks) and projects the first sampling
@@ -1335,12 +1337,23 @@ class _PagedGenerateStream:
     Sampling state (keys, budgets, bias, penalties) comes from the same
     ``_prep_generation_rows`` the dense paths use, and the window replays
     the sequential key-split schedule, so the tokens match the dense paths
-    for any ``decode_steps``, up to paged-vs-dense forward numerics."""
+    for any ``decode_steps``, up to paged-vs-dense forward numerics.
 
-    def __init__(self, backend: TorchBackend, requests: List[GenerationRequest], decode_steps: int):
+    ``speculative`` turns each window into a draft-and-verify window: the
+    rows' n-gram self-drafts go through one ``paged_verify_steps`` and each
+    row's emitted tokens feed its proposer at ``collect()``."""
+
+    def __init__(
+        self,
+        backend: TorchBackend,
+        requests: List[GenerationRequest],
+        decode_steps: int,
+        speculative: bool = False,
+    ):
         be = self.backend = backend
         self.requests = requests
         self.decode_steps = max(1, int(decode_steps))
+        self.speculative = bool(speculative)
         self._pending = None
         self._closed = False
         self._finished_rows: set = set()
@@ -1450,6 +1463,32 @@ class _PagedGenerateStream:
                 be._to_device(ptok), be._to_device(pval), be.config.vocab_size
             )
 
+        #: Cumulative draft accounting the engine reads after collect().
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        if self.speculative:
+            # One n-gram self-draft table per row, seeded from the row's own
+            # prompt; emitted tokens feed it at collect().
+            self._proposers = [NGramProposer() for _ in requests]
+            self._ctx: List[List[int]] = []
+            for proposer, ids in zip(self._proposers, prompt_ids):
+                proposer.observe(ids)
+                self._ctx.append(list(ids))
+            self._target = target
+            self._pending_tok = torch.zeros(target, dtype=torch.int32, device=be.device)
+            self._has_pending = False
+            reg = be.instruments.registry
+            self._obs_spec_proposed = reg.counter(
+                "spec_draft_proposed_tokens_total",
+                "Draft tokens proposed for speculative rollout verification",
+                ("backend",),
+            ).labels(be.name)
+            self._obs_spec_verified = reg.counter(
+                "spec_draft_verified_tokens_total",
+                "Draft tokens accepted by the parallel verify pass",
+                ("backend",),
+            ).labels(be.name)
+
     @property
     def finished(self) -> bool:
         return self._closed or len(self._finished_rows) >= self._n_rows
@@ -1457,6 +1496,9 @@ class _PagedGenerateStream:
     def dispatch(self) -> None:
         """Launch one K-step window; nothing is read back until ``collect()``."""
         if self._closed or self._pending is not None or self.finished:
+            return
+        if self.speculative:
+            self._dispatch_verify()
             return
         be = self.backend
         with torch.inference_mode():
@@ -1472,12 +1514,49 @@ class _PagedGenerateStream:
             )
         self._pending = (tokens, emitted, self._done, self._hit_eos)
 
+    def _dispatch_verify(self) -> None:
+        """Speculative window: draft K tokens per live row on the host and
+        verify them in ONE ``paged_verify_steps`` launch.  Drafting happens
+        between collect() and dispatch(), so the window stays asynchronous
+        like the plain one."""
+        be = self.backend
+        k = self.decode_steps
+        drafts = np.zeros((self._target, k), np.int32)
+        live = 0
+        for row in range(self._n_rows):
+            if row in self._finished_rows:
+                continue
+            drafts[row] = self._proposers[row].draft(self._ctx[row], k)
+            live += 1
+        self.spec_proposed += live * k
+        self._obs_spec_proposed.inc(live * k)
+        with torch.inference_mode():
+            (tokens, emitted, accepted, self._pending_tok, self._state, self._lengths,
+             self._keys, self._done, self._budgets, self._hit_eos,
+             self._presence) = stepper.paged_verify_steps(
+                be.params, be.config, self._logits, self._state, self._tables,
+                self._lengths, self._keys, self._done, self._budgets, self._hit_eos,
+                temperature=self._temperatures, draft_tokens=be._to_device(drafts),
+                pending=self._pending_tok, eos_ids=self._eos_ids, num_steps=k,
+                bias_table=self._bias_table, bias_index=self._bias_index,
+                pad_id=be.tokenizer.pad_id, presence=self._presence,
+                rep_penalty=self._rep_penalty, has_pending=self._has_pending,
+                sampling=self._sampling,
+            )
+        # The carried prefill logits are consumed by the first window; every
+        # later first decision re-derives its logits from the pending column.
+        self._logits = None
+        self._has_pending = True
+        self._pending = (tokens, emitted, self._done, self._hit_eos, accepted)
+
     def collect(self) -> Tuple[List[int], Dict[int, GenerationResult]]:
         """Wait for the pending window; return (per-row emitted counts,
         {row: result}) for the rows that froze inside it."""
         if self._pending is None:
             raise RuntimeError("collect() before dispatch()")
-        tokens, emitted, done, hit = self.backend._fetch(*self._pending)
+        fetched = self.backend._fetch(*self._pending)
+        tokens, emitted, done, hit = fetched[:4]
+        accepted = fetched[4] if self.speculative else None
         self._pending = None
         row_tokens = [0] * self._n_rows
         newly_finished: Dict[int, GenerationResult] = {}
@@ -1487,11 +1566,18 @@ class _PagedGenerateStream:
             ids = [int(t) for t, e in zip(tokens[row], emitted[row]) if e]
             self._ids[row].extend(ids)
             row_tokens[row] = len(ids)
+            if accepted is not None and ids:
+                self._proposers[row].observe(ids)
+                self._ctx[row].extend(ids)
             if bool(done[row]):
                 self._finished_rows.add(row)
                 result = self._finish_row(row, bool(hit[row]))
                 self._results[row] = result
                 newly_finished[row] = result
+        if accepted is not None:
+            window_accepted = int(accepted[: self._n_rows].sum())
+            self.spec_accepted += window_accepted
+            self._obs_spec_verified.inc(window_accepted)
         if self.finished:
             self.backend.instruments.record_padding(
                 "generate_decode", self._n_rows,
@@ -1530,6 +1616,8 @@ class _PagedGenerateStream:
         self._pending = None
         self._state = None
         self._logits = None
+        if self.speculative:
+            self._pending_tok = None
 
 
 def _embed_forward(params, config: ModelConfig, tokens, valid) -> torch.Tensor:

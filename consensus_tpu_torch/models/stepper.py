@@ -36,8 +36,9 @@ with a write sink, chunked prefill of shared context pages, and a
 teacher-forced scoring pass reduced on the device; and the decode
 engine's paged programs (``stepper.py:835-1006, 1353-1391``): one decode
 step, the K-step window ``paged_decode_steps`` with per-row freezing into
-the sink page, and the read-only gather step over shared prefix pages.
-The speculative window (``paged_verify_steps``) waits for queue A8.
+the sink page, the speculative window ``paged_verify_steps`` (K draft
+columns teacher-forced in one forward, K+1 decisions on the sequential key
+schedule), and the read-only gather step over shared prefix pages.
 """
 
 from __future__ import annotations
@@ -826,6 +827,165 @@ def paged_decode_steps(
     return (
         torch.stack(tokens_out, dim=1), torch.stack(emitted_out, dim=1),
         logits, state, lengths, keys, done, budgets, hit_eos, presence,
+    )
+
+
+@torch.no_grad()
+def paged_verify_steps(
+    params,
+    config: ModelConfig,
+    logits: Optional[torch.Tensor],  # (B, V) float32 -- first-decision logits
+    #                                  (prefill out); read only without pending
+    state: PagedSlotState,
+    block_tables: torch.Tensor,  # (B, max_blocks) int, -1 padded
+    lengths: torch.Tensor,  # (B,) int32 -- tokens whose K/V is WRITTEN (the
+    #                         pending token, when present, is not counted)
+    keys: torch.Tensor,  # (B, 2) per-row threefry keys
+    done: torch.Tensor,  # (B,) bool
+    budgets: torch.Tensor,  # (B,) int32 -- remaining emit budget
+    hit_eos: torch.Tensor,  # (B,) bool
+    temperature: torch.Tensor,  # (B,) float32
+    draft_tokens: torch.Tensor,  # (B, K) int32 -- per-row self-draft proposal
+    pending: torch.Tensor,  # (B,) int32 -- last emitted token, K/V unwritten
+    eos_ids: Optional[torch.Tensor] = None,  # (E,) int
+    num_steps: int = 1,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    logit_bias: Optional[torch.Tensor] = None,
+    bias_table: Optional[torch.Tensor] = None,
+    bias_index: Optional[torch.Tensor] = None,
+    pad_id: int = 0,
+    presence: Optional[torch.Tensor] = None,  # (B, V) bool seen-token mask
+    rep_penalty: Optional[torch.Tensor] = None,  # (B,) float32
+    has_pending: bool = False,
+    sampling: bool = True,
+):
+    """Draft-and-verify variant of :func:`paged_decode_steps`
+    (``stepper.py:1015-1227``): ONE window emits ``1 + accepted`` real
+    tokens instead of one per step.
+
+    The K per-row draft tokens are teacher-forced through ONE paged forward
+    (K columns, or K+1 with the pending column), then K+1 sampling
+    decisions replay the sequential per-row key-split schedule: decision t
+    splits the row's key and samples from the logits the sequential window
+    would have carried at that step, so the accepted prefix plus the first
+    correction token are the sequential decisions.  A row stops deciding
+    the moment it diverges from its draft; its key has then split exactly
+    once per decision made, so the next window resumes the sequential
+    schedule unchanged (keys advance only on real decisions).  With
+    ``sampling`` False (greedy throughout, known on the host) no key splits,
+    as in :func:`paged_decode_steps`.
+
+    Pending-token protocol: a correction (or the bonus token sampled after
+    a fully accepted draft) is emitted without its K/V being written; the
+    next window forwards it as column 0 (``has_pending``) and derives the
+    first decision's logits from its hidden, so ``lengths`` counts exactly
+    the written tokens and the ``ceil((prompt + max_tokens) / page_size)``
+    page reservation holds under variable emission.
+
+    Draft columns write their K/V optimistically (later columns attend
+    earlier ones); a column goes to the SINK when its row was done at entry
+    or its position falls past the block table.  Rejected-tail writes sit
+    past the row's final ``lengths``, masked out of every read and
+    overwritten when those positions go live.
+
+    Returns ``(tokens (B, K+1), emitted (B, K+1), accepted (B,) int32,
+    pending, state, lengths, keys, done, budgets, hit_eos, presence)``;
+    ``accepted`` counts emitted draft matches (not the correction or bonus
+    token), and the trailing tensors re-enter the next window with
+    ``has_pending=True``."""
+    batch = draft_tokens.shape[0]
+    if draft_tokens.shape[1] != num_steps:
+        raise ValueError("draft_tokens must carry num_steps columns")
+    device = draft_tokens.device
+    page_size = state.k_pages.shape[2]
+    sink = state.k_pages.shape[1] - 1
+    max_blocks = block_tables.shape[1]
+    if bias_table is not None:
+        logit_bias = bias_table[bias_index.long()]
+    use_rp = presence is not None and rep_penalty is not None
+    done_entry = done
+
+    # One teacher-forced forward over the window's columns.
+    cols = torch.cat([pending[:, None], draft_tokens], dim=1) if has_pending else draft_tokens
+    s = cols.shape[1]
+    positions = lengths[:, None] + torch.arange(s, dtype=lengths.dtype, device=device)[None, :]
+    page_idx = positions // page_size
+    page = torch.gather(block_tables, 1, torch.clamp(page_idx, max=max_blocks - 1).long())
+    write_pages = torch.where(
+        done_entry[:, None] | (page_idx >= max_blocks) | (page < 0),
+        torch.full_like(page, sink), page,
+    )
+    write_offsets = torch.where(done_entry[:, None], torch.zeros_like(positions), positions % page_size)
+    attn_lengths = torch.where(
+        done_entry, lengths, torch.clamp(lengths + s, max=max_blocks * page_size)
+    )
+    hidden, state = _paged_forward(
+        params, config, cols, positions, state, block_tables, attn_lengths,
+        write_pages, write_offsets,
+    )
+
+    # Decision t (t = 0..K) samples the token at new position t.  Its
+    # context is the written stream plus [pending?, d_0..d_{t-1}]: with a
+    # pending column that is hidden column t, without one column t-1
+    # (decision 0 then samples from the CARRIED prefill logits).
+    if has_pending:
+        first_logits = project_logits(params, config, hidden[:, 0, :])
+        dec_hidden = hidden[:, 1:, :]
+    else:
+        first_logits = logits
+        dec_hidden = hidden
+    # d_1..d_{K-1}, then the bonus sentinel -1 that never matches.
+    drafts_next = torch.cat(
+        [draft_tokens, torch.full((batch, 1), -1, dtype=draft_tokens.dtype, device=device)], dim=1
+    )
+    rows = torch.arange(batch, device=device)
+    pad = torch.full((batch,), pad_id, dtype=torch.int32, device=device)
+    ok = torch.ones((batch,), dtype=torch.bool, device=device)
+    accepted = torch.zeros((batch,), dtype=torch.int32, device=device)
+    tokens_out, emitted_out = [], []
+    for t in range(num_steps + 1):
+        logits_t = first_logits if t == 0 else project_logits(params, config, dec_hidden[:, t - 1, :])
+        real = ok & ~done
+        sub = None
+        if sampling:
+            pairs = threefry.split(keys)
+            keys = torch.where(real[:, None], pairs[:, 0], keys)
+            sub = pairs[:, 1]
+        token = sample_tokens(
+            logits_t, temperature=temperature, top_k=top_k, top_p=top_p,
+            logit_bias=logit_bias, presence=presence if use_rp else None,
+            rep_penalty=rep_penalty if use_rp else None, keys=sub,
+            all_greedy=not sampling,
+        )
+        token = torch.where(real, token, pad)
+        if use_rp:
+            idx = token.long()
+            presence[rows, idx] = presence[rows, idx] | real
+        if eos_ids is None or eos_ids.numel() == 0:
+            token_is_eos = torch.zeros_like(done)
+        else:
+            token_is_eos = (token[:, None] == eos_ids[None, :]).any(dim=-1) & real
+        emit = real & ~token_is_eos & (budgets > 0)
+        done = done | (real & (token_is_eos | (budgets <= 0)))
+        hit_eos = hit_eos | token_is_eos
+        budgets = budgets - emit.to(budgets.dtype)
+        # A row keeps deciding only while every emitted token matched its
+        # draft; the correction / bonus token ends its window, left pending.
+        ok = emit & (token == drafts_next[:, t])
+        accepted = accepted + ok.to(torch.int32)
+        pending = torch.where(emit, token, pending)
+        tokens_out.append(token)
+        emitted_out.append(emit)
+    written = accepted
+    if has_pending:
+        # The carried pending token's K/V went live this window (rows done
+        # at entry wrote the sink and stay frozen).
+        written = written + (~done_entry).to(torch.int32)
+    lengths = lengths + written.to(lengths.dtype)
+    return (
+        torch.stack(tokens_out, dim=1), torch.stack(emitted_out, dim=1), accepted,
+        pending, state, lengths, keys, done, budgets, hit_eos, presence,
     )
 
 

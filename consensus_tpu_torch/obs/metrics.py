@@ -1,7 +1,7 @@
 """Thread-safe labeled metrics: counters, gauges, log-bucketed histograms
-(PyTorch port of ``consensus_tpu/obs/metrics.py``: the same families,
-snapshot schema and Prometheus text, so the ``metrics.json`` of either
-package reads the same).
+and mergeable quantile sketches (PyTorch port of
+``consensus_tpu/obs/metrics.py``: the same families, snapshot schema and
+Prometheus text, so the ``metrics.json`` of either package reads the same).
 
 Design constraints, in order:
 
@@ -28,6 +28,17 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
+from consensus_tpu_torch.obs.sketch import (
+    DEFAULT_RELATIVE_ACCURACY,
+    QuantileSketch,
+    diff_sketch_series,
+    merge_sketch_series,
+    quantile_from_series,
+)
+
+#: Quantiles rendered for sketch families in the Prometheus exposition.
+SKETCH_EXPORT_QUANTILES = (0.5, 0.9, 0.95, 0.99)
+
 
 def exponential_buckets(start: float, factor: float, count: int) -> Tuple[float, ...]:
     """``count`` log-spaced upper bounds: start, start*factor, ..."""
@@ -46,7 +57,7 @@ DEFAULT_TIME_BUCKETS = exponential_buckets(1e-4, 2.0, 20)
 #: 1 .. 2048 in powers of two — batch fills, rows, merged request counts.
 DEFAULT_COUNT_BUCKETS = exponential_buckets(1.0, 2.0, 12)
 
-_KINDS = ("counter", "gauge", "histogram")
+_KINDS = ("counter", "gauge", "histogram", "sketch")
 
 
 class Counter:
@@ -129,6 +140,8 @@ class MetricFamily:
         help: str = "",
         label_names: Sequence[str] = (),
         buckets: Optional[Sequence[float]] = None,
+        relative_accuracy: float = DEFAULT_RELATIVE_ACCURACY,
+        extreme: str = "high",
     ) -> None:
         if kind not in _KINDS:
             raise ValueError(f"unknown metric kind {kind!r}")
@@ -139,6 +152,8 @@ class MetricFamily:
         self.buckets = (
             tuple(buckets) if buckets is not None else DEFAULT_TIME_BUCKETS
         )
+        self.relative_accuracy = float(relative_accuracy)
+        self.extreme = extreme
         self._lock = threading.Lock()
         self._children: Dict[Tuple[str, ...], Any] = {}
 
@@ -159,6 +174,11 @@ class MetricFamily:
                         child = Counter()
                     elif self.kind == "gauge":
                         child = Gauge()
+                    elif self.kind == "sketch":
+                        child = QuantileSketch(
+                            relative_accuracy=self.relative_accuracy,
+                            extreme=self.extreme,
+                        )
                     else:
                         child = Histogram(self.buckets)
                     self._children[key] = child
@@ -171,8 +191,11 @@ class MetricFamily:
     def set(self, value: float) -> None:
         self.labels().set(value)
 
-    def observe(self, value: float) -> None:
-        self.labels().observe(value)
+    def observe(self, value: float, trace_id: Optional[str] = None) -> None:
+        if self.kind == "sketch":
+            self.labels().observe(value, trace_id)
+        else:
+            self.labels().observe(value)
 
     def _series(self) -> List[Tuple[Tuple[str, ...], Any]]:
         with self._lock:
@@ -194,11 +217,21 @@ class Registry:
         help: str,
         labels: Sequence[str],
         buckets: Optional[Sequence[float]] = None,
+        relative_accuracy: float = DEFAULT_RELATIVE_ACCURACY,
+        extreme: str = "high",
     ) -> MetricFamily:
         with self._lock:
             family = self._families.get(name)
             if family is None:
-                family = MetricFamily(name, kind, help, labels, buckets)
+                family = MetricFamily(
+                    name,
+                    kind,
+                    help,
+                    labels,
+                    buckets,
+                    relative_accuracy=relative_accuracy,
+                    extreme=extreme,
+                )
                 self._families[name] = family
             elif family.kind != kind or family.label_names != tuple(labels):
                 raise ValueError(
@@ -222,6 +255,26 @@ class Registry:
     ):
         return self._family(name, "histogram", help, labels, buckets)
 
+    def sketch(
+        self,
+        name: str,
+        help: str = "",
+        labels: Sequence[str] = (),
+        relative_accuracy: float = DEFAULT_RELATIVE_ACCURACY,
+        extreme: str = "high",
+    ):
+        """A mergeable quantile-sketch family (see ``obs/sketch.py``):
+        relative-error-bounded percentiles whose per-replica series can be
+        federated into an exact fleet-level distribution."""
+        return self._family(
+            name,
+            "sketch",
+            help,
+            labels,
+            relative_accuracy=relative_accuracy,
+            extreme=extreme,
+        )
+
     def reset(self) -> None:
         with self._lock:
             self._families.clear()
@@ -242,6 +295,9 @@ class Registry:
             }
             if family.kind == "histogram":
                 entry["bucket_boundaries"] = list(family.buckets)
+            elif family.kind == "sketch":
+                entry["relative_accuracy"] = family.relative_accuracy
+                entry["extreme"] = family.extreme
             for key, child in family._series():
                 series: Dict[str, Any] = {
                     "labels": dict(zip(family.label_names, key))
@@ -255,6 +311,8 @@ class Registry:
                             max=child.max,
                             bucket_counts=list(child.bucket_counts),
                         )
+                elif family.kind == "sketch":
+                    series.update(child.series_view())
                 else:
                     series["value"] = child.value
                 entry["series"].append(series)
@@ -268,7 +326,10 @@ class Registry:
 
 def prometheus_text(snapshot: Mapping[str, Any]) -> str:
     """Render any registry snapshot (live, diffed, or federated) as the
-    Prometheus text exposition format."""
+    Prometheus text exposition format.  Sketch families render as
+    summaries: ``name{quantile="0.99"}`` series (reconstructed from the
+    stores, so a federated snapshot exposes honest merged percentiles)
+    plus ``name_sum`` / ``name_count``."""
     lines: List[str] = []
     snap = snapshot.get("families", {})
     for name in sorted(snap):
@@ -276,7 +337,8 @@ def prometheus_text(snapshot: Mapping[str, Any]) -> str:
         if family["help"]:
             lines.append(f"# HELP {name} {family['help']}")
         kind = family["type"]
-        lines.append(f"# TYPE {name} {kind}")
+        exposition_type = "summary" if kind == "sketch" else kind
+        lines.append(f"# TYPE {name} {exposition_type}")
         for series in family["series"]:
             labels = series["labels"]
             if kind == "histogram":
@@ -292,6 +354,27 @@ def prometheus_text(snapshot: Mapping[str, Any]) -> str:
                 cumulative += series["bucket_counts"][-1]
                 le = dict(labels, le="+Inf")
                 lines.append(f"{name}_bucket{_format_labels(le)} {cumulative}")
+                lines.append(
+                    f"{name}_sum{_format_labels(labels)} "
+                    f"{_format_value(series['sum'])}"
+                )
+                lines.append(
+                    f"{name}_count{_format_labels(labels)} {series['count']}"
+                )
+            elif kind == "sketch":
+                accuracy = family.get(
+                    "relative_accuracy", DEFAULT_RELATIVE_ACCURACY
+                )
+                for q in SKETCH_EXPORT_QUANTILES:
+                    value = quantile_from_series(
+                        series, q, relative_accuracy=accuracy
+                    )
+                    if value is None:
+                        continue
+                    ql = dict(labels, quantile=f"{q:g}")
+                    lines.append(
+                        f"{name}{_format_labels(ql)} {_format_value(value)}"
+                    )
                 lines.append(
                     f"{name}_sum{_format_labels(labels)} "
                     f"{_format_value(series['sum'])}"
@@ -372,6 +455,12 @@ def diff_snapshots(
                         "bucket_counts": counts,
                     }
                 )
+            elif family["type"] == "sketch":
+                delta = diff_sketch_series(old, series)
+                if delta is None:
+                    continue
+                delta["labels"] = dict(series["labels"])
+                series_out.append(delta)
             elif family["type"] == "counter":
                 value = series["value"] - (old["value"] if old else 0.0)
                 if value == 0:
@@ -392,6 +481,11 @@ def diff_snapshots(
             }
             if family["type"] == "histogram":
                 entry["bucket_boundaries"] = list(family["bucket_boundaries"])
+            elif family["type"] == "sketch":
+                entry["relative_accuracy"] = family.get(
+                    "relative_accuracy", DEFAULT_RELATIVE_ACCURACY
+                )
+                entry["extreme"] = family.get("extreme", "high")
             out_families[name] = entry
     return {"families": out_families}
 
@@ -407,6 +501,11 @@ def merge_snapshots(snapshots: Iterable[Mapping[str, Any]]) -> Dict[str, Any]:
                 extra_schema["bucket_boundaries"] = list(
                     family["bucket_boundaries"]
                 )
+            elif family["type"] == "sketch":
+                extra_schema["relative_accuracy"] = family.get(
+                    "relative_accuracy", DEFAULT_RELATIVE_ACCURACY
+                )
+                extra_schema["extreme"] = family.get("extreme", "high")
             target = out_families.setdefault(
                 name,
                 {
@@ -425,7 +524,13 @@ def merge_snapshots(snapshots: Iterable[Mapping[str, Any]]) -> Dict[str, Any]:
                         {k: (dict(v) if k == "labels" else v) for k, v in series.items()}
                     )
                     continue
-                if family["type"] == "histogram":
+                if family["type"] == "sketch":
+                    merge_sketch_series(
+                        existing,
+                        series,
+                        extreme=family.get("extreme", "high"),
+                    )
+                elif family["type"] == "histogram":
                     existing["count"] += series["count"]
                     existing["sum"] += series["sum"]
                     existing["bucket_counts"] = [

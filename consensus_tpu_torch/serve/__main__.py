@@ -20,10 +20,7 @@ the CPU, the only way there (a tiny model only).
 SIGINT/SIGTERM drains gracefully: admission closes (new requests get 429),
 queued and in-flight requests finish, then the process exits.
 
-``--fleet`` > 1, ``--fleet-options``, ``--elastic``, ``--autoscale``,
-``--watchdog-timeout-s`` (a fleet option), ``--speculative``,
-``--state-dir``, ``--telemetry`` and ``--slo`` raise ``NotImplementedError``
-naming queue A8; ``--mesh`` names A9.
+``--mesh`` raises ``NotImplementedError`` naming queue A9.
 """
 
 from __future__ import annotations
@@ -229,7 +226,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "serving": server.base_url,
         "endpoints": ["POST /v1/consensus", "GET /healthz", "GET /metrics",
-                      "GET /v1/trace/<request_id>"],
+                      "GET /v1/trace/<request_id>", "GET /v1/slo"],
         "backend": args.backend,
         "max_queue_depth": args.max_queue_depth,
         "max_inflight": args.max_inflight,
@@ -250,11 +247,13 @@ def main(argv=None) -> int:
 
 
 def _shutdown(server, reason: str) -> None:
-    """Deterministic shutdown ordering: drain, then the blackbox dump.
+    """Deterministic shutdown ordering: drain → WAL seal → blackbox dump.
 
     The signal handler only records the reason and sets the stop event;
-    the actual teardown happens here, on the main thread: ``stop()``
-    drains the scheduler, and only then does the flight recorder dump."""
+    the actual teardown happens here, on the main thread.  ``stop()``
+    drains the scheduler, which seals the WAL as its last act — so by the
+    time the flight recorder dumps, the journal is sealed and the
+    blackbox can never capture a half-sealed journal."""
     from consensus_tpu_torch.obs.trace import get_flight_recorder
 
     server.stop(drain=True)

@@ -1,6 +1,5 @@
-"""Stdlib-only HTTP front end for the consensus scheduler (PyTorch port of
-``consensus_tpu/serve/http_frontend.py``, the single-replica server: the
-fleet's federated metrics and the SLO / welfare planes wait for queue A8).
+"""Stdlib-only HTTP front end for the consensus scheduler or the fleet
+router (PyTorch port of ``consensus_tpu/serve/http_frontend.py``).
 
 ``ThreadingHTTPServer`` (one thread per connection, stdlib, no new
 dependencies) in front of :class:`RequestScheduler`:
@@ -20,9 +19,16 @@ dependencies) in front of :class:`RequestScheduler`:
   liveness, device-batch accounting (the coalescing proof surface).
 * ``GET /metrics`` — Prometheus text exposition straight from the obs
   registry (the ``serve_*`` families plus everything the backends record).
+  With welfare telemetry on a fleet, the snapshot is federated first
+  (``obs/sketch.py``): per-replica sketches merge into exact
+  ``replica="fleet"`` series.
+* ``GET /v1/slo`` — burn rates, states, and the transition log from the
+  SLO engine (404 when the server was built without ``slo=True``); the
+  ``/healthz`` payload gains ``slo`` and ``welfare`` blocks when those
+  planes are armed.
 * ``GET /v1/trace/<request_id>`` — recent span trees; every response
-  (success or structured error) echoes a ``request_id`` so error bodies
-  are trace-addressable.
+  (success or structured error) echoes a ``request_id`` so sketch
+  exemplars and error bodies alike are trace-addressable.
 
 Handler threads block on their ticket while the scheduler's worker pool —
 not the connection pool — bounds device work; a handler thread waiting on
@@ -37,6 +43,7 @@ import itertools
 import json
 import logging
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
@@ -96,10 +103,22 @@ class ConsensusHTTPServer(ThreadingHTTPServer):
         address: Tuple[str, int],
         scheduler: RequestScheduler,
         registry: Optional[Registry] = None,
+        slo_engine: Optional[Any] = None,
+        telemetry: Optional[Any] = None,
+        federate_metrics: bool = False,
     ):
         super().__init__(address, ConsensusRequestHandler)
         self.scheduler = scheduler
         self.registry = registry if registry is not None else get_registry()
+        #: Optional obs.slo.SLOEngine — fed one event per terminal HTTP
+        #: response, served at GET /v1/slo and in the /healthz slo block.
+        self.slo_engine = slo_engine
+        #: Optional obs.welfare.ServeTelemetry (for the /healthz welfare
+        #: block; the schedulers hold their own reference for recording).
+        self.telemetry = telemetry
+        #: Fleet mode: /metrics federates per-replica sketch/counter
+        #: series into additional replica="fleet" series (obs/sketch.py).
+        self.federate_metrics = federate_metrics
 
 
 class ConsensusRequestHandler(BaseHTTPRequestHandler):
@@ -112,10 +131,26 @@ class ConsensusRequestHandler(BaseHTTPRequestHandler):
         if self.path == "/healthz":
             self._send_json(200, self._health_payload())
         elif self.path == "/metrics":
-            text = self.server.registry.to_prometheus()
+            if self.server.federate_metrics:
+                from consensus_tpu_torch.obs.metrics import prometheus_text
+                from consensus_tpu_torch.obs.sketch import federate_snapshot
+
+                text = prometheus_text(
+                    federate_snapshot(self.server.registry.snapshot())
+                )
+            else:
+                text = self.server.registry.to_prometheus()
             self._send_bytes(
                 200, text.encode("utf-8"), "text/plain; version=0.0.4"
             )
+        elif self.path == "/v1/slo":
+            engine = self.server.slo_engine
+            if engine is None:
+                self._send_error_json(
+                    404, "slo_disabled",
+                    "no SLO engine attached (create_server(slo=True))")
+            else:
+                self._send_json(200, engine.evaluate())
         elif self.path.startswith("/v1/trace/"):
             trace_id = urllib.parse.unquote(self.path[len("/v1/trace/"):])
             trace = get_trace_store().get(trace_id)
@@ -171,6 +206,8 @@ class ConsensusRequestHandler(BaseHTTPRequestHandler):
         get_trace_store().put(trace)
         scheduler = self.server.scheduler
         status = 500
+        degraded = False
+        started = time.monotonic()
         try:
             try:
                 with use_trace(trace, root):
@@ -222,6 +259,8 @@ class ConsensusRequestHandler(BaseHTTPRequestHandler):
                 }})
                 return
             status = 200
+            degraded = isinstance(result, dict) and bool(
+                result.get("degraded"))
             # End the root BEFORE snapshotting so the debug block's
             # critical path covers the full served latency.
             trace.end(root, status=200)
@@ -235,6 +274,15 @@ class ConsensusRequestHandler(BaseHTTPRequestHandler):
             self._send_json(200, result)
         finally:
             trace.end(root, status=status)
+            engine = self.server.slo_engine
+            if engine is not None:
+                # One terminal event per response: 2xx (degraded or not)
+                # counts as served; 4xx/5xx past admission burns budget.
+                engine.record_request(
+                    ok=status == 200,
+                    latency_s=time.monotonic() - started,
+                    degraded=degraded,
+                )
 
     # -- helpers -----------------------------------------------------------
 
@@ -273,12 +321,30 @@ class ConsensusRequestHandler(BaseHTTPRequestHandler):
         scheduler = self.server.scheduler
         stats = scheduler.stats()
         inner = scheduler.inner_backend
-        stats["status"] = "draining" if stats["draining"] else "ok"
+        if stats["draining"]:
+            stats["status"] = "draining"
+        elif (
+            "fleet" in stats
+            and stats["fleet"]["healthy"] < stats["fleet"]["size"]
+        ):
+            # Fleet-aggregated health: still serving, but with reduced
+            # redundancy — per-replica tier/breaker/brownout/occupancy is
+            # in stats["fleet"]["replicas"].
+            stats["status"] = "degraded"
+        else:
+            stats["status"] = "ok"
         stats["backend"] = {
             "name": getattr(inner, "name", type(inner).__name__),
             "model": getattr(inner, "model_name", ""),
             "alive": stats["workers_alive"] > 0,
         }
+        engine = self.server.slo_engine
+        if engine is not None:
+            engine.evaluate()
+            stats["slo"] = engine.states()
+        telemetry = self.server.telemetry
+        if telemetry is not None:
+            stats["welfare"] = telemetry.snapshot()
         return stats
 
     def _read_json(self) -> Any:
@@ -332,9 +398,21 @@ class ConsensusServer:
         host: str = "127.0.0.1",
         port: int = 8080,
         registry: Optional[Registry] = None,
+        slo_engine: Optional[Any] = None,
+        telemetry: Optional[Any] = None,
+        federate_metrics: bool = False,
     ):
         self.scheduler = scheduler
-        self._httpd = ConsensusHTTPServer((host, port), scheduler, registry)
+        self.slo_engine = slo_engine
+        self.telemetry = telemetry
+        self._httpd = ConsensusHTTPServer(
+            (host, port),
+            scheduler,
+            registry,
+            slo_engine=slo_engine,
+            telemetry=telemetry,
+            federate_metrics=federate_metrics,
+        )
         self._thread: Optional[threading.Thread] = None
 
     @property
@@ -348,6 +426,20 @@ class ConsensusServer:
 
     def start(self) -> "ConsensusServer":
         self.scheduler.start()
+        wal = getattr(self.scheduler, "wal", None)
+        if wal is not None:
+            # Crash recovery: re-admit the previous life's unresolved
+            # journal entries through normal admission BEFORE the HTTP
+            # socket takes new traffic.  Entries whose answers survived
+            # in the durable idempotency snapshot resolve instantly as
+            # idempotent replays; the rest recompute (byte-identical —
+            # everything is (prompt, seed)-keyed).
+            from consensus_tpu_torch.serve.wal import replay_unresolved
+
+            replayed = replay_unresolved(wal, self.scheduler)
+            if replayed:
+                logger.info(
+                    "replayed %d unresolved journal entries", replayed)
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="serve-http", daemon=True
         )

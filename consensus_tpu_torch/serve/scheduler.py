@@ -1,6 +1,6 @@
 """Request scheduler: bounded admission in front of the batched engine
-(PyTorch port of ``consensus_tpu/serve/scheduler.py``; the request WAL and
-the welfare telemetry sink wait for queue A8 and raise).
+(PyTorch port of ``consensus_tpu/serve/scheduler.py``, with its request WAL
+and welfare telemetry seams).
 
 Continuous-batching serving (Orca / vLLM lineage) splits the server into a
 front half that decides WHAT runs and a back half that decides HOW it runs.
@@ -40,9 +40,12 @@ Obs families (land in ``metrics.json`` / ``metrics.prom`` / ``/metrics``):
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import inspect
+import json
 import logging
+import pathlib
 import threading
 import time
 from typing import Any, Callable, Deque, Dict, List, Optional
@@ -53,6 +56,8 @@ from consensus_tpu_torch.methods.anytime import BudgetClock, BudgetExpired
 from consensus_tpu_torch.obs.metrics import Registry, get_registry
 from consensus_tpu_torch.obs.trace import trace_current, use_trace
 from consensus_tpu_torch.serve.brownout import BrownoutController
+from consensus_tpu_torch.serve.wal import result_hash as _result_hash
+from consensus_tpu_torch.utils.io_atomic import atomic_write_json
 
 logger = logging.getLogger(__name__)
 
@@ -103,31 +108,75 @@ def idempotency_key(request: Any, method: str = "") -> Optional[str]:
     return h.hexdigest()
 
 
+#: Snapshot file schema for the durable idempotency cache.
+IDEMPOTENCY_SCHEMA = "consensus_tpu.serve.idem.v1"
+
+
 class IdempotencyCache:
-    """Bounded LRU of completed results keyed by request identity, in
-    memory (the JAX package's durable snapshots belong to the request WAL,
-    queue A8).
+    """Bounded LRU of completed results keyed by request identity.
 
-    A scheduler given one records terminal ok/degraded results; a
-    re-dispatch of an already-answered request (the fleet router's
-    failover) resolves from it instead of executing a second time."""
+    Shared across a fleet: every replica's scheduler records terminal
+    ok/degraded results; the router consults it before RE-dispatching a
+    failed-over ticket, so a request whose first replica died AFTER
+    computing the answer is resolved from the cache instead of executed a
+    second time — zero duplicated requests under chaos, byte-identical
+    re-delivery.
 
-    def __init__(self, max_entries: int = 1024):
+    With ``snapshot_path`` the cache is DURABLE: entries are atomically
+    snapshotted every ``snapshot_every`` puts (and at drain), and a new
+    cache constructed over the same path restores them — so requests
+    replayed from the WAL after a crash-restart are answered from the
+    snapshot as ``idempotent_replay`` instead of recomputed."""
+
+    def __init__(self, max_entries: int = 1024,
+                 snapshot_path=None, snapshot_every: int = 8):
         self.max_entries = max(1, int(max_entries))
+        self.snapshot_path = (
+            pathlib.Path(snapshot_path) if snapshot_path else None
+        )
+        self.snapshot_every = max(1, int(snapshot_every))
         self._lock = threading.Lock()
         self._entries: "collections.OrderedDict[str, Dict[str, Any]]" = (
             collections.OrderedDict()
         )
         self.hits = 0
         self.puts = 0
+        self.restored = 0
+        if self.snapshot_path is not None and self.snapshot_path.exists():
+            try:
+                payload = json.loads(self.snapshot_path.read_text())
+            except (ValueError, OSError):
+                payload = {}
+            if payload.get("schema") == IDEMPOTENCY_SCHEMA:
+                for key, record in payload.get("entries", []):
+                    self._entries[str(key)] = record
+                self.restored = len(self._entries)
 
     def put(self, key: str, record: Dict[str, Any]) -> None:
+        snap = False
         with self._lock:
             self.puts += 1
             self._entries[key] = record
             self._entries.move_to_end(key)
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
+            snap = (self.snapshot_path is not None
+                    and self.puts % self.snapshot_every == 0)
+        if snap:
+            self.snapshot()
+
+    def snapshot(self) -> None:
+        """Atomic-replace the on-disk snapshot (no-op when not durable).
+        Entries are copied under the lock, written outside it — a crash
+        mid-write leaves the previous complete snapshot in place."""
+        if self.snapshot_path is None:
+            return
+        with self._lock:
+            entries = [[k, v] for k, v in self._entries.items()]
+        atomic_write_json(self.snapshot_path, {
+            "schema": IDEMPOTENCY_SCHEMA,
+            "entries": entries,
+        })
 
     def get(self, key: Optional[str]) -> Optional[Dict[str, Any]]:
         if key is None:
@@ -146,12 +195,16 @@ class IdempotencyCache:
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
-            return {
+            stats = {
                 "entries": len(self._entries),
                 "max_entries": self.max_entries,
                 "hits": self.hits,
                 "puts": self.puts,
             }
+            if self.snapshot_path is not None:
+                stats["snapshot_path"] = str(self.snapshot_path)
+                stats["restored"] = self.restored
+            return stats
 
 
 class Ticket:
@@ -244,12 +297,6 @@ class RequestScheduler:
         idempotency: Optional["IdempotencyCache"] = None,
         wal: Optional[Any] = None,
     ):
-        if telemetry is not None or wal is not None:
-            raise NotImplementedError(
-                "RequestScheduler(telemetry=..., wal=...), the welfare "
-                "telemetry sink and the request WAL, are not ported yet "
-                "(ROADMAP.md, queue A8)"
-            )
         if max_queue_depth < 1 or max_inflight < 1:
             raise ValueError("max_queue_depth and max_inflight must be >= 1")
         self.handler = handler
@@ -333,14 +380,37 @@ class RequestScheduler:
         #: Stamped by the fleet's Replica wrapper so spans and health report
         #: which replica served; empty for a standalone scheduler.
         self.replica_name = ""
-        #: Fleet tier of the owning replica ("full" / "degraded").
+        #: Fleet tier of the owning replica ("full" / "degraded"); feeds the
+        #: welfare-by-tier accounting when telemetry is on.
         self.replica_tier = ""
+        #: Optional :class:`~consensus_tpu_torch.obs.welfare.ServeTelemetry`.
+        #: None (the default) keeps the hot path byte-identical: the only
+        #: cost is one attribute check per terminal request.
+        self.telemetry = telemetry
         #: Optional fleet-shared :class:`IdempotencyCache`: completed
         #: results are recorded by request identity so a router re-dispatch
         #: of an already-answered request (its first replica died between
         #: computing and delivering) returns the SAME bytes instead of
         #: executing twice.
         self.idempotency = idempotency
+        #: Optional :class:`~consensus_tpu_torch.serve.wal.RequestWAL`.  When
+        #: armed, ``submit`` fsyncs an ``admitted`` record before
+        #: returning and ``_finish`` fsyncs the terminal outcome — the
+        #: crash-consistency contract.  None (the default, and always in
+        #: fleet mode where durability rides the shared idempotency
+        #: snapshot + PageStore spill instead) keeps the admission path
+        #: byte-identical to the non-durable build.
+        self.wal = wal
+        self._m_replay_served = (
+            reg.counter(
+                "serve_replay_served_total",
+                "Requests answered from the durable idempotency snapshot "
+                "at admission (WAL replay dedup) instead of recomputed.")
+            if wal is not None else None
+        )
+        #: Monotonic fallback ids for journaling anonymous requests (no
+        #: ``request_id`` → no dedup, but the request is still replayed).
+        self._wal_seq = 0
 
         self._lock = threading.Lock()
         self._work_cv = threading.Condition(self._lock)
@@ -381,6 +451,15 @@ class RequestScheduler:
                             "request was scheduled"),
                     )
                     self._m_rejected.labels("stopped").inc()
+                    if self.wal is not None:
+                        # A deliberate non-drain shutdown FAILS queued
+                        # work (clients were told "stopped"); journal the
+                        # outcome so the sealed journal replays nothing.
+                        wal_id = getattr(ticket, "_wal_id", None)
+                        if wal_id is not None:
+                            self.wal.record_resolved(
+                                wal_id, "failed",
+                                getattr(ticket, "_wal_key", None), None)
                 self._m_queue_depth.set(0)
             while self._queue or self._inflight_count:
                 remaining = None
@@ -399,6 +478,15 @@ class RequestScheduler:
         # Engine mode holds a scheduler thread of its own; release it once
         # no worker can issue further backend calls.
         self.batching.close()
+        # Durable-state epilogue, strictly AFTER the drain completed:
+        # final idempotency snapshot, then seal the journal.  A sealed
+        # journal is the "clean shutdown" marker — the next start replays
+        # nothing.  (The blackbox SIGTERM dump runs after stop() returns,
+        # so it can never capture a half-sealed journal.)
+        if self.idempotency is not None:
+            self.idempotency.snapshot()
+        if self.wal is not None:
+            self.wal.seal()
 
     # -- admission ---------------------------------------------------------
 
@@ -420,6 +508,10 @@ class RequestScheduler:
         active = trace_current()
         if active is not None:
             ticket.trace, ticket._span_parent = active
+        if self.wal is not None:
+            served = self._try_serve_from_snapshot(ticket)
+            if served is not None:
+                return served
         with self._lock:
             if self._stopped or self._draining:
                 self._m_rejected.labels("draining").inc()
@@ -444,11 +536,75 @@ class RequestScheduler:
                 ticket._span_queue = ticket.trace.begin(
                     "queue_wait", parent=ticket._span_parent,
                     replica=self.replica_name)
+            if self.wal is not None:
+                # Fsync'd BEFORE the ticket becomes poppable and before
+                # submit returns: once admission is acknowledged, a kill
+                # cannot lose the request.  Appending under the lock pins
+                # the admitted-before-dispatched ordering.
+                self._journal_admitted(ticket)
             self._queue.append(ticket)
             self._m_accepted.inc()
             self._m_queue_depth.set(len(self._queue))
             self._work_cv.notify()
         self._update_brownout()
+        return ticket
+
+    def _journal_admitted(self, ticket: Ticket) -> None:
+        """Append the ``admitted`` WAL record for one ticket (caller holds
+        ``_lock``).  Anonymous requests get a synthetic per-process id —
+        still journaled and replayed, just never deduplicated."""
+        request = ticket.request
+        method = getattr(request, "method", "unknown")
+        rid = getattr(request, "request_id", "") or ""
+        if not rid:
+            self._wal_seq += 1
+            rid = f"anon-{self._wal_seq}"
+        ticket._wal_id = rid
+        ticket._wal_key = idempotency_key(request, method)
+        payload: Dict[str, Any] = {}
+        if dataclasses.is_dataclass(request):
+            payload = dataclasses.asdict(request)
+        self.wal.record_admitted(rid, ticket._wal_key, payload)
+
+    def _try_serve_from_snapshot(self, ticket: Ticket) -> Optional[Ticket]:
+        """WAL-armed admission dedup: a request whose answer survived in
+        the durable idempotency snapshot is resolved instantly as an
+        ``idempotent_replay`` — never recomputed, and its bytes are
+        cross-checked against the journal's ``result_hash`` (a mismatch
+        is a loud :class:`~consensus_tpu_torch.serve.wal.WALIntegrityError`).
+        Returns the resolved ticket, or None to fall through to normal
+        admission.  Gated on the WAL being armed so the non-durable path
+        stays byte-identical."""
+        if self.idempotency is None:
+            return None
+        request = ticket.request
+        method = getattr(request, "method", "unknown")
+        key = idempotency_key(request, method)
+        record = self.idempotency.get(key) if key is not None else None
+        if record is None:
+            return None
+        rid = getattr(request, "request_id", "") or ""
+        value = record.get("value")
+        if isinstance(value, dict):
+            self.wal.verify_replay(rid, value)
+            value = dict(value)
+            value["idempotent_replay"] = True
+            if record.get("replica"):
+                value["served_by"] = record["replica"]
+            if record.get("tier"):
+                value["served_tier"] = record["tier"]
+        outcome = record.get("outcome", "ok")
+        # The journal still accounts this life's acceptance + resolution.
+        with self._lock:
+            ticket._wal_id = rid or f"replay-{id(ticket):x}"
+            ticket._wal_key = key
+            self.wal.record_admitted(ticket._wal_id, key, {})
+            self.wal.record_resolved(
+                ticket._wal_id, outcome, key, _result_hash(value))
+            self._m_accepted.inc()
+        if self._m_replay_served is not None:
+            self._m_replay_served.inc()
+        ticket._finish(outcome, value=value)
         return ticket
 
     def _update_brownout(self) -> None:
@@ -523,6 +679,13 @@ class RequestScheduler:
             stats["circuit_breaker"] = self.circuit_breaker.snapshot()
         if self.brownout is not None:
             stats["brownout"] = self.brownout.snapshot()
+        if self.wal is not None:
+            # Lands in /healthz via the frontend's stats() passthrough:
+            # journal state + durable idempotency cache in one block.
+            durability: Dict[str, Any] = {"wal": self.wal.stats()}
+            if self.idempotency is not None:
+                durability["idempotency"] = self.idempotency.stats()
+            stats["durability"] = durability
         return stats
 
     # -- workers -----------------------------------------------------------
@@ -679,6 +842,30 @@ class RequestScheduler:
             ticket.trace.end(ticket._span_queue)
             ticket.trace.end(ticket._span_handler, outcome=outcome,
                              attempts=ticket.attempts)
+        if self.telemetry is not None:
+            # Degraded-tier attribution: a non-full fleet tier wins, else
+            # the live brownout tier; "" lets telemetry fall back to the
+            # response's degraded_reason.
+            tier = ""
+            if self.replica_tier and self.replica_tier != "full":
+                tier = self.replica_tier
+            elif self.brownout is not None and self.brownout.tier:
+                tier = f"brownout{self.brownout.tier}"
+            self.telemetry.record_request(
+                method=method,
+                outcome=outcome,
+                latency_s=elapsed,
+                value=value,
+                replica=self.replica_name,
+                tier=tier,
+                # Exemplar linkage: the request id doubles as the trace id
+                # when the request carried a trace (GET /v1/trace/<id>).
+                trace_id=(
+                    getattr(ticket.request, "request_id", None)
+                    if ticket.trace is not None
+                    else None
+                ),
+            )
         if (self.idempotency is not None and value is not None
                 and outcome in ("ok", "degraded")):
             key = idempotency_key(ticket.request, method)
@@ -689,4 +876,14 @@ class RequestScheduler:
                     "replica": self.replica_name,
                     "tier": self.replica_tier,
                 })
+        if self.wal is not None:
+            # EVERY terminal outcome is journaled — timeouts and failures
+            # too, else a crash after a timeout would replay a request the
+            # client already saw fail.  result_hash only exists for
+            # value-bearing outcomes.
+            wal_id = getattr(ticket, "_wal_id", None)
+            if wal_id is not None:
+                self.wal.record_resolved(
+                    wal_id, outcome, getattr(ticket, "_wal_key", None),
+                    _result_hash(value) if value is not None else None)
         ticket._finish(outcome, value=value, error=error)

@@ -254,15 +254,19 @@ def test_unported_mesh_and_default_device():
 def test_experiment_refuses_unported_keys(tmp_path, key, item):
     """The three keys build their stacks now, as in the JAX engine:
     ``fault_plan`` / ``supervisor`` wrap the backend in
-    ``supervisor(faults(backend))``; ``engine`` runs the decode engine, whose
-    speculative windows still raise naming their queue item."""
+    ``supervisor(faults(backend))``; ``engine`` runs the decode engine,
+    whose speculative windows (queue A8) build too."""
     value = {"seed": 1} if key == "fault_plan" else True
     experiment = Experiment({key: value, "output_dir": str(tmp_path)}, backend=get_backend("fake"))
     if key == "engine":
         from consensus_tpu_torch.backends.engine import DecodeEngine
 
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            DecodeEngine(experiment.backend, speculative=True, auto_start=False)
+        engine = DecodeEngine(experiment.backend, speculative=True, auto_start=False)
+        try:
+            assert engine.speculative and engine.decode_steps == 4
+            assert engine.stats()["speculative"]["enabled"] is True
+        finally:
+            engine.close()
         return
     layer = experiment.backend if key == "supervisor" else experiment.backend.inner
     assert type(layer).__module__ == f"consensus_tpu_torch.backends.{item}"

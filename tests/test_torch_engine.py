@@ -551,6 +551,7 @@ class TestLedgerDispatchBlockSplit:
 # ---------------------------------------------------------------------------
 
 from consensus_tpu.backends.batching import BatchingBackend as JaxBatchingBackend  # noqa: E402
+from consensus_tpu.backends.engine import DecodeEngine as JaxDecodeEngine  # noqa: E402
 from consensus_tpu.backends.fake import FakeBackend as JaxFakeBackend  # noqa: E402
 from consensus_tpu.methods import get_method_generator as jax_method_generator  # noqa: E402
 
@@ -574,12 +575,25 @@ def test_engine_statement_matches_jax_engine(method):
 
 
 def test_engine_raises_for_speculative_and_mesh():
-    with pytest.raises(NotImplementedError, match="A8"):
-        DecodeEngine(FakeBackend(), speculative=True, auto_start=False)
+    """Speculative windows build now (``speculative`` alone implies K=4, as
+    in the JAX engine, and the fake stream drafts for real); ``mesh`` still
+    raises naming queue A9."""
+    engine = DecodeEngine(FakeBackend(), speculative=True, auto_start=False)
+    ref = JaxDecodeEngine(JaxFakeBackend(), speculative=True, auto_start=False)
+    try:
+        assert engine.speculative and engine.decode_steps == ref.decode_steps == 4
+        assert engine.stats()["speculative"] == ref.stats()["speculative"]
+    finally:
+        engine.close()
+        ref.close()
     with pytest.raises(NotImplementedError, match="A9"):
         DecodeEngine(FakeBackend(), mesh={"dp": 2, "tp": 1}, auto_start=False)
-    with pytest.raises(NotImplementedError, match="A8"):
-        FakeBackend().generate_stream([GenerationRequest(user_prompt="x")], speculative=True)
+    stream = FakeBackend().generate_stream([GenerationRequest(user_prompt="x", max_tokens=24)],
+                                           decode_steps=4, speculative=True)
+    while not stream.finished:
+        stream.dispatch()
+        stream.collect()
+    assert stream.speculative and stream.spec_proposed > 0
 
 
 # ---------------------------------------------------------------------------

@@ -304,10 +304,15 @@ def test_stream_counts_tokens_and_generate_calls(backends):
     assert port.token_counts["generated"] - before[0]["generated"] == sum(len(o[1]) for o in out)
 
 
-def test_suggest_kv_page_pool_and_speculative_raise(backends):
+def test_suggest_kv_page_pool_and_speculative_raise(backends, jax_stream):
+    """The page-pool suggestion, and the speculative stream, which builds
+    now: its tokens equal the plain stream's (exact on the CPU) and its
+    draft accounting counts every live row's K drafts per window."""
     ref, port = backends
     c = port.config
     per_token = int(2 * c.n_layers * c.n_kv_heads * c.head_dim * 1.25)
     assert port.suggest_kv_page_pool(16) == max(64, (port._session_budget.cap // 2) // (per_token * 16))
-    with pytest.raises(NotImplementedError, match="A8"):
-        port.generate_stream(_requests(GenerationRequest), decode_steps=4, speculative=True)
+    stream = port.generate_stream(_requests(GenerationRequest), decode_steps=4, speculative=True)
+    out, windows = _drain(stream)
+    assert out == jax_stream
+    assert stream.spec_proposed >= 4 * windows and 0 <= stream.spec_accepted <= stream.spec_proposed

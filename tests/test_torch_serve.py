@@ -3,15 +3,16 @@
 ``create_server`` and ``python -m consensus_tpu_torch.serve``) against the
 JAX package's.
 
-The reference's own cases (``tests/test_serve.py``, without the load
-generator's acceptance run, which waits for the fleet's port) run on the
-port over its fake backend: validation, admission, deadlines, retries,
+The reference's own cases (``tests/test_serve.py``; the load generator's
+acceptance run is in ``tests/test_torch_loadgen.py``) run on the port over
+its fake backend: validation, admission, deadlines, retries,
 drain, coalescing, 504/413 surfaces, and a served statement equal to the
 port's ``Experiment`` statement.  The parity cases send one payload to
 the port's server and to the JAX package's (each over its own fake
 backend: bit-equal) and require equal JSON, timing fields excepted; run
 the CLI as a subprocess (startup JSON, a request, ``/healthz``, SIGTERM
-drain, exit 0); and check that every deferred option raises
+drain, exit 0); and check that the fleet, WAL, telemetry, SLO and
+speculative options build and serve while ``mesh`` raises
 ``NotImplementedError`` naming its queue item."""
 
 import json
@@ -71,6 +72,11 @@ def _post(base_url, payload, timeout=30.0):
             return response.status, json.loads(response.read().decode())
     except urllib.error.HTTPError as exc:
         return exc.code, json.loads(exc.read().decode())
+
+
+def _get_json(url, timeout=10.0):
+    with urllib.request.urlopen(url, timeout=timeout) as response:
+        return json.loads(response.read().decode())
 
 
 class SlowCountingBackend:
@@ -740,9 +746,36 @@ def test_faulted_supervised_server_equals_jax_server():
     ({"mesh": "dp=2,tp=1"}, "A9"),
     ({"engine_options": {"speculative": True}}, "A8"),
 ])
-def test_deferred_options_raise_naming_their_item(option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        create_server(backend=FakeBackend(), port=0, registry=Registry(), **option)
+def test_deferred_options_raise_naming_their_item(option, item, tmp_path):
+    """The queue-A8 options build their serving planes now and the server
+    answers through them; ``mesh`` (A9) still raises naming its item."""
+    if item != "A8":
+        with pytest.raises(NotImplementedError, match=item):
+            create_server(backend=FakeBackend(), port=0, registry=Registry(), **option)
+        return
+    if "state_dir" in option:
+        option = {"state_dir": str(tmp_path / option["state_dir"])}
+    server = create_server(backend=FakeBackend(), port=0, registry=Registry(), **option)
+    server.start()
+    try:
+        status, body = _post(server.base_url, {
+            "issue": TOPIC, "agent_opinions": OPINIONS, "method": "best_of_n",
+            "params": dict(PARAMS), "seed": 7, "request_id": f"a8-{sorted(option)[0]}"})
+        health = _get_json(server.base_url + "/healthz")
+    finally:
+        server.stop()
+        from consensus_tpu_torch.obs.welfare import set_welfare_sink
+
+        set_welfare_sink(None)
+    assert status == 200 and body["statement"]
+    if "fleet_size" in option or "fleet_options" in option:
+        assert "fleet" in health
+    if "state_dir" in option:
+        assert health["durability"]["wal"]["unresolved"] == 0
+    if "slo" in option:
+        assert "slo" in health
+    if "telemetry" in option:
+        assert "welfare" in health
 
 
 @pytest.mark.parametrize("name, item", [("api", "API judge"), ("openai", "API judge")])
@@ -782,8 +815,35 @@ def test_cli_serves_and_drains_on_sigterm(tmp_path):
     (["--fleet", "2"], "A8"), (["--speculative"], "A8"), (["--state-dir", "x"], "A8"),
     (["--telemetry"], "A8"), (["--slo"], "A8"), (["--mesh", "dp=2,tp=1"], "A9"),
 ])
-def test_cli_deferred_flags_raise(flags, item):
-    from consensus_tpu_torch.serve.__main__ import main
+def test_cli_deferred_flags_raise(flags, item, tmp_path):
+    """The queue-A8 flags serve now (a subprocess answers one request and
+    drains on SIGTERM, its startup JSON naming the plane); ``--mesh`` (A9)
+    still raises before serving."""
+    if item != "A8":
+        from consensus_tpu_torch.serve.__main__ import main
 
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--backend", "fake", "--port", "0", "--log-level", "WARNING", *flags])
+        with pytest.raises(NotImplementedError, match=item):
+            main(["--backend", "fake", "--port", "0", "--log-level", "WARNING", *flags])
+        return
+    flags = [str(tmp_path / f) if f == "x" else f for f in flags]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "consensus_tpu_torch.serve", "--backend", "fake",
+         "--port", "0", "--log-level", "WARNING", *flags],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
+    )
+    try:
+        startup = json.loads(proc.stdout.readline())
+        if "--fleet" in flags:
+            assert startup["fleet"] == 2
+        if "--speculative" in flags:
+            assert startup["speculative"] is True
+        status, body = _post(startup["serving"], {"issue": TOPIC, "agent_opinions": OPINIONS,
+                                                  **PARITY_PAYLOADS["best_of_n"]})
+        assert status == 200 and body["statement"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
