@@ -3,8 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py sweep_path mcts_path concurrent_path serve_path
-fleet_path`` runs any of those late phases alone, with no summary and no
-``ok`` line).  Phases, one JSON
+fleet_path checkpoint_path`` runs any of those late phases alone, with no
+summary and no ``ok`` line).  Phases, one JSON
 line each; any failure exits non-zero:
 
 1. ``device``  -- the card (nvidia-smi name and power limit), torch and CUDA.
@@ -93,7 +93,7 @@ line each; any failure exits non-zero:
    north_star ``backend_options`` plus ``use_decode_attention``), counts
    zeroed just before and read just after: ``configs/examples/mcts.yaml``
    through ``Experiment``; ``configs/north_star/gemma/scenario_1/mcts.yaml``
-   as ``run_sweep`` finds it, through ``run_pipeline`` (one seed, 8 tokens,
+   as ``run_sweep`` finds it, through ``run_pipeline`` (one seed, 4 tokens,
    the method's ``pin_budget`` timing mode) with its evaluation under
    gemma2-2b (flash_attention); a wave of 8 rollouts through ``rollout_many``
    against ``rollout_from`` on each path and speculative against sequential;
@@ -109,8 +109,9 @@ line each; any failure exits non-zero:
    ``configs/north_star/gemma/scenario_1/habermas_vs_best_of_n.yaml`` as
    ``run_sweep`` finds it, through ``run_pipeline`` with its evaluation
    under gemma2-2b, in the timing mode (``timing_pin_budget``), cut to one
-   seed of 5, best_of_n n in {1, 3, 5, 10}, habermas num_candidates in {1,
-   3} and 32 of its 700 tokens; then the same runs one after another; (b)
+   seed of 5, best_of_n n in {1, 3, 5, 10} and 64 of its 150 tokens,
+   habermas num_candidates in {1, 3} and 32 of its 700 tokens; then the
+   same runs one after another; (b)
    scenario 1's beam_search config, widths {2, 4}, 8 of 50 tokens, pinned,
    with brushup, concurrent then sequential: every session fused and opened
    through ``BatchingBackend.open_fused_token_search``.  Checks: a recorded
@@ -156,6 +157,22 @@ line each; any failure exits non-zero:
    without speculation, and one cohort through ``generate_stream`` both
    ways: tokens equal or first differing at a draw of margin under 0.1,
    drafts proposed, accepted tokens per dispatch printed.
+18. ``checkpoint_path`` -- real weights on gemma2-2b at full width and its
+   real vocab (256128), in one temporary directory removed at the end:
+   seeded random bf16 params written as a 3-shard HF checkpoint (the
+   writer is ``export_hf`` here: the package has no exporter);
+   ``TorchBackend(checkpoint=<hf dir>, quantization="int8")`` with both
+   kernels, its params bit for bit ``quantize_params`` of the source;
+   ``cli/ingest_checkpoint.ingest`` (int8, on the host CPU) and
+   ``TorchBackend(checkpoint=<ingested>)``, its params bit for bit the
+   same; both generate 4 seeded rows of 32 pinned tokens through
+   decode_attention and score two statements under 3 agents through
+   flash_attention, with identical ids and logprobs, counts zeroed just
+   before and read just after; ``utils/mfu`` TFLOP/s and % of the H100's
+   peak, the walls of the write, the HF load, the ingest and the restore,
+   bytes on disk and peak device and host memory; then
+   ``theory.run_experiment`` at ``--quick`` size on the card against the
+   port's CPU run (alphas within a relative 1e-3, TV within 1e-3).
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -892,7 +909,7 @@ def decode_route_check(backend, config):
 
 #: token_search_path's finite lookahead at seed 43: cut from the config's
 #: 200 tokens for time.
-LOOKAHEAD_SEED_TOKENS = 64
+LOOKAHEAD_SEED_TOKENS = 32
 
 
 def token_search_path():
@@ -1652,8 +1669,9 @@ def _evaluation_columns(agents):
 
 #: Habermas's budget a phase: cut from the config's 700 for time (its
 #: rankings decode every agent's ranking to the full pinned budget, the
-#: retries included).
-HABERMAS_TOKENS = 256
+#: retries included); 128 is the least budget that still decodes in
+#: segments (two of 64 columns).
+HABERMAS_TOKENS = 128
 
 
 def habermas_eval_path():
@@ -1838,7 +1856,7 @@ def habermas_eval_path():
         retried = following is not None and following["attempt"] == 1
         expected = unparsed > 0 and not batch["deterministic_greedy"]
         retry_semantics &= retried == expected and (not retried or following["rows"] == unparsed)
-    long_budget = 256  # HABERMAS_TOKENS on the {1, 1.5} x power-of-two ladder
+    long_budget = HABERMAS_TOKENS  # on the {1, 1.5} x power-of-two ladder
     long_routes = [name for name, budget in budgets if budget == long_budget]
     judge_dir = run_dir / "evaluation" / "llm_judge" / "seed_0"
     gemma, llama = (evaluations.get(m, {}) for m in models)
@@ -2280,7 +2298,10 @@ def sweep_path(params=None):
 MCTS_EXAMPLE_CONFIG = "configs/examples/mcts.yaml"
 MCTS_SWEEP_ROOT = "configs/north_star"
 #: Depth cuts of the north_star config (100 tokens, 5 seeds in the file).
-MCTS_SWEEP_TOKENS = 8
+MCTS_SWEEP_TOKENS = 4
+#: The rollout check's session steps: its cache's tail width, and so the
+#: shapes whose rounding the batched and single rollouts are held to.
+ROLLOUT_MAX_STEPS = 8
 #: The methods' own timing mode: no node or path is terminal, so the search
 #: runs its whole budget (random weights propose an EOS within a few tokens).
 PIN_BUDGET = {"pin_budget": True}
@@ -2366,7 +2387,7 @@ def mcts_rollout_check(backend, config):
         agent_prompts=tuple(agent_prompt(scenario["issue"], o, variant="mcts")
                             for o in opinions.values()),
         n_slots=1, k=int(cfg["expansion_sample_width"]), temperature=1.0, seed=config["seed"],
-        sample=True, bias_against_tokens=BIAS_AGAINST_TOKENS, max_steps=MCTS_SWEEP_TOKENS,
+        sample=True, bias_against_tokens=BIAS_AGAINST_TOKENS, max_steps=ROLLOUT_MAX_STEPS,
         failure_logprob=FAILURE_REWARD, spec_draft_len=depth,
     )
     plain = backend.open_fused_token_search(spec)
@@ -2703,7 +2724,7 @@ CONCURRENT_ROOT = "configs/north_star"
 #: scenario 1's beam_search config for the time limit; widths unchanged.
 CONCURRENT_CUTS = {
     "num_seeds": 1,
-    "best_of_n": {"n": [1, 3, 5, 10]},
+    "best_of_n": {"n": [1, 3, 5, 10], "max_tokens": 64},
     "habermas_machine": {"num_candidates": [1, 3], "max_tokens": 32},
 }
 CONCURRENT_BEAM_CUTS = {"num_seeds": 1, "beam_search": {"beam_width": [2, 4], "max_tokens": 8}}
@@ -3199,7 +3220,7 @@ SERVE_REQUESTS = (
 )
 #: Depth cut of (b) and (c) for the time limit: max_tokens per method, and
 #: no evaluation ((a) evaluates every response).
-SERVE_CUT_TOKENS = {"best_of_n": 32, "beam_search": 8, "zero_shot": 32}
+SERVE_CUT_TOKENS = {"best_of_n": 16, "beam_search": 8, "zero_shot": 16}
 #: (c): one transient error on the first generate call, one NaN in row 0
 #: of the first score call, under ``supervise``.
 SERVE_FAULT_PLAN = {"seed": 3, "faults": [
@@ -4053,14 +4074,318 @@ def fleet_path(params=None):
     return row, launches, shapes
 
 
+# -- real weights: HF checkpoint, ingest, restore ----------------------------------
+
+CHECKPOINT_MODEL = "gemma2-2b"
+CHECKPOINT_SHARDS = 3
+CHECKPOINT_SEED = 11
+CHECKPOINT_ROWS = 4
+CHECKPOINT_TOKENS = 32
+CHECKPOINT_PROMPTS = (
+    "Should the city add bike lanes?",
+    "Write one sentence every neighbour can accept about the new park.",
+    "Summarize the group's view on public transport funding.",
+    "What do the agents agree on about school hours?",
+)
+CHECKPOINT_AGENTS = {
+    "Agent 1": "Cities should build more bike lanes.",
+    "Agent 2": "Roads are for cars; bikes slow traffic.",
+    "Agent 3": "Only where streets are wide enough.",
+}
+CHECKPOINT_STATEMENTS = (
+    "Build bike lanes where streets are wide enough, and keep car lanes elsewhere.",
+    "The city should study traffic before deciding.",
+)
+#: theory.run_experiment on the card against the port's CPU run: the
+#: tolerances tests/test_torch_theory.py holds the port to against JAX.
+THEORY_ALPHA_RTOL = 1e-3
+THEORY_TV_ATOL = 1e-3
+#: HF names of the per-layer matrices: (ours, HF suffix); HF stores (out, in).
+HF_MATRICES = (
+    ("wq", "self_attn.q_proj.weight"), ("wk", "self_attn.k_proj.weight"),
+    ("wv", "self_attn.v_proj.weight"), ("wo", "self_attn.o_proj.weight"),
+    ("w_gate", "mlp.gate_proj.weight"), ("w_up", "mlp.up_proj.weight"),
+    ("w_down", "mlp.down_proj.weight"),
+)
+
+
+def export_hf(params, config, out_dir, shards):
+    """Write the port's (unquantized) params as an HF checkpoint directory:
+    HF tensor names, (out, in) projections, ``shards`` files
+    ``model-0000k-of-0000n.safetensors`` and a ``config.json`` naming the
+    family and width.  The inverse of ``models/loader.py``; returns the
+    bytes written."""
+    from consensus_tpu_torch.utils import safetensors_io
+
+    c = config
+    tensors = {"model.embed_tokens.weight": params["embed"],
+               "model.norm.weight": params["final_norm"]}
+    if "lm_head" in params:
+        tensors["lm_head.weight"] = params["lm_head"]
+    for i, layer in enumerate(params["layers"]):
+        prefix = f"model.layers.{i}."
+        for ours, hf in HF_MATRICES:
+            tensors[prefix + hf] = layer[ours].t()
+        tensors[prefix + "input_layernorm.weight"] = layer["attn_norm"]
+        if c.use_post_norms:
+            tensors[prefix + "post_attention_layernorm.weight"] = layer["post_attn_norm"]
+            tensors[prefix + "pre_feedforward_layernorm.weight"] = layer["ffn_norm"]
+            tensors[prefix + "post_feedforward_layernorm.weight"] = layer["post_ffn_norm"]
+        else:
+            tensors[prefix + "post_attention_layernorm.weight"] = layer["ffn_norm"]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    names = sorted(tensors)
+    chunk = -(-len(names) // shards)
+    written = 0
+    for shard in range(shards):
+        file = f"model-{shard + 1:05d}-of-{shards:05d}.safetensors"
+        piece = {n: tensors[n].contiguous() for n in names[shard * chunk:(shard + 1) * chunk]}
+        written += safetensors_io.save_file(piece, out_dir / file, metadata={"format": "pt"})
+        del piece
+    family = "gemma2" if "gemma" in c.name else "llama"
+    (out_dir / "config.json").write_text(json.dumps({
+        "model_type": family, "hidden_size": c.d_model, "num_hidden_layers": c.n_layers,
+        "num_attention_heads": c.n_heads, "num_key_value_heads": c.n_kv_heads,
+        "head_dim": c.head_dim, "intermediate_size": c.ffn_hidden, "vocab_size": c.vocab_size,
+        "tie_word_embeddings": c.tie_lm_head, "torch_dtype": "bfloat16",
+    }, indent=1))
+    return written
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*") if f.is_file())
+
+
+def _params_equal(a, b) -> bool:
+    """Every leaf bit for bit, int8 weights as their q and scale."""
+    import torch
+
+    from consensus_tpu_torch.utils.checkpoint import flatten_params
+
+    (ta, qa), (tb, qb) = flatten_params(a), flatten_params(b)
+    return qa == qb and ta.keys() == tb.keys() and all(
+        ta[k].dtype == tb[k].dtype and ta[k].shape == tb[k].shape
+        and bool(torch.equal(ta[k], tb[k].to(ta[k].device))) for k in ta
+    )
+
+
+class _HostPeak:
+    """The process's largest resident set while the phase runs, sampled."""
+
+    def __init__(self):
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+                    if line.startswith("VmRSS:"):
+                        self.peak = max(self.peak, int(line.split()[1]) * 1024)
+            except OSError:
+                return
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def checkpoint_path():
+    """Real weights on gemma2-2b at full width and its real vocab (256128)
+    -> (row, launches, decode shapes, the K1 case at the scoring's shape).
+    In one temporary directory, removed at the end: (1) seeded random bf16
+    params from ``init_params``, written as an HF checkpoint in
+    CHECKPOINT_SHARDS shards; (2) ``TorchBackend(checkpoint=<hf dir>,
+    quantization="int8")`` with both kernels: its params bit for bit
+    ``quantize_params`` of the source; (3) ``cli/ingest_checkpoint.ingest``
+    (int8, on the host CPU) and ``TorchBackend(checkpoint=<ingested>)``: its
+    params bit for bit those of (2); (4) both backends generate
+    CHECKPOINT_ROWS seeded rows of CHECKPOINT_TOKENS pinned tokens through
+    K2 and score fixed statements under 3 agents through K1: identical ids
+    and logprobs; (5) ``utils/mfu`` for (4), the walls, bytes on disk and
+    peak memory; (6) ``theory.run_experiment`` at ``--quick`` size on the
+    card against the port's CPU run."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from consensus_tpu_torch import theory
+    from consensus_tpu_torch.backends.base import GenerationRequest, ScoreRequest
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.cli.ingest_checkpoint import ingest
+    from consensus_tpu_torch.evaluation import EVAL_SYSTEM_TEMPLATE
+    from consensus_tpu_torch.models.config import get_model_config
+    from consensus_tpu_torch.models.loader import infer_config_name
+    from consensus_tpu_torch.models.quant import quantize_params
+    from consensus_tpu_torch.models.transformer import init_params
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+    from consensus_tpu_torch.utils import mfu
+
+    config = get_model_config(CHECKPOINT_MODEL)
+    options = dict(model=CHECKPOINT_MODEL, quantization="int8", use_flash_attention=True,
+                   use_decode_attention=True, pin_generation_budget=True, device="cuda")
+    generate = [GenerationRequest(user_prompt=p, max_tokens=CHECKPOINT_TOKENS, temperature=1.0,
+                                  seed=100 + i) for i, p in enumerate(CHECKPOINT_PROMPTS)]
+    score = [ScoreRequest(context=EVAL_SYSTEM_TEMPLATE.format(issue=CHECKPOINT_PROMPTS[0],
+                                                              opinion=opinion),
+                          continuation=statement, role="user")
+             for statement in CHECKPOINT_STATEMENTS for opinion in CHECKPOINT_AGENTS.values()]
+    walls, sizes, runs = {}, {}, {}
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="checkpoint_path_", dir=OUT_DIR))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _HostPeak() as host:
+            t0 = time.perf_counter()
+            generator = torch.Generator(device="cuda")
+            generator.manual_seed(CHECKPOINT_SEED)
+            source = init_params(config, generator, "cuda", torch.bfloat16)
+            torch.cuda.synchronize()
+            walls["init_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hf_dir = root / "hf"
+            export_hf(source, config, hf_dir, CHECKPOINT_SHARDS)
+            walls["write_s"] = time.perf_counter() - t0
+            sizes["hf_bytes"] = _dir_bytes(hf_dir)
+            inferred = infer_config_name(str(hf_dir))
+
+            t0 = time.perf_counter()
+            from_hf = TorchBackend(checkpoint=str(hf_dir), **options)
+            torch.cuda.synchronize()
+            walls["hf_load_s"] = time.perf_counter() - t0
+            hf_equal = _params_equal(from_hf.params, quantize_params(source))
+            del source
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            ingested = ingest(str(hf_dir), str(root / "ingested"), model=None,
+                              quantization="int8", dtype="bfloat16")
+            walls["ingest_s"] = time.perf_counter() - t0
+            sizes["ingested_bytes"] = _dir_bytes(ingested)
+            t0 = time.perf_counter()
+            restored = TorchBackend(checkpoint=str(ingested), **options)
+            torch.cuda.synchronize()
+            walls["restore_s"] = time.perf_counter() - t0
+            restored_equal = _params_equal(restored.params, from_hf.params)
+
+            # One short warm-up call of each kind outside the window: the
+            # timed runs measure the model, not first-call set-up.
+            from_hf.generate([dataclasses.replace(generate[0], max_tokens=2)])
+            from_hf.score(score[:1])
+            torch.cuda.synchronize()
+            fa.launches.reset()
+            da.launches.reset()
+            for name, backend in (("hf", from_hf), ("ingested", restored)):
+                t0 = time.perf_counter()
+                generated = backend.generate(generate)
+                torch.cuda.synchronize()
+                generate_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                scored = backend.score(score)
+                torch.cuda.synchronize()
+                runs[name] = {"generate_s": generate_s, "score_s": time.perf_counter() - t0,
+                              "ids": [list(r.token_ids) for r in generated],
+                              "logprobs": [list(r.logprobs) for r in scored]}
+            launches = {"flash_attention": fa.launches.count, "decode_attention": da.launches.count}
+            decode_shapes = {k: (c, a) for k, (c, a) in da.launches.shapes.items()}
+            last_flash = (fa.launches.last_shapes,
+                          tuple(t.tolist() for t in fa.launches.last_spans)
+                          ) if launches["flash_attention"] else None
+            device_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            vocab = from_hf.config.vocab_size
+            del from_hf, restored
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            card_curves, card_tv = theory.run_experiment(**theory.QUICK, out_plot=None,
+                                                         device="cuda")
+            walls["theory_card_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu_curves, cpu_tv = theory.run_experiment(**theory.QUICK, out_plot=None,
+                                                       device="cpu")
+            walls["theory_cpu_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    n_params = mfu.param_count(config)
+    tokens = sum(len(ids) for ids in runs["hf"]["ids"]) + sum(
+        len(lp) for lp in runs["hf"]["logprobs"])
+    for run in runs.values():
+        run["tokens"] = tokens
+        run["wall_s"] = run["generate_s"] + run["score_s"]
+        run["tflops"] = mfu.useful_tflops_per_sec(n_params, tokens, run["wall_s"])
+        run["pct_of_h100_peak"] = mfu.pct_of_peak(run["tflops"])
+    theory_match = card_curves.keys() == cpu_curves.keys() and all(
+        np.allclose(card_curves[k], cpu_curves[k], rtol=THEORY_ALPHA_RTOL, atol=0)
+        for k in cpu_curves) and abs(card_tv - cpu_tv) <= THEORY_TV_ATOL
+    flash_case_row = None
+    if last_flash is not None:
+        (q_shape, k_shape), (lens, starts) = last_flash
+        flash_case_row = flash_case(
+            "gemma2-2b checkpoint scoring, last launch's shape and spans", q_shape[0],
+            q_shape[1], q_shape[2], k_shape[2], q_shape[3], lens, starts, seed=53,
+            scale=config.q_scale, softcap=config.attn_softcap,
+        )
+    generated_rows = runs["hf"]["ids"]
+    checks = {
+        "infer_config_name_gemma2_2b": inferred == CHECKPOINT_MODEL,
+        "real_vocab": vocab == config.vocab_size == 256128,
+        "hf_params_eq_quantize_params_of_source": hf_equal,
+        "restored_params_eq_hf_params": restored_equal,
+        "identical_token_ids": runs["hf"]["ids"] == runs["ingested"]["ids"],
+        "identical_logprobs": runs["hf"]["logprobs"] == runs["ingested"]["logprobs"],
+        "rows_of_pinned_length": len(generated_rows) == CHECKPOINT_ROWS and all(
+            len(ids) == CHECKPOINT_TOKENS for ids in generated_rows),
+        "logprobs_finite": all(np.isfinite(lp).all() and len(lp) > 0
+                               for lp in runs["hf"]["logprobs"]),
+        "flash_launched": launches["flash_attention"] > 0,
+        "decode_launched": launches["decode_attention"] > 0,
+        "gemma2_2b_flash_case_within_tolerance": bool(flash_case_row and flash_case_row["ok"]),
+        "theory_card_matches_cpu": bool(theory_match),
+        "temporary_directory_removed": not root.exists(),
+    }
+    row = {
+        "phase": "checkpoint_path", "model": CHECKPOINT_MODEL, "d_model": config.d_model,
+        "n_layers": config.n_layers, "vocab": vocab, "shards": CHECKPOINT_SHARDS,
+        "walls": walls, "bytes_on_disk": sizes,
+        "peak_memory_gb": {"device": device_peak_gb, "host_rss": host.peak / 1e9},
+        "runs": {name: {k: v for k, v in run.items() if k not in ("ids", "logprobs")}
+                 for name, run in runs.items()},
+        "first_row_ids": generated_rows[0][:16] if generated_rows else [],
+        "n_params": n_params,
+        "theory": {"card": {"alphas": card_curves, "tv": card_tv},
+                   "cpu": {"alphas": cpu_curves, "tv": cpu_tv},
+                   "tolerance": f"alphas rtol {THEORY_ALPHA_RTOL}, tv atol {THEORY_TV_ATOL}"},
+        "launches": launches,
+        "decode_shapes": [
+            {"q": list(q), "trunk": list(t), "tail": list(l), "launches": count}
+            for (q, t, l), (count, _) in decode_shapes.items()
+        ],
+        "gemma2_2b_flash_case": flash_case_row,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return row, launches, decode_shapes, flash_case_row
+
+
 def late_phases_alone(names) -> int:
     """``python3 chip_smoke.py sweep_path mcts_path concurrent_path
-    serve_path fleet_path`` (any of them): those phases alone, for
-    iterating on them; concurrent_path runs on mcts_path's backend, and
-    fleet_path builds its own in-process weights.  Prints their lines, no
+    serve_path fleet_path checkpoint_path`` (any of them): those phases
+    alone, for iterating on them; concurrent_path runs on mcts_path's
+    backend, and fleet_path and checkpoint_path build their own weights.  Prints their lines, no
     summary and no ``ok`` line; exits 1 if a phase failed."""
     unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path",
-                            "fleet_path"}
+                            "fleet_path", "checkpoint_path"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     rows = []
@@ -4081,6 +4406,8 @@ def late_phases_alone(names) -> int:
         rows.append(serve_path()[0])
     if "fleet_path" in names:
         rows.append(fleet_path()[0])
+    if "checkpoint_path" in names:
+        rows.append(checkpoint_path()[0])
     for row in rows:
         emit(row)
     return 0 if all(row["ok"] for row in rows) else 1
@@ -4186,6 +4513,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     emit(fleet_row)
+    checkpoint_row, checkpoint_launches, checkpoint_shapes, checkpoint_case = checkpoint_path()
+    emit(checkpoint_row)
+    if checkpoint_case is None:
+        fail("the checkpoint path launched no flash-attention kernel")
 
     paths = {
         "main_path": launches, "token_search_path": search_launches,
@@ -4194,13 +4525,14 @@ def main() -> int:
         "fallback_session_path": fallback_launches, "sweep_path": sweep_launches,
         "mcts_path": mcts_launches, "concurrent_path": concurrent_launches,
         "serve_path": serve_launches, "fleet_path": fleet_launches,
+        "checkpoint_path": checkpoint_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
         main_shapes, main_spans,
         max([c["max_abs_err"] for c in flash_cases]
             + [gemma_case["max_abs_err"], next_token_case["max_abs_err"],
-               mcts_case["max_abs_err"]]),
+               mcts_case["max_abs_err"], checkpoint_case["max_abs_err"]]),
     )
     flash_entry["by_path"] = {name: p["flash_attention"] for name, p in paths.items()}
     case_keys = ("shape", "softcap", "window", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -4208,9 +4540,10 @@ def main() -> int:
     flash_entry["gemma2_9b_evaluation"] = {key: gemma_case[key] for key in case_keys}
     flash_entry["next_token_topk"] = {key: next_token_case[key] for key in case_keys}
     flash_entry["gemma2_2b_evaluation"] = {key: mcts_case[key] for key in case_keys}
+    flash_entry["gemma2_2b_checkpoint"] = {key: checkpoint_case[key] for key in case_keys}
     decode_shapes = dict(search_shapes)
     for more in (generate_shapes, fallback_shapes, sweep_shapes, mcts_shapes, concurrent_shapes,
-                 serve_shapes, fleet_shapes):
+                 serve_shapes, fleet_shapes, checkpoint_shapes):
         for key, (count, args) in more.items():
             decode_shapes[key] = (decode_shapes.get(key, (0, None))[0] + count, args)
     decode_entry, decode_ok = summary_decode(
@@ -4223,7 +4556,7 @@ def main() -> int:
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
-              serve_row, fleet_row]
+              serve_row, fleet_row, checkpoint_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

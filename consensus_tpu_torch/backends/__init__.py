@@ -10,11 +10,13 @@ is the deterministic, hardware-free
 a ``{"name": ..., **options}`` dict and passes Backend instances through
 unchanged.  The default stays ``torch``: the port's entry points run on the
 card unless told otherwise (the JAX package defaults to ``fake``).  The HTTP
-backends ``api`` and ``openai`` (the API judge) raise
-``NotImplementedError`` naming their queue item.  Every call builds a new
-instance (the port caches none), so ``fresh=True``, which fleet serving
-passes to keep replicas from aliasing one backend, is accepted and changes
-nothing.
+backends ``api`` (:class:`~consensus_tpu_torch.backends.api.APIBackend`) and
+``openai`` (:class:`~consensus_tpu_torch.backends.api.OpenAIBackend`, the
+API judge) build lazily: without their client package or a key every call
+returns the reference's error sentinels.  Every call builds a new instance
+(the port caches none), so ``fresh=True``, which fleet serving passes to
+keep replicas from aliasing one backend, is accepted and changes nothing,
+and ``clear_backend_cache`` has nothing to clear.
 
 ``wrap_backend`` layers the fault-tolerance stack over a resolved backend:
 ``supervisor(faults(backend))``.
@@ -32,17 +34,13 @@ from consensus_tpu_torch.backends.base import (  # noqa: F401
     PartialBatchError,
     RequestCancelled,
     TransientBackendError,
+    generate_one,
+    score_one,
 )
 
 #: Names of the resident on-device backend: the backend that takes model
 #: options, a device and ``pin_generation_budget``.
 RESIDENT = ("torch", "tpu")
-
-#: Backends of the JAX package that wait for a later slice.
-_NOT_PORTED = {
-    "api": "evaluation (the API judge backend, backends/api.py)",
-    "openai": "evaluation (the API judge backend, backends/api.py)",
-}
 
 
 def get_backend(name: Any = "torch", *, fresh: bool = False, **options) -> Backend:
@@ -51,10 +49,14 @@ def get_backend(name: Any = "torch", *, fresh: bool = False, **options) -> Backe
         name = options.pop("name", "torch")
     if not isinstance(name, str):
         return name
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet (ROADMAP.md, queue A: {_NOT_PORTED[name]})"
-        )
+    if name == "api":
+        from consensus_tpu_torch.backends.api import APIBackend
+
+        return APIBackend(**options)
+    if name == "openai":
+        from consensus_tpu_torch.backends.api import OpenAIBackend
+
+        return OpenAIBackend(**options)
     if name == "fake":
         from consensus_tpu_torch.backends.fake import FakeBackend
 
@@ -62,11 +64,16 @@ def get_backend(name: Any = "torch", *, fresh: bool = False, **options) -> Backe
     if name not in RESIDENT:
         raise ValueError(
             f"unknown backend {name!r}: the PyTorch port has the resident backend, "
-            f"named {' or '.join(map(repr, RESIDENT))}, and 'fake'"
+            f"named {' or '.join(map(repr, RESIDENT))}, 'fake', 'api' and 'openai'"
         )
     from consensus_tpu_torch.backends.torch_backend import TorchBackend
 
     return TorchBackend(**options)
+
+
+def clear_backend_cache() -> None:
+    """The JAX package's ``clear_backend_cache``: a no-op here, since
+    ``get_backend`` builds a new backend on every call and caches none."""
 
 
 def wrap_backend(
@@ -101,4 +108,7 @@ def wrap_backend(
     return backend
 
 
-__all__ = ["RESIDENT", "Backend", "get_backend", "wrap_backend"]
+__all__ = [
+    "RESIDENT", "Backend", "clear_backend_cache", "generate_one", "get_backend", "score_one",
+    "wrap_backend",
+]

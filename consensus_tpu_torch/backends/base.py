@@ -221,3 +221,11 @@ class Backend(Protocol):
         """Return an (len(texts), dim) float array of unit-normalized embeddings."""
         ...
 
+
+
+def generate_one(backend: Backend, request: GenerationRequest) -> GenerationResult:
+    return backend.generate([request])[0]
+
+
+def score_one(backend: Backend, request: ScoreRequest) -> ScoreResult:
+    return backend.score([request])[0]

@@ -43,6 +43,12 @@ config) and runs each protocol call as padded device batches:
   reference); ``suggest_kv_page_pool``
   sizes the engine's page pool from the session budget.
 
+Weights: ``checkpoint`` names a raw HF safetensors directory
+(``models/loader.py``) or one written by ``cli/ingest_checkpoint.py`` in
+the port's own format (``utils/checkpoint.py``), as ``tpu.py:264-331``;
+``params`` passes a parameter dict; with neither the weights are random,
+drawn from ``base_seed``.
+
 ``pin_generation_budget`` is the reference's timing mode (every generation
 to its full budget: no EOS stop, no stop strings).  Every call records into
 ``self.instruments`` (``obs/backends.py``) at the counterparts of
@@ -64,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
+import pathlib
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -93,6 +100,7 @@ from consensus_tpu_torch.backends.score_matrix import (
 from consensus_tpu_torch.models import generate as gen
 from consensus_tpu_torch.models import stepper
 from consensus_tpu_torch.models.config import ModelConfig, get_model_config
+from consensus_tpu_torch.models.loader import load_params
 from consensus_tpu_torch.models.quant import is_quantized, quantize_params
 from consensus_tpu_torch.models.stepper import (
     rollout_scored,
@@ -229,11 +237,9 @@ class TorchBackend:
     ):
         if tp != 1 or (dp is not None and dp != 1) or mesh is not None:
             raise _not_ported("tp/dp/mesh", "multi-GPU")
-        if checkpoint is not None:
-            raise _not_ported("checkpoint loading", "multi-GPU (checkpoints, HF safetensors)")
-        # The older name of ``kv_quant``: no config of the repo sets it.
+        # The older name of ``kv_quant``, kept as an alias (``tpu.py:232-233``).
         if quantize_frozen_kv is not None:
-            raise _not_ported("quantize_frozen_kv (pass kv_quant)", "A6, once a config sets it")
+            kv_quant = bool(quantize_frozen_kv)
         if quantization not in (None, "none", "int8"):
             raise ValueError(f"unknown quantization mode: {quantization!r}")
         if dtype not in _DTYPES:
@@ -267,8 +273,10 @@ class TorchBackend:
         self.model_name = model
         family = "llama" if "llama" in self.config.name else "gemma"
         self.tokenizer = get_tokenizer(tokenizer, family=family)
-        # A tokenizer-sized vocab keeps random-weight runs self-consistent.
-        if self.tokenizer.vocab_size != self.config.vocab_size:
+        # A tokenizer-sized vocab keeps random-weight runs self-consistent;
+        # a checkpoint keeps the model's vocab (the byte tokenizer then uses
+        # its first ids only).
+        if self.tokenizer.vocab_size != self.config.vocab_size and checkpoint is None:
             self.config = dataclasses.replace(
                 self.config, vocab_size=self.tokenizer.vocab_size
             )
@@ -281,6 +289,15 @@ class TorchBackend:
             self.params = params
             if self.quantization == "int8" and not is_quantized(params):
                 self.params = quantize_params(params)
+        elif checkpoint and (pathlib.Path(checkpoint) / "ingest.json").exists():
+            self.params = self._restore_ingested(checkpoint, dtype)
+        elif checkpoint:
+            # A raw HF safetensors directory: each tensor lands on the device
+            # in the backend's dtype and, with int8, is quantized there.
+            self.params = load_params(
+                checkpoint, self.config, _DTYPES[dtype], self.device,
+                int8=self.quantization == "int8",
+            )
         else:
             logger.warning(
                 "TorchBackend: no checkpoint given -- using RANDOM weights (%s). "
@@ -312,17 +329,52 @@ class TorchBackend:
         self.instruments = BackendInstruments("tpu")
         self._unseeded_calls = 0
         self._nonce_lock = threading.Lock()
-        # Live-session budget (``tpu.py:412-419``), read from what the device
-        # has free once the weights are resident instead of a fixed HBM size.
+        #: The device memory left beside the resident weights, read ONCE,
+        #: now: the counterpart of the reference's fixed ``_HBM_BYTES -
+        #: params`` (``tpu.py:412-419``, ``:728-731``).  Row buckets and the
+        #: session budget derive from it, so a request's shapes do not follow
+        #: what other tenants of the card (another fleet replica, the CUDA
+        #: cache) hold at call time.
+        self._device_budget = self._free_device_bytes()
         self._session_budget = _SessionBudget(
             min(
                 _SESSION_CACHE_BYTES_CAP,
                 max(
                     _SESSION_MIN_BUDGET_BYTES,
-                    self._free_device_bytes() - _ACTIVATION_RESERVE_BYTES,
+                    self._device_budget - _ACTIVATION_RESERVE_BYTES,
                 ),
             )
         )
+
+    def _restore_ingested(self, checkpoint: str, dtype: str) -> Dict[str, Any]:
+        """Parameters of a directory written by ``cli/ingest_checkpoint.py``,
+        restored to the device in their stored form (int8 leaves stay as
+        stored: no quantize pass), after the manifest is checked against this
+        backend's model, dtype and quantization (``tpu.py:264-322``)."""
+        from consensus_tpu_torch.cli.ingest_checkpoint import read_manifest
+        from consensus_tpu_torch.utils.checkpoint import restore_params
+
+        meta = read_manifest(checkpoint)
+        mismatches = []
+        if meta.get("model") and meta["model"] != self.config.name:
+            mismatches.append(
+                f"model: ingested {meta['model']!r} vs backend {self.config.name!r}"
+            )
+        if meta.get("dtype") and meta["dtype"] != dtype:
+            mismatches.append(f"dtype: ingested {meta['dtype']!r} vs backend {dtype!r}")
+        ingested_quant = meta.get("quantization") or None
+        if ingested_quant != self.quantization:
+            mismatches.append(
+                f"quantization: ingested {ingested_quant!r} vs backend "
+                f"{self.quantization!r} — re-run cli/ingest_checkpoint with "
+                "the matching --quantization"
+            )
+        if mismatches:
+            raise ValueError(
+                f"ingested checkpoint {checkpoint} does not match this "
+                "backend: " + "; ".join(mismatches)
+            )
+        return restore_params(str(pathlib.Path(checkpoint) / "params"), self.device)
 
     # -- helpers -------------------------------------------------------------
 
@@ -448,6 +500,8 @@ class TorchBackend:
         return threefry.fold_in(base, torch.tensor(folds, dtype=torch.int64, device=self.device))
 
     def _free_device_bytes(self) -> int:
+        """What the device has free, this process's cached blocks included
+        (read once, when the weights are resident: ``_device_budget``)."""
         if self.device.type != "cuda":
             return _CPU_BUDGET_BYTES
         free, _ = torch.cuda.mem_get_info(self.device)
@@ -457,11 +511,12 @@ class TorchBackend:
         return free + cached
 
     def _rows_for(self, row_bytes: int) -> int:
-        """Largest batch of ``row_bytes``-per-row decode state that fits in
-        free device memory, rounded down to the {1, 1.5} x power-of-two
-        ladder (``tpu.py:717-748``, with the budget read from
-        ``torch.cuda.mem_get_info`` instead of a fixed HBM size)."""
-        budget = self._free_device_bytes() - _ACTIVATION_RESERVE_BYTES
+        """Largest batch of ``row_bytes``-per-row decode state that fits the
+        fixed device budget beside the live search sessions, rounded down to
+        the {1, 1.5} x power-of-two ladder (``tpu.py:717-748``)."""
+        budget = (
+            self._device_budget - _ACTIVATION_RESERVE_BYTES - self._session_budget.used
+        )
         allowed = max(1, budget // max(1, row_bytes))
         bucket = 1
         while bucket * 2 <= allowed:

@@ -4,9 +4,10 @@ Evaluate either a run directory's ``results.csv`` or an ad-hoc
 ``{method: statement}`` file against a scenario config, with optional
 LLM-judge scores and comparative ranking.  The evaluation model runs in a
 ``TorchBackend`` on the card unless ``--device cpu`` is given;
-``--judge-backend resident`` judges with that same backend, and the API
-judge (``openai``, the default as in the JAX package) raises
-``NotImplementedError`` until it is ported.
+``--judge-backend resident`` judges with that same backend; the API
+judge (``openai``, the default as in the JAX package) is
+``backends/api.py``'s ``OpenAIBackend``, whose calls return the reference's
+error sentinel without the ``openai`` package and a key.
 
 Usage::
 
@@ -122,7 +123,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     eval_group.add_argument(
         "--judge-backend", default=None,
         help="Backend spec for the judge: resident (the evaluation backend) "
-        "or openai (default; not ported yet)",
+        "or openai (default: the API judge)",
     )
     eval_group.add_argument("--include-comparative-ranking", action="store_true")
 

@@ -10,7 +10,7 @@ layout as the fallback).
 
 The judge: ``judge_backend: resident`` (or no ``judge_backend`` key) judges
 with the generation backend's own model; any other name goes through
-``get_backend`` (``openai`` raises until the API judge is ported).
+``get_backend`` (``openai`` is the API judge of ``backends/api.py``).
 ``evaluation_backends: {model: {name: torch, ...options}}`` routes an
 evaluation model to a backend of its own, built for its phase and freed
 after it, so a second 9B model never shares the card with a third.

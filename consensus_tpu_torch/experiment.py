@@ -393,6 +393,7 @@ class Experiment:
 
                     batching = BatchingBackend(
                         self.backend,
+                        flush_ms=float(self.config.get("batch_flush_ms", 10.0)),
                         expected_sessions=min(max_workers, len(pending)),
                         engine=bool(self.config.get("engine", False)),
                         engine_options=self.config.get("engine_options"),

@@ -33,6 +33,11 @@ GENERATOR_MAP: Dict[str, Type[BaseGenerator]] = {
 }
 
 
+def register_generator(name: str, cls: Type[BaseGenerator]) -> None:
+    """Add (or replace) a method under ``name`` for ``get_method_generator``."""
+    GENERATOR_MAP[name] = cls
+
+
 def get_method_generator(
     method_name: str,
     backend: Backend,
@@ -63,4 +68,5 @@ __all__ = [
     "PredefinedStatementGenerator",
     "ZeroShotGenerator",
     "get_method_generator",
+    "register_generator",
 ]

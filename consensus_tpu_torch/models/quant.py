@@ -26,6 +26,10 @@ import torch
 QUANTIZED_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+#: float32(1 / 127), held exactly in a Python float.
+_INV_127 = (torch.tensor(1.0, dtype=torch.float32) / 127.0).item()
+
+
 @dataclasses.dataclass
 class QTensor:
     """An int8 weight + float32 per-channel scales, posing as one tensor."""
@@ -43,12 +47,22 @@ class QTensor:
         return self.q.shape
 
 
-def quantize(w: torch.Tensor, contract_axis: int) -> QTensor:
+def quantize(w: torch.Tensor, contract_axis: int, scale_by_reciprocal: bool = False) -> QTensor:
     """Symmetric absmax int8 quantization with scales per output channel
-    (``quant.py:65-73`` of the JAX package)."""
+    (``quant.py:65-73`` of the JAX package).
+
+    The scale is ``absmax / 127``.  PyTorch's CPU kernel divides, as the JAX
+    package's eager ``quantize`` does; its CUDA kernel, given a Python
+    scalar divisor, multiplies by float32(1/127) instead, which is what XLA
+    compiles the JAX package's jitted ``quantize_params`` into (its
+    backends and its ingest run it jitted).  The two differ by an ulp in
+    about 5% of the scales.  ``scale_by_reciprocal`` takes the product on
+    every device: the checkpoint routes use it, so an int8 checkpoint does
+    not depend on where it was quantized and equals the JAX backend's."""
     w32 = w.to(torch.float32)
     absmax = w32.abs().amax(dim=contract_axis, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    scaled = absmax * _INV_127 if scale_by_reciprocal else absmax / 127.0
+    scale = torch.where(absmax > 0, scaled, torch.ones_like(absmax))
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return QTensor(q=q, scale=scale, compute_dtype=w.dtype)
 

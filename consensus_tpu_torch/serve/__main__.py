@@ -7,8 +7,9 @@ Quickstart (hardware-free):
 
 On the card, ``--backend torch --backend-options '{"model": "llama3-8b",
 ...}'`` serves the resident ``TorchBackend`` (random weights from
-``base_seed``: checkpoints wait for queue A9); ``--device cpu`` puts it on
-the CPU, the only way there (a tiny model only).
+``base_seed`` unless the options name a ``checkpoint``: an HF safetensors
+directory or one written by ``cli/ingest_checkpoint.py``); ``--device cpu``
+puts it on the CPU, the only way there (a tiny model only).
 
     curl -s localhost:8080/v1/consensus -d '{
       "issue": "Should we invest in public transport?",

@@ -5,7 +5,8 @@ The JAX package draws every sampled token from ``jax.random`` keys
 a seed names one exact stream there.  This module reproduces the subset of
 ``jax.random`` those paths call, with ``jax_threefry_partitionable`` on (the
 default of jax 0.9): ``prng_key`` (``PRNGKey``), ``split``, ``fold_in``,
-``random_bits``, ``uniform``, ``gumbel`` and ``categorical``.  The same
+``random_bits``, ``uniform``, ``gumbel`` and ``categorical``, and
+``normal``, which ``theory.py`` draws its synthetic agents from.  The same
 seed then gives the same draws in both packages.
 
 A key is an int64 tensor whose last dimension holds the two uint32 words
@@ -176,6 +177,75 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     t = t - t2 * 0.5
     t = t + y
     return t + e * _LOG_Q2
+
+
+# Cephes log1p rational coefficients (XLA's CPU expansion), highest degree first.
+_LOG1P_NUM = tuple(_f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+    2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1,
+))
+_LOG1P_DEN = tuple(_f32(c) for c in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+    3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1,
+))
+_LOG1P_SMALL = _f32(0.41421356237309504880)  # sqrt(2) - 1
+# Giles' single-precision erfinv coefficients, for w < 5 and w >= 5.
+_ERFINV_SMALL = tuple(_f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+    -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
+))
+_ERFINV_LARGE = tuple(_f32(c) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+    -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+))
+_SQRT2 = _f32(2.0 ** 0.5)
+
+
+def _horner(x: torch.Tensor, coefficients) -> torch.Tensor:
+    p = torch.zeros_like(x)
+    for c in coefficients:
+        p = _fma(p, x, c)
+    return p
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + x)`` of float32 values > -1 as XLA's CPU backend computes
+    it: a Cephes rational approximation for |x| < sqrt(2) - 1 (Horner
+    steps contracted into FMAs), else ``log(1 + x)``."""
+    large = xla_log(x + 1.0)
+    x2 = x * x
+    small = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    small = _fma(x2, -0.5, (x * x2) * small)
+    small = x + small
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function in XLA's decomposition (Giles'
+    polynomials in ``w = -log1p(-x^2)``).  XLA's CPU ``sqrt``, taken for
+    |x| near 1 (w >= 5), is not correctly rounded; ``torch.sqrt`` is, so
+    there the result may differ from JAX's in the last bits."""
+    w = -xla_log1p(x * -x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    lo = torch.tensor(_ERFINV_SMALL, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(_ERFINV_LARGE, dtype=torch.float32, device=x.device)
+    coefficients = torch.where(small[..., None], lo, hi)
+    p = coefficients[..., 0]
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = _fma(p, w, coefficients[..., i])
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with ``u``
+    uniform on [nextafter(-1, 0), 1).  Bit for bit JAX's on the CPU except
+    where :func:`erf_inv` takes its large-w branch (about 1 draw in 300:
+    there within a few ulps)."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    u = uniform(key, shape, minval=lo, maxval=1.0)
+    return _SQRT2 * erf_inv(u)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -225,8 +225,14 @@ def test_get_backend_tpu_is_the_resident_backend():
     assert isinstance(get_backend(spec), TorchBackend)
     assert get_backend(backend) is backend
     assert type(get_backend("fake")).__name__ == "FakeBackend"
-    with pytest.raises(NotImplementedError, match="API judge"):
-        get_backend("openai")
+    # The API judge builds lazily, as the JAX package's: with no client it
+    # answers with the reference's error sentinel.
+    from consensus_tpu.backends import get_backend as jax_get_backend
+
+    judge, jax_judge = get_backend("openai"), jax_get_backend("openai")
+    assert type(judge).__name__ == type(jax_judge).__name__ == "OpenAIBackend"
+    request = GenerationRequest(user_prompt="Rank these.", max_tokens=4)
+    assert judge.generate([request])[0].text == jax_judge.generate([request])[0].text
     with pytest.raises(ValueError, match="resident"):
         get_backend("nope")
 
@@ -236,9 +242,73 @@ def test_get_backend_tpu_is_the_resident_backend():
     [("tp", 2), ("dp", 2), ("mesh", "dp=1,tp=2"), ("checkpoint", "weights/"),
      ("quantize_frozen_kv", True)],
 )
-def test_unported_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBackend(model=MODEL, device="cpu", **{option: value})
+def test_unported_options_raise(option, value, tmp_path, monkeypatch):
+    """tp / dp / mesh (multi-GPU, queue A9) still raise.  ``checkpoint`` and
+    ``quantize_frozen_kv`` are ported: the checkpoint (an HF safetensors
+    directory at the relative path ``weights/``) loads the params the JAX
+    backend loads from it, and ``quantize_frozen_kv`` is the alias of
+    ``kv_quant`` in both."""
+    if option in ("tp", "dp", "mesh"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TorchBackend(model=MODEL, device="cpu", **{option: value})
+        return
+    if option == "quantize_frozen_kv":
+        for alias in (True, False):
+            for kv_quant in (True, False):
+                options = {"quantize_frozen_kv": alias, "kv_quant": kv_quant}
+                port = TorchBackend(model=MODEL, device="cpu", **options)
+                assert port.kv_quant == TPUBackend(model=MODEL, **options).kv_quant == alias
+        return
+    from consensus_tpu.models.transformer import init_params as jax_init_params
+    from tests.test_loader import _export_hf
+    from tests.test_torch_loader import assert_params_equal
+
+    monkeypatch.chdir(tmp_path)
+    ref_config = TPUBackend(model=MODEL).config
+    _export_hf(jax_init_params(ref_config, jax.random.PRNGKey(3)), ref_config,
+               tmp_path / value, shards=2)
+    port = TorchBackend(model=MODEL, device="cpu", **{option: value})
+    ref = TPUBackend(model=MODEL, **{option: value})
+    assert dataclasses.asdict(port.config) == dataclasses.asdict(ref.config)
+    assert_params_equal(port.params, params_from_jax(jax.tree.map(np.asarray, ref.params),
+                                                     ref.config))
+
+
+def test_row_buckets_stay_fixed_while_free_memory_changes(monkeypatch):
+    """On the card the decode budget is read once, beside the resident
+    weights (``tpu.py:728-731``'s fixed ``_HBM_BYTES - params``): what
+    another tenant holds later moves no row bucket; live sessions do."""
+    from consensus_tpu_torch.backends import torch_backend
+
+    gib = 1024**3
+    free = {"bytes": 40 * gib}
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free["bytes"], 80 * gib))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 0)
+    backend = TorchBackend(model=MODEL, device="cpu", dtype="float32")
+    # The card's route of the budget reads, as the constructor takes it on
+    # a CUDA device once the weights are resident.
+    backend.device = torch.device("cuda")
+    backend._device_budget = backend._free_device_bytes()
+    row_bytes = gib // 2
+
+    def rows():
+        return (backend._generate_rows_allowed(1024, 256),
+                backend._segmented_rows_allowed(1024, 512, 128),
+                backend._rows_for(row_bytes))
+
+    before = rows()
+    assert before[2] == 64  # (40 - 3) GiB / 0.5 GiB = 74 rows -> the ladder's 64
+    for other_tenants in (30 * gib, 2 * gib, 60 * gib):
+        free["bytes"] = other_tenants
+        assert rows() == before
+    assert backend._session_budget.cap == 8 * gib
+    backend._session_budget.acquire(8 * gib)  # a live search session's cache
+    try:
+        assert backend._rows_for(row_bytes) == 48  # (40 - 3 - 8) / 0.5 = 58 -> 48
+    finally:
+        backend._session_budget.release(8 * gib)
+    assert rows() == before
 
 
 def test_unported_mesh_and_default_device():

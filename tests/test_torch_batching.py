@@ -296,6 +296,37 @@ class TestExperimentConcurrency:
         assert experiment.last_batch_counts == conc_backend.batches
 
 
+@pytest.mark.parametrize("flush_ms", [None, 37.5])
+def test_batch_flush_ms_reaches_the_batching_backend(tmp_path, monkeypatch, flush_ms):
+    """The config's ``batch_flush_ms`` sets the co-batching window, as in
+    the JAX package's ``Experiment`` (10 ms when unset)."""
+    from consensus_tpu.backends import batching as jax_batching
+    from consensus_tpu.backends.fake import FakeBackend as JaxFakeBackend
+    from consensus_tpu.experiment import Experiment as JaxExperiment
+    from consensus_tpu_torch.backends import batching
+    from consensus_tpu_torch.experiment import Experiment
+
+    seen = {}
+
+    def recording(module, label):
+        original = module.BatchingBackend.__init__
+
+        def init(self, *args, **kwargs):
+            original(self, *args, **kwargs)
+            seen[label] = self.flush_s
+
+        monkeypatch.setattr(module.BatchingBackend, "__init__", init)
+
+    recording(batching, "port")
+    recording(jax_batching, "jax")
+    config = dict(TestExperimentConcurrency.CONFIG)
+    if flush_ms is not None:
+        config["batch_flush_ms"] = flush_ms
+    Experiment(dict(config, output_dir=str(tmp_path / "port")), backend=FakeBackend()).run()
+    JaxExperiment(dict(config, output_dir=str(tmp_path / "jax")), backend=JaxFakeBackend()).run()
+    assert seen["port"] == seen["jax"] == (flush_ms if flush_ms is not None else 10.0) / 1000.0
+
+
 class TestFlushSingleFile:
     def test_no_concurrent_inner_calls_and_arrivals_merge(self):
         """The flush runs with the lock RELEASED so arrivals can enqueue

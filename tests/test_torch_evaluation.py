@@ -261,10 +261,27 @@ def test_embedder_selection(tmp_path):
 
 
 def test_unported_judges_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*API judge"):
-        get_backend("openai", model="o3")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*API judge"):
-        get_backend({"name": "api"})
+    """The API judges are ported: ``openai`` (o3 -> gpt-4.1) and ``api``
+    build with no client here, and the comparative ranking through them
+    degrades to the same frames and matrix as through the JAX package's."""
+    from consensus_tpu.backends import get_backend as jax_get_backend
+
+    statements = {"best_of_n (n=4)": "We agree on safe streets.", "predefined": "Bike lanes."}
+    for spec in ({"name": "openai", "model": "o3"}, {"name": "api"}):
+        judge, jax_judge = get_backend(dict(spec)), jax_get_backend(dict(spec))
+        assert type(judge).__name__ == type(jax_judge).__name__
+        assert getattr(judge, "model") == getattr(jax_judge, "model")
+        got = StatementEvaluator(None, judge_backend=judge, embedder=object())
+        expect = JaxEvaluator(None, judge_backend=jax_judge, embedder=object())
+        g_frame, g_reason, g_matrix = got.evaluate_comparative_rankings(
+            statements, ISSUE, OPINIONS, seed=42)
+        e_frame, e_reason, e_matrix = expect.evaluate_comparative_rankings(
+            statements, ISSUE, OPINIONS, seed=42)
+        pd.testing.assert_frame_equal(g_frame, e_frame)
+        pd.testing.assert_frame_equal(g_reason, e_reason)
+        g_matrix.pop("comparative_ranking_time_s")
+        e_matrix.pop("comparative_ranking_time_s")
+        assert g_matrix == e_matrix
 
 
 _PIPELINE_CONFIG = {

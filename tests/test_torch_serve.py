@@ -780,8 +780,13 @@ def test_deferred_options_raise_naming_their_item(option, item, tmp_path):
 
 @pytest.mark.parametrize("name, item", [("api", "API judge"), ("openai", "API judge")])
 def test_api_backends_raise(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        create_server(backend=name, port=0, registry=Registry())
+    """The API backends (the API judge's module) are ported: a server over
+    one, with no client here, answers as the JAX package's server does."""
+    payload = {"issue": TOPIC, "agent_opinions": OPINIONS, "request_id": f"api-{name}",
+               **PARITY_PAYLOADS["zero_shot"]}
+    port = _served(create_server, name, Registry(), payload)
+    ref = _served(jax_create_server, name, JaxRegistry(), payload)
+    assert port == ref
 
 
 def test_cli_serves_and_drains_on_sigterm(tmp_path):
