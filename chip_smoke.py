@@ -3,8 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py sweep_path mcts_path concurrent_path serve_path
-fleet_path checkpoint_path`` runs any of those late phases alone, with no
-summary and no ``ok`` line).  Phases, one JSON
+fleet_path checkpoint_path parallel_path`` runs any of those late phases
+alone, with no summary and no ``ok`` line; parallel_path alone also runs
+the kernels' per-card cases).  Phases, one JSON
 line each; any failure exits non-zero:
 
 1. ``device``  -- the card (nvidia-smi name and power limit), torch and CUDA.
@@ -16,7 +17,10 @@ line each; any failure exits non-zero:
 3. ``kernels`` -- each kernel against its plain PyTorch version on the card,
    case by case, with kernel / plain / library (SDPA) / bound times and the
    least atol each case needed; kernel and SDPA are timed as calls captured
-   in a CUDA graph.  Three ``mutant`` lines follow: the same comparison
+   in a CUDA graph.  ``per_card``: on each card beyond the first, one K1
+   and one K2 case, and both kernels launched on that card's tensors
+   while cuda:0 is current (their shared-memory limit is set per device).
+   Three ``mutant`` lines follow: the same comparison
    must catch each broken build (flash_attention with one middle key tile
    skipped; flash_attention with every key tile taken as interior, so no
    mask is applied; decode_attention with every tail row reading the
@@ -174,6 +178,27 @@ line each; any failure exits non-zero:
    ``theory.run_experiment`` at ``--quick`` size on the card against the
    port's CPU run (alphas within a relative 1e-3, TV within 1e-3).
 
+19. ``parallel_path`` -- the data-parallel mesh over the cards present
+   (dp=4 over cuda:0-3 with four; with one card a ``MeshPlan`` of dp=2 over
+   cuda:0 twice, ``make_mesh(devices=...)``), counts read per card
+   (``launches_by_device``): (a) ``python -m consensus_tpu_torch.serve
+   --mesh dp=N`` on llama3-8b (serve_path's options and cut requests, 4
+   at once) against the same requests through ``create_server(mesh=
+   "dp=1,tp=1")`` and the plain engine path in process, posted one at a
+   time there: every statement equal to dp=1's or a near-tie under 0.1
+   on dp=1's trajectory, dp=1 byte-identical to the plain engine,
+   ``/healthz`` with one ``per_shard`` entry per dp shard, K1 and K2
+   launched on every card; (b) main_path's best-of-N config cut to 32
+   tokens on ``TorchBackend`` over the plan against dp=1: ids equal or
+   first differing at a draw of margin under 0.1, scores within 0.1, K1 on
+   every card; (c) ``parallel.train.train_step`` on gemma2-2b at full
+   width (bf16, seeded), 3 AdamW steps of 2 rows x 256 tokens a shard:
+   losses finite and falling, the first step's dp=N gradients within a
+   relative L2 of 2e-2 of dp=1's, wall and peak per card; (d)
+   ``ring_self_attention`` at B=1, S=8192, H=32, hd=128 (bf16) over the
+   plan's devices against ``full_attention_reference`` on one card, and
+   one peer copy between the first two distinct cards timed.
+
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -255,7 +280,11 @@ def graph_ms(fn, reps: int) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # Captured on ``side``, a stream of the current card: torch.cuda.graph's
+    # own default capture stream is made once, on the card current at the
+    # first capture, and a later capture on another card would record
+    # nothing.
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1672,6 +1701,45 @@ def _evaluation_columns(agents):
 #: retries included); 128 is the least budget that still decodes in
 #: segments (two of 64 columns).
 HABERMAS_TOKENS = 128
+#: The resident judge decodes up to 1000 greedy tokens an agent for the
+#: comparative ranking and 300 a (statement x agent) cell for the judge
+#: scores of each evaluation model (``StatementEvaluator``); random weights
+#: never close the JSON, so every row ran all of them (the ranking alone
+#: 107-151 s of the phase).  Both cut to this for the time limit (not
+#: HABERMAS_TOKENS, whose routes the phase checks), and best-of-N's 200
+#: tokens to HABERMAS_BEST_OF_N_TOKENS.
+JUDGE_TOKENS = 96
+HABERMAS_BEST_OF_N_TOKENS = 64
+
+
+class _CappedGenerate:
+    """``backend`` with every generate request's max_tokens cut to ``cap``."""
+
+    def __init__(self, backend, cap):
+        self._backend, self._cap = backend, cap
+
+    def generate(self, requests, *args, **kwargs):
+        import dataclasses
+
+        return self._backend.generate(
+            [dataclasses.replace(r, max_tokens=min(r.max_tokens, self._cap)) for r in requests],
+            *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._backend, name)
+
+
+def _judge_cut(original):
+    """A ``StatementEvaluator`` method with the judge's decode budget cut to
+    JUDGE_TOKENS."""
+    def call(self, *args, **kwargs):
+        judge = self.judge_backend
+        self.judge_backend = _CappedGenerate(judge, JUDGE_TOKENS)
+        try:
+            return original(self, *args, **kwargs)
+        finally:
+            self.judge_backend = judge
+    return call
 
 
 def habermas_eval_path():
@@ -1698,6 +1766,7 @@ def habermas_eval_path():
         # ranking) make every phase run its real workload.
         "habermas_machine": dict(config["habermas_machine"], pin_budget=True,
                                  max_tokens=HABERMAS_TOKENS),
+        "best_of_n": dict(config["best_of_n"], max_tokens=HABERMAS_BEST_OF_N_TOKENS),
     }
     base_seed = config["seed"]
     timers = {}
@@ -1785,7 +1854,9 @@ def habermas_eval_path():
         }),
         Wrapped(habermas, make={"process_ranking_response": parse}),
         Wrapped(StatementEvaluator, make={
-            "evaluate_comparative_rankings": timed("judge_ranking"),
+            "evaluate_comparative_rankings": lambda original: timed("judge_ranking")(
+                _judge_cut(original)),
+            "_judge_scores_batched": _judge_cut,
             "evaluate_results_file": evaluation,
         }),
         Wrapped(pipeline, make={"aggregate_run_dir": timed("aggregation")}),
@@ -3290,6 +3361,22 @@ def _launches_from_metrics(base):
     return counts
 
 
+def _launches_by_device_from_metrics(base):
+    """{kernel: {device: launches}} from a server's
+    ``kernel_launches_by_device_total``."""
+    import re
+
+    _, text, _ = _http(base + "/metrics")
+    counts = {k: {} for k in KERNELS}
+    pattern = re.compile(
+        r'^kernel_launches_by_device_total\{kernel="(\w+)",device="([\w:]+)"\} (\S+)$')
+    for line in text.splitlines():
+        match = pattern.match(line)
+        if match and match.group(1) in counts:
+            counts[match.group(1)][match.group(2)] = int(float(match.group(3)))
+    return counts
+
+
 def _latency_stats(results, wall):
     latencies = sorted(seconds for _, _, seconds in results)
     return {"statuses": [status for status, _, _ in results], "wall_s": wall,
@@ -3305,9 +3392,10 @@ def _engine_block(health):
     return {k: engine.get(k) for k in keys}
 
 
-def _serve_subprocess(options, payloads, device):
+def _serve_subprocess(options, payloads, device, extra_args=(), tag="serve"):
     """(a): ``python -m consensus_tpu_torch.serve --backend torch`` as a
-    subprocess; startup JSON, the payloads at once, /healthz, SIGTERM."""
+    subprocess (plus ``extra_args``); startup JSON, the payloads at once,
+    /healthz, SIGTERM."""
     import os
     import select
     import signal
@@ -3315,7 +3403,7 @@ def _serve_subprocess(options, payloads, device):
     cmd = [sys.executable, "-m", "consensus_tpu_torch.serve", "--backend", "torch",
            "--backend-options", json.dumps(options), "--port", "0", "--max-inflight", "4",
            "--default-timeout-s", str(SERVE_REQUEST_S), "--log-level", "WARNING",
-           "--blackbox", str(OUT_DIR / "serve_blackbox.json")]
+           "--blackbox", str(OUT_DIR / f"{tag}_blackbox.json"), *extra_args]
     if device != "cuda":
         cmd += ["--device", device]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -3323,7 +3411,7 @@ def _serve_subprocess(options, payloads, device):
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = {"command": cmd[2:4] + cmd[4:6]}
     t0 = time.perf_counter()
-    with open(OUT_DIR / "serve_stderr.log", "w") as stderr:
+    with open(OUT_DIR / f"{tag}_stderr.log", "w") as stderr:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=stderr, text=True,
                                 env=env)
         try:
@@ -3337,13 +3425,19 @@ def _serve_subprocess(options, payloads, device):
             out["startup_s"] = time.perf_counter() - t0
             out["startup"] = {k: startup.get(k) for k in ("backend", "engine", "max_inflight")}
             before = _launches_from_metrics(base)
+            by_device_before = _launches_by_device_from_metrics(base)
             results, wall = _post_all(base, payloads)
             after = _launches_from_metrics(base)
+            by_device_after = _launches_by_device_from_metrics(base)
             _, health, _ = _http(base + "/healthz")
             health = json.loads(health)
             out.update(_latency_stats(results, wall))
             out["launches"] = {k: after[k] - before[k] for k in KERNELS}
+            out["launches_by_device"] = {
+                k: {d: n - by_device_before[k].get(d, 0) for d, n in by_device_after[k].items()}
+                for k in KERNELS}
             out["healthz"] = {"status": health.get("status"), "engine": _engine_block(health),
+                              "mesh": (health.get("engine") or {}).get("mesh"),
                               "device_batches": health.get("device_batches")}
             out["statements"] = [body.get("statement") for _, body, _ in results]
             out["errors"] = [body.get("error") for _, body, _ in results if "error" in body]
@@ -3579,8 +3673,15 @@ FLEET_RATE = 0.5
 #: loss that the supervisor, engine and router see as a real one, while r1
 #: holds the requests it was given.  A call-index trigger lands later: one
 #: replica's cohorts and scoring stretch under the other's host work (the
-#: first score call came 41 s into the load on the card).
-FLEET_KILL_AFTER_S = 8.0
+#: first score call came 41 s into the load on the card).  The respawn is
+#: warm-seeded from what the page store holds then, and a prompt prefix
+#: reaches the store only when a replica's first rows retire (15-17 s into
+#: the load on the card, a cohort of 64 tokens under two replicas): a loss
+#: at 8 s (r1's first call after it, at 17 s) raced that harvest and left
+#: the store empty at the respawn in one run of six.  At 24 s the store
+#: holds r0's first runs, and r1 still serves the requests that reached it
+#: last (the final one arrives 14 s into the load and takes 17 s or more).
+FLEET_KILL_AFTER_S = 24.0
 #: Peak device memory after the respawn, over the peak before the loss.
 FLEET_MEMORY_RATIO = 1.25
 FLEET_DRAW_STEPS = 64
@@ -4378,6 +4479,666 @@ def checkpoint_path():
     return row, launches, decode_shapes, flash_case_row
 
 
+#: parallel_path: the data-parallel device mesh.  The plan covers the cards
+#: present (dp over cuda:0..3 with four); with one card it is dp=2 over
+#: cuda:0 twice.  PARALLEL_DEVICE "cpu" rehearses it on CPU shards.
+PARALLEL_DEVICE = "cuda"
+PARALLEL_MAX_DP = 4
+#: (b): main_path's best-of-N config with every method's budget cut to this.
+PARALLEL_TOKENS = 32
+#: (c): gemma2-2b at full width, TRAIN_ROWS rows x TRAIN_SEQ tokens per
+#: shard, TRAIN_STEPS AdamW steps on one seeded batch at optax's default
+#: rate (1e-3 overshot: 12.91, 9.50, 10.96 on the card).
+TRAIN_MODEL = "gemma2-2b"
+TRAIN_SEED = 13
+TRAIN_ROWS = 2
+TRAIN_SEQ = 256
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+#: The dp=N first-step gradients against dp=1's on the whole batch: the
+#: L2 norm of the difference over the L2 norm of dp=1's, over every leaf
+#: (bf16 gradients of two sums in different orders).
+TRAIN_GRAD_RTOL = 2e-2
+#: (d): ring attention at llama3-8b's head shape.
+RING_SHAPE = (1, 8192, 32, 128)
+#: One peer copy timed between the first two distinct cards.
+PEER_COPY_BYTES = 1 << 28
+
+
+def _parallel_plan():
+    import torch
+    from consensus_tpu_torch.parallel.mesh import make_mesh
+
+    if PARALLEL_DEVICE == "cpu":
+        return make_mesh(["cpu", "cpu"], tp=1)
+    n = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(min(n, PARALLEL_MAX_DP))] if n > 1
+               else ["cuda:0", "cuda:0"])
+    return make_mesh(devices, tp=1)
+
+
+def _cross_device_launch_check(index):
+    """K1 and K2 launched on tensors of ``cuda:index`` while cuda:0 is the
+    current device, each against its plain version (the launch must take
+    its own device's context and stream)."""
+    import torch
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device("cuda", index)
+    g = torch.Generator(device=device).manual_seed(40 + index)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+    torch.cuda.set_device(0)
+    q, k, v = randn(2, 256, 32, 128), randn(2, 256, 8, 128), randn(2, 256, 8, 128)
+    lens = torch.tensor([256, 100], dtype=torch.int32, device=device)
+    sts = torch.zeros(2, dtype=torch.int32, device=device)
+    out = fa.flash_attention(q, k, v, lens, sts)
+    flash_ok, flash_err, _ = compare(out, fa.flash_attention_reference(q, k, v, lens, sts))
+    args = (randn(8, 32, 128), randn(4, 300, 8, 128), randn(4, 300, 8, 128),
+            randn(8, 64, 8, 128), randn(8, 64, 8, 128),
+            torch.tensor([0, 50, 100, 299], dtype=torch.int32, device=device),
+            torch.tensor([300, 250, 200, 1], dtype=torch.int32, device=device) + 10, 10, 2, 4)
+    out = da.decode_attention(*args, scale=128 ** -0.5)
+    decode_ok, decode_err, _ = compare(
+        out, da.decode_attention_reference(*args, scale=128 ** -0.5))
+    torch.cuda.synchronize(device)
+    return {"device": str(device), "current_device": torch.cuda.current_device(),
+            "flash_ok": flash_ok, "flash_max_abs_err": flash_err,
+            "decode_ok": decode_ok, "decode_max_abs_err": decode_err,
+            "ok": flash_ok and decode_ok}
+
+
+def parallel_kernel_cases():
+    """One K1 and one K2 case on each card beyond the first (the kernels'
+    shared-memory limit is set per device), and the launch of both with
+    cuda:0 current on tensors of that card."""
+    import torch
+
+    rows = []
+    for index in range(1, torch.cuda.device_count()):
+        with torch.cuda.device(index):
+            flash = flash_case(f"llama3-8b scoring on cuda:{index}", 8, 768, 32, 8, 128,
+                               [768, 700, 512, 384, 300, 768, 200, 650], [0] * 8, seed=50 + index)
+            decode = decode_case(f"llama3-8b beam on cuda:{index}", 4, 6, 32, 8, 128, 1024, 200,
+                                 DECODE_STARTS, 100, seed=60 + index)
+        cross = _cross_device_launch_check(index)
+        rows.append({"device": f"cuda:{index}", "flash_attention": flash,
+                     "decode_attention": decode, "cross_device_launch": cross,
+                     "ok": flash["ok"] and decode["ok"] and cross["ok"]})
+    return rows
+
+
+class _RecordedSession:
+    """A search session that records its spec, the proposals of every step
+    and every (parents, chosen) decision into ``log``; other attributes
+    read through to the session."""
+
+    def __init__(self, session, spec, log):
+        self._session = session
+        self.spec = spec
+        self._log = log
+        log.update(spec=spec, proposals=[], decisions=[])
+
+    def __getattr__(self, name):
+        return getattr(self._session, name)
+
+    def propose(self):
+        out = self._session.propose()
+        self._log["proposals"].append(out)
+        return out
+
+    def advance_and_propose(self, parents, chosen):
+        self._log["decisions"].append((list(parents), list(chosen)))
+        out = self._session.advance_and_propose(parents, chosen)
+        self._log["proposals"].append(out)
+        return out
+
+    def close(self):
+        return self._session.close()
+
+
+def _replay_session(backend, log):
+    """``backend``'s session for the recorded spec, teacher-forced along the
+    recorded decisions -> (session class name, proposals of every step)."""
+    session = backend.open_fused_token_search(log["spec"])
+    try:
+        steps = [session.propose()]
+        for parents, chosen in log["decisions"]:
+            steps.append(session.advance_and_propose(parents, chosen))
+        return type(session).__name__, steps
+    finally:
+        session.close()
+
+
+def _proposal_diffs(backend, spec, ref_steps, got_steps):
+    """Two sessions' proposals for one seeded spec, step by step: the max
+    |difference| of the reference and agent logprobs of the candidates both
+    proposed at the same rank, and of the rank-wise perturbed scores
+    (reference logprob / temperature + the slot's Gumbel noise, rebuilt
+    from the session key).  Top-k order makes the rank-wise scores move no
+    more than the logits do, so they bound a near-tie that swaps two
+    tokens; ``swapped`` counts the ranks whose ids differ."""
+    import torch
+    from consensus_tpu_torch.models.sampling import gumbel_noise
+    from consensus_tpu_torch.utils import threefry
+
+    key = backend._fold_seed("search", spec.seed)
+    vocab = backend.config.vocab_size
+    rows = []
+    for step, (ref, got) in enumerate(zip(ref_steps, got_steps)):
+        noise = None
+        if spec.sample:
+            step_key = threefry.fold_in(threefry.fold_in(key, 0), step)
+            slots = torch.arange(len(ref), dtype=torch.int64, device=key.device)
+            noise = gumbel_noise(threefry.fold_in(step_key, slots), vocab).cpu()
+        lp_err = score_err = 0.0
+        swapped = 0
+        for slot, (a_row, b_row) in enumerate(zip(ref, got)):
+            for a, b in zip(a_row, b_row):
+                if a.token_id == b.token_id:
+                    lp_err = max(lp_err, abs(a.ref_logprob - b.ref_logprob), *(
+                        abs(x - y) for x, y in zip(a.agent_logprobs, b.agent_logprobs)))
+                else:
+                    swapped += 1
+
+                def perturbed(c):
+                    g = float(noise[slot, c.token_id]) if noise is not None else 0.0
+                    return c.ref_logprob / max(float(spec.temperature), 1e-6) + g
+
+                score_err = max(score_err, abs(perturbed(a) - perturbed(b)))
+        rows.append({"step": step, "logprob_max_abs_err": lp_err,
+                     "perturbed_max_abs_err": score_err, "swapped": swapped})
+    return rows
+
+
+def _beam_departure(ref_steps, got_steps, beam_width):
+    """The first step at which the beam method's pruning
+    (``BeamSearchGenerator._prune``, EOS strings completing) keeps other
+    beams over ``got_steps``' proposals than over ``ref_steps``', both
+    along the reference path and each with its own cumulative rewards; None
+    if they keep the same beams at every step."""
+    from consensus_tpu_torch.methods.beam_search import EOS_TOKENS, BeamSearchGenerator
+
+    n_agents = len(ref_steps[0][0][0].agent_logprobs)
+    beams = {name: [("", [0.0] * n_agents, 0)] for name in ("ref", "got")}
+    completed = {"ref": [], "got": []}
+    for step, pair in enumerate(zip(ref_steps, got_steps)):
+        kept = {}
+        for name, proposals in zip(("ref", "got"), pair):
+            candidates = [(seq + c.token, [a + b for a, b in zip(rewards, c.agent_logprobs)],
+                           c, slot)
+                          for seq, rewards, slot in beams[name] for c in proposals[slot]]
+            kept[name], completed[name] = BeamSearchGenerator._prune(
+                candidates, completed[name], beam_width, EOS_TOKENS)
+        if ([b[0] for b in kept["ref"]] != [b[0] for b in kept["got"]]
+                or [c[0] for c in completed["ref"]] != [c[0] for c in completed["got"]]):
+            return step
+        for name in kept:
+            beams[name] = [(seq, rewards, i) for i, (seq, rewards, _, _) in enumerate(kept[name])]
+    return None
+
+
+def _scripted_session_log(backend, spec, dp):
+    """A session of ``backend`` over ``spec`` widened to a multiple of dp
+    slots, advanced along scripted decisions whose parents cross the shard
+    blocks (slot s takes parent s + step + 1, mod the slots) -> its log."""
+    import dataclasses
+
+    n = -(-max(spec.n_slots, dp) // dp) * dp
+    wide_spec = dataclasses.replace(spec, n_slots=n, k=max(spec.k, 2))
+    log = {}
+    session = _RecordedSession(backend.open_fused_token_search(wide_spec), wide_spec, log)
+    try:
+        out = session.propose()
+        for step in range(wide_spec.max_steps - 1):
+            parents = [(s + step + 1) % n for s in range(n)]
+            out = session.advance_and_propose(
+                parents, [out[p][step % wide_spec.k] for p in parents])
+    finally:
+        session.close()
+    return log
+
+
+def _row_count_floor(backend, spec, m):
+    """What the slot count of a step alone moves, on one card: ``backend``'s
+    session over ``spec``'s n slots, each slot its own parent taking its
+    candidate of rank (step mod k), against a session over the first ``m``
+    slots along the same decisions (the same inputs and noise, fewer rows a
+    step, as a dp shard's part has) -> the max |difference| of their
+    logprobs."""
+    import dataclasses
+
+    n = spec.n_slots
+    log = {}
+    session = _RecordedSession(backend.open_fused_token_search(spec), spec, log)
+    try:
+        out = session.propose()
+        for step in range(spec.max_steps - 1):
+            out = session.advance_and_propose(
+                list(range(n)), [out[slot][step % spec.k] for slot in range(n)])
+    finally:
+        session.close()
+    narrow = {"spec": dataclasses.replace(spec, n_slots=m),
+              "decisions": [(parents[:m], chosen[:m]) for parents, chosen in log["decisions"]]}
+    _, steps = _replay_session(backend, narrow)
+    diffs = _proposal_diffs(backend, spec, [out[:m] for out in log["proposals"]], steps)
+    return max(d["logprob_max_abs_err"] for d in diffs)
+
+
+def _session_parity(backend, wide, log):
+    """Replay ``log`` on ``wide``: its session class and the step-by-step
+    diffs against the recorded proposals; ``ok`` when every step holds
+    both maxima within ROUTE_ATOL."""
+    kind, steps = _replay_session(wide, log)
+    diffs = _proposal_diffs(backend, log["spec"], log["proposals"], steps)
+    return {"session": kind, "slots": log["spec"].n_slots, "steps": len(steps),
+            "logprob_max_abs_err": max(d["logprob_max_abs_err"] for d in diffs),
+            "perturbed_max_abs_err": max(d["perturbed_max_abs_err"] for d in diffs),
+            "swapped": sum(d["swapped"] for d in diffs),
+            "per_step_logprob_max_abs_err": [d["logprob_max_abs_err"] for d in diffs],
+            "ok": all(d["logprob_max_abs_err"] <= ROUTE_ATOL
+                      and d["perturbed_max_abs_err"] <= ROUTE_ATOL for d in diffs)}, steps
+
+
+def _parallel_serve(plan, options, scenario, params, on_card):
+    """(a): the serve CLI with ``--mesh dp=N`` against the same requests
+    through ``create_server(mesh="dp=1,tp=1")`` and the plain engine path in
+    process, posted one at a time there so that both see the same cohorts
+    and each generate call and search session is the posted request's.
+    A statement that differs from dp=1's passes only on its own request's
+    evidence: a generate request's recorded dp=1 draws hold one under
+    DRAW_MARGIN; a beam request's session, replayed on the dp=N backend
+    along the dp=1 decisions, stays within ROUTE_ATOL of dp=1's at every
+    step and its pruning departs from dp=1's at some step.  Apart from the
+    statements, a session of dp x slots on the dp=N backend (the sharded
+    session, its parents crossing shards) is held against the dp=1 session
+    along the same decisions."""
+    import torch
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.obs.metrics import Registry
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+    from consensus_tpu_torch.serve import create_server
+
+    payloads = _serve_payloads(scenario, cut=True)
+    cli_options = dict(options)
+    if plan.distinct_devices < plan.dp:
+        cli_options["mesh_devices"] = [str(d) for d in plan.data_devices]
+    cli = _serve_subprocess(cli_options, payloads, PARALLEL_DEVICE,
+                            extra_args=("--mesh", f"dp={plan.dp},tp=1"), tag="parallel_serve")
+    backend = TorchBackend(**options, params=params, device=PARALLEL_DEVICE)
+    generated, by_payload, sessions = {}, {}, {}
+    mode = {"name": "", "request": None}
+    dense_generate, dense_open = backend.generate, backend.open_fused_token_search
+
+    def generate(requests, shards=None):
+        results = dense_generate(requests, shards=shards)
+        table = generated.setdefault(mode["name"], {})
+        mine = by_payload.setdefault(mode["name"], {}).setdefault(mode["request"], [])
+        for request, result in zip(requests, results):
+            table.setdefault(_request_key(request), []).append((request, tuple(result.token_ids)))
+            mine.append((request, tuple(result.token_ids)))
+        return results
+
+    def open_fused_token_search(spec):
+        log = {}
+        sessions.setdefault(mode["name"], {}).setdefault(mode["request"], []).append(log)
+        return _RecordedSession(dense_open(spec), spec, log)
+
+    backend.generate, backend.open_fused_token_search = generate, open_fused_token_search
+    windows = {}
+    try:
+        for name, extra in (("plain", {}), ("mesh_dp1", {"mesh": "dp=1,tp=1"})):
+            mode["name"] = name
+            fa.launches.reset()
+            da.launches.reset()
+            server = create_server(backend=backend, port=0, registry=Registry(), max_inflight=4,
+                                   default_timeout_s=SERVE_REQUEST_S, **extra).start()
+            try:
+                t0 = time.perf_counter()
+                results = []
+                for payload in payloads:
+                    mode["request"] = payload["request_id"]
+                    results.append(_http(server.base_url + "/v1/consensus", payload))
+                wall = time.perf_counter() - t0
+                _, health, _ = _http(server.base_url + "/healthz")
+            finally:
+                server.stop()
+            windows[name] = {
+                "statuses": [status for status, _, _ in results], "wall_s": wall,
+                "statements": [json.loads(body).get("statement") for _, body, _ in results],
+                "mesh": (json.loads(health).get("engine") or {}).get("mesh"),
+                "launches": {"flash_attention": fa.launches.count,
+                             "decode_attention": da.launches.count},
+                "launches_by_device": {"flash_attention": dict(fa.launches.by_device),
+                                       "decode_attention": dict(da.launches.by_device)},
+            }
+    finally:
+        backend.generate, backend.open_fused_token_search = dense_generate, dense_open
+    wide = TorchBackend(**options, params=backend.params, mesh=plan)
+    statement_rows = []
+    for payload, got, want in zip(payloads, cli.get("statements") or [],
+                                  windows["mesh_dp1"]["statements"]):
+        rid = payload["request_id"]
+        row = {"request_id": rid, "method": payload["method"], "equal": got == want}
+        logs = sessions.get("mesh_dp1", {}).get(rid, [])
+        if logs:
+            # One beam session per request: replayed whether or not the
+            # statements differ.
+            replay, steps = _session_parity(backend, wide, logs[0])
+            replay["departs_at_step"] = _beam_departure(
+                logs[0]["proposals"], steps, payload["params"]["beam_width"])
+            row["replay"] = replay
+            row["ok"] = row["equal"] or (replay["ok"] and replay["departs_at_step"] is not None)
+        else:
+            if not row["equal"]:
+                entries = [e for e in by_payload.get("mesh_dp1", {}).get(rid, [])
+                           if e[0].seed is not None]
+                row["near_tie"] = _trajectory_near_tie(backend, entries)
+            row["ok"] = row["equal"] or row.get("near_tie") is not None
+        statement_rows.append(row)
+    beam = next((logs[0] for logs in sessions.get("mesh_dp1", {}).values() if logs), None)
+    sharded = None
+    if beam is not None:
+        scripted = _scripted_session_log(backend, beam["spec"], plan.dp)
+        sharded, _ = _session_parity(backend, wide, scripted)
+        sharded["row_count_floor"] = _row_count_floor(
+            backend, scripted["spec"], scripted["spec"].n_slots // plan.dp)
+    del backend, wide
+    if on_card:
+        torch.cuda.empty_cache()
+    per_shard = (cli.get("healthz", {}).get("mesh") or {}).get("per_shard") or []
+    distinct = sorted({str(d) for d in plan.data_devices})
+    by_device = cli.get("launches_by_device", {})
+    checks = {
+        "a_served_every_request": cli.get("statuses") == [200] * len(payloads),
+        "a_drained_and_exited_0": cli.get("exit_code") == 0,
+        "a_one_shard_per_dp_in_per_shard": len(per_shard) == plan.dp,
+        "a_statements_equal_dp1_or_explained": bool(statement_rows) and all(
+            r["ok"] for r in statement_rows),
+        "a_sharded_session_within_atol_of_whole": (
+            sharded is not None and sharded["session"] == "_ShardedSearchSession"
+            and sharded["ok"]),
+        "a_dp1_mesh_byte_identical_to_plain_engine": (
+            windows["mesh_dp1"]["statements"] == windows["plain"]["statements"]
+            and generated.get("mesh_dp1") == generated.get("plain")),
+        "a_in_process_served": all(w["statuses"] == [200] * len(payloads)
+                                   for w in windows.values()),
+    }
+    if on_card:
+        checks["a_flash_launched_on_every_card"] = all(
+            by_device.get("flash_attention", {}).get(d, 0) > 0 for d in distinct)
+        checks["a_decode_launched_on_every_card"] = all(
+            by_device.get("decode_attention", {}).get(d, 0) > 0 for d in distinct)
+    launches = {k: cli.get("launches", {}).get(k, 0)
+                + sum(w["launches"][k] for w in windows.values()) for k in KERNELS}
+    return {"cli": cli, "windows": windows, "statements": statement_rows,
+            "sharded_session": sharded, "per_shard": per_shard}, checks, launches
+
+
+def _parallel_experiment(plan, params, on_card):
+    """(b): main_path's best-of-N config, every budget cut to
+    PARALLEL_TOKENS, through ``Experiment`` on ``TorchBackend`` over the plan
+    and on the dp=1 backend over the same weights: generate ids equal or
+    first differing at a draw of margin under DRAW_MARGIN, the logprobs of
+    every score request both ran within ROUTE_ATOL."""
+    import torch
+    import yaml
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.experiment import Experiment
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+
+    config = yaml.safe_load((ROOT / CONFIG).read_text())
+    config["output_dir"] = str(OUT_DIR)
+    for method in config["methods_to_run"]:
+        if "max_tokens" in (config.get(method) or {}):
+            config[method]["max_tokens"] = PARALLEL_TOKENS
+    options = {k: v for k, v in config["backend_options"].items() if k not in ("tp", "dp")}
+    runs = {}
+    launches = {k: 0 for k in KERNELS}
+    by_device = {k: {} for k in KERNELS}
+    one = TorchBackend(**options, params=params, device=PARALLEL_DEVICE)
+    wide = TorchBackend(**options, params=one.params, mesh=plan)
+    for name, backend in (("dp1", one), (f"dp{plan.dp}", wide)):
+        generated, scored = {}, {}
+        dense_generate, dense_score = backend.generate, backend.score
+
+        def generate(requests, _g=dense_generate, _t=generated):
+            results = _g(requests)
+            for request, result in zip(requests, results):
+                _t.setdefault(_request_key(request), []).append((request, tuple(result.token_ids)))
+            return results
+
+        def score(requests, _s=dense_score, _t=scored):
+            results = _s(requests)
+            for request, result in zip(requests, results):
+                _t[(request.system_prompt, request.context, request.continuation)] = result.logprobs
+            return results
+
+        backend.generate, backend.score = generate, score
+        fa.launches.reset()
+        da.launches.reset()
+        t0 = time.perf_counter()
+        frame = Experiment(dict(config), backend=backend).run()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, counter in (("flash_attention", fa.launches), ("decode_attention", da.launches)):
+            launches[k] += counter.count
+            for d, n in counter.by_device.items():
+                by_device[k][d] = by_device[k].get(d, 0) + n
+        runs[name] = {"wall_s": wall, "generated": generated, "scored": scored,
+                      "statements": list(frame["statement"]),
+                      "errors": [e for e in frame["error_message"] if e],
+                      "launches": {"flash_attention": fa.launches.count,
+                                   "decode_attention": da.launches.count},
+                      "flash_by_device": dict(fa.launches.by_device)}
+        backend.generate, backend.score = dense_generate, dense_score
+    ref, got = runs["dp1"], runs[f"dp{plan.dp}"]
+    compare = _compare_generations(one, got["generated"], ref["generated"])
+    common = set(ref["scored"]) & set(got["scored"])
+    score_err = max((abs(a - b) for key in common
+                     for a, b in zip(ref["scored"][key], got["scored"][key])), default=None)
+    del wide, one
+    if on_card:
+        torch.cuda.empty_cache()
+    distinct = sorted({str(d) for d in plan.data_devices})
+    checks = {
+        "b_rows_error_free": not ref["errors"] and not got["errors"],
+        "b_ids_equal_or_diverge_below_margin": (
+            compare["only_one_mode"] == 0 and all(d["ok"] for d in compare["diverged"])),
+        "b_scores_within_atol": score_err is not None and score_err <= ROUTE_ATOL,
+    }
+    if on_card:
+        checks["b_flash_launched_on_every_card"] = all(
+            got["flash_by_device"].get(d, 0) > 0 for d in distinct)
+    summary = {name: {k: v for k, v in run.items() if k not in ("generated", "scored")}
+               for name, run in runs.items()}
+    summary["generation_compare"] = dict(compare, diverged=compare["diverged"][:12])
+    summary["score_requests_compared"] = len(common)
+    summary["max_score_logprob_diff"] = score_err
+    return summary, checks, launches, by_device
+
+
+def _grad_rel_err(got, want):
+    import torch
+
+    num = sum(float(((g.float() - w.float().to(g.device)) ** 2).sum()) for g, w in zip(got, want))
+    den = sum(float((w.float() ** 2).sum()) for w in want)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _parallel_train(plan, on_card):
+    """(c): ``train_step`` on gemma2-2b at full width over the plan."""
+    import torch
+    from consensus_tpu_torch.models.config import get_model_config
+    from consensus_tpu_torch.models.transformer import init_params
+    from consensus_tpu_torch.parallel.train import init_train_state, shard_grads, train_step
+
+    config = get_model_config(TRAIN_MODEL)
+    device = plan.data_devices[0]
+    generator = torch.Generator(device=device)
+    generator.manual_seed(TRAIN_SEED)
+    t0 = time.perf_counter()
+    params = init_params(config, generator, device, torch.bfloat16)
+    rows = TRAIN_ROWS * plan.dp
+    tokens = torch.randint(0, config.vocab_size, (rows, TRAIN_SEQ), generator=generator,
+                           device=device, dtype=torch.int64).to(torch.int32)
+    valid = torch.ones((rows, TRAIN_SEQ), dtype=torch.bool, device=device)
+    valid[-1, TRAIN_SEQ * 3 // 4:] = False  # one right-padded row
+    params, opt_state, optimizer = init_train_state(params, learning_rate=TRAIN_LR)
+    init_s = time.perf_counter() - t0
+    if on_card:
+        for d in {str(x) for x in plan.data_devices}:
+            torch.cuda.reset_peak_memory_stats(d)
+    loss_n, grads_n = shard_grads(params, config, tokens, valid, plan)
+    loss_1, grads_1 = shard_grads(params, config, tokens, valid, None)
+    grad_err = _grad_rel_err(grads_n, grads_1)
+    loss_diff = abs(float(loss_n) - float(loss_1))
+    del grads_n, grads_1
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, loss = train_step(params, opt_state, config, optimizer, tokens, valid,
+                                             plan=plan)
+        losses.append(float(loss))
+        if on_card:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peaks = ({d: torch.cuda.max_memory_allocated(d) / 1e9
+              for d in sorted({str(x) for x in plan.data_devices})} if on_card else None)
+    del params, optimizer, opt_state
+    if on_card:
+        torch.cuda.empty_cache()
+    checks = {
+        "c_losses_finite": all(l == l and abs(l) < float("inf") for l in losses),
+        "c_loss_falling": all(b < a for a, b in zip(losses, losses[1:])),
+        "c_dp_grads_match_dp1": grad_err <= TRAIN_GRAD_RTOL,
+    }
+    info = {"model": TRAIN_MODEL, "layers": config.n_layers, "vocab": config.vocab_size,
+            "rows_per_shard": TRAIN_ROWS, "seq": TRAIN_SEQ, "learning_rate": TRAIN_LR,
+            "init_s": init_s, "losses": losses, "step_s": step_s,
+            "grad_rel_l2_err": grad_err, "grad_tolerance": TRAIN_GRAD_RTOL,
+            "first_loss_dp_vs_dp1_diff": loss_diff, "peak_memory_gb": peaks}
+    return info, checks
+
+
+def _parallel_ring(plan, on_card):
+    """(d): ``ring_self_attention`` over the plan's devices as the sequence
+    ring, against ``full_attention_reference`` on the first; and one peer
+    copy between the first two distinct cards, timed."""
+    import torch
+    from consensus_tpu_torch.parallel.ring_attention import (
+        full_attention_reference, make_sequence_mesh, ring_self_attention)
+
+    ring = make_sequence_mesh(devices=plan.data_devices)
+    device = ring[0]
+    b, seq, heads, hd = RING_SHAPE if on_card else (1, 64, 4, 16)
+    dtype = torch.bfloat16 if on_card else torch.float32
+    g = torch.Generator(device=device).manual_seed(70)
+    q, k, v = (torch.randn((b, seq, heads, hd), generator=g, device=device).to(dtype)
+               for _ in range(3))
+    positions = torch.arange(seq, device=device)[None].expand(b, seq).contiguous()
+    valid = torch.ones((b, seq), dtype=torch.bool, device=device)
+    valid[:, : seq // 16] = False  # a left-padded span
+    times = {}
+
+    def timed(name, fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            for d in {str(x) for x in ring}:
+                torch.cuda.synchronize(d)
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    ring_self_attention(ring, q, k, v, positions, valid)  # warm-up
+    out = timed("ring_ms", lambda: ring_self_attention(ring, q, k, v, positions, valid))
+    want = timed("full_ms", lambda: full_attention_reference(q, k, v, positions, valid))
+    within, max_err, atol_needed = compare(out, want)
+    peer = None
+    distinct = list(dict.fromkeys(str(d) for d in ring))
+    if on_card and len(distinct) > 1:
+        src = torch.empty(PEER_COPY_BYTES, dtype=torch.uint8, device=distinct[0])
+        dst = torch.empty(PEER_COPY_BYTES, dtype=torch.uint8, device=distinct[1])
+        dst.copy_(src)
+        torch.cuda.synchronize(distinct[0])
+        torch.cuda.synchronize(distinct[1])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dst.copy_(src)
+        torch.cuda.synchronize(distinct[0])
+        torch.cuda.synchronize(distinct[1])
+        seconds = (time.perf_counter() - t0) / 5
+        peer = {"from": distinct[0], "to": distinct[1], "bytes": PEER_COPY_BYTES,
+                "ms": seconds * 1e3, "gb_per_s": PEER_COPY_BYTES / seconds / 1e9}
+        del src, dst
+    del q, k, v, out, want
+    if on_card:
+        torch.cuda.empty_cache()
+    info = {"shape": [b, seq, heads, hd], "ring": [str(d) for d in ring], **times,
+            "max_abs_err": max_err, "atol_needed": atol_needed,
+            "tolerance": f"atol {ATOL} + rtol {RTOL}", "peer_copy": peer}
+    return info, {"d_ring_matches_full_attention": within}
+
+
+def parallel_path(params=None):
+    """The data-parallel mesh -> (row, launches): (a) the
+    serve CLI with ``--mesh dp=N`` on llama3-8b against the dp=1 mesh path
+    and the plain engine path in process; (b) ``TorchBackend`` over the plan
+    on main_path's best-of-N config against dp=1; (c) ``train_step`` on
+    gemma2-2b over the plan, its gradients against dp=1's; (d)
+    ``ring_self_attention`` at llama3-8b's head shape against full
+    attention.  ``params``: serve_path's llama3-8b weights (built from the
+    seed when None)."""
+    import yaml
+
+    on_card = PARALLEL_DEVICE == "cuda"
+    plan = _parallel_plan()
+    config = yaml.safe_load((ROOT / SERVE_CONFIG).read_text())
+    options = {k: v for k, v in config["backend_options"].items() if k not in ("tp", "dp")}
+    options["pin_generation_budget"] = True
+    t0 = time.perf_counter()
+    phase_s = {}
+    serve_info, serve_checks, serve_launches = _parallel_serve(
+        plan, options, config["scenario"], params, on_card)
+    phase_s["a"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    experiment_info, experiment_checks, experiment_launches, experiment_by_device = (
+        _parallel_experiment(plan, params, on_card))
+    phase_s["b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    train_info, train_checks = _parallel_train(plan, on_card)
+    phase_s["c"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ring_info, ring_checks = _parallel_ring(plan, on_card)
+    phase_s["d"] = time.perf_counter() - t1
+    checks = {**serve_checks, **experiment_checks, **train_checks, **ring_checks}
+    launches = {k: serve_launches[k] + experiment_launches[k] for k in KERNELS}
+    by_device = {k: dict(experiment_by_device[k]) for k in KERNELS}
+    tables = [serve_info["cli"].get("launches_by_device", {})] + [
+        w["launches_by_device"] for w in serve_info["windows"].values()]
+    for table in tables:
+        for k, counts in table.items():
+            for d, n in counts.items():
+                by_device[k][d] = by_device[k].get(d, 0) + n
+    row = {
+        "phase": "parallel_path", "plan": [[str(d) for d in r] for r in plan.devices],
+        "dp": plan.dp, "distinct_devices": plan.distinct_devices,
+        "serve": serve_info, "experiment": experiment_info, "train": train_info,
+        "ring": ring_info, "launches": launches, "launches_by_device": by_device,
+        "phase_s": phase_s, "wall_s": time.perf_counter() - t0,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return row, launches
+
+
 def late_phases_alone(names) -> int:
     """``python3 chip_smoke.py sweep_path mcts_path concurrent_path
     serve_path fleet_path checkpoint_path`` (any of them): those phases
@@ -4385,7 +5146,7 @@ def late_phases_alone(names) -> int:
     backend, and fleet_path and checkpoint_path build their own weights.  Prints their lines, no
     summary and no ``ok`` line; exits 1 if a phase failed."""
     unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path",
-                            "fleet_path", "checkpoint_path"}
+                            "fleet_path", "checkpoint_path", "parallel_path"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     rows = []
@@ -4396,7 +5157,7 @@ def late_phases_alone(names) -> int:
         rows.append(mcts[0])
         if "concurrent_path" in names:
             rows.append(concurrent_path(mcts[4])[0])
-    if {"serve_path", "fleet_path"} & set(names):
+    if {"serve_path", "fleet_path", "parallel_path"} & set(names):
         from consensus_tpu_torch.ops import build
 
         # Built here, once: the server subprocesses and this process load it.
@@ -4408,6 +5169,13 @@ def late_phases_alone(names) -> int:
         rows.append(fleet_path()[0])
     if "checkpoint_path" in names:
         rows.append(checkpoint_path()[0])
+    if "parallel_path" in names:
+        # The kernels on every card beyond the first, as the kernels phase
+        # runs them, then the phase.
+        per_card = parallel_kernel_cases()
+        rows.append({"phase": "kernels", "per_card": per_card,
+                     "ok": all(c["ok"] for c in per_card)})
+        rows.append(parallel_path()[0])
     for row in rows:
         emit(row)
     return 0 if all(row["ok"] for row in rows) else 1
@@ -4457,9 +5225,10 @@ def main() -> int:
     mutants = [
         mutant_check(tag, *mutant_libs[tag]) for tag in ("flash_skip_tile", "flash_no_mask")
     ] + [decode_mutant_check(*mutant_libs["decode_neighbour_tail"])]
-    kernels_ok = all(c["ok"] for c in flash_cases + decode_cases_)
+    per_card = parallel_kernel_cases()
+    kernels_ok = all(c["ok"] for c in flash_cases + decode_cases_ + per_card)
     emit({"phase": "kernels", "flash_attention": flash_cases,
-          "decode_attention": decode_cases_, "ok": kernels_ok})
+          "decode_attention": decode_cases_, "per_card": per_card, "ok": kernels_ok})
     for mutant in mutants:
         emit(mutant)
 
@@ -4510,9 +5279,11 @@ def main() -> int:
     serve_row, serve_launches, serve_shapes = serve_path(params)
     emit(serve_row)
     fleet_row, fleet_launches, fleet_shapes = fleet_path(params)
+    emit(fleet_row)
+    parallel_row, parallel_launches = parallel_path(params)
     del params
     torch.cuda.empty_cache()
-    emit(fleet_row)
+    emit(parallel_row)
     checkpoint_row, checkpoint_launches, checkpoint_shapes, checkpoint_case = checkpoint_path()
     emit(checkpoint_row)
     if checkpoint_case is None:
@@ -4525,7 +5296,7 @@ def main() -> int:
         "fallback_session_path": fallback_launches, "sweep_path": sweep_launches,
         "mcts_path": mcts_launches, "concurrent_path": concurrent_launches,
         "serve_path": serve_launches, "fleet_path": fleet_launches,
-        "checkpoint_path": checkpoint_launches,
+        "checkpoint_path": checkpoint_launches, "parallel_path": parallel_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
@@ -4556,7 +5327,7 @@ def main() -> int:
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
-              serve_row, fleet_row, checkpoint_row]
+              serve_row, fleet_row, checkpoint_row, parallel_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

@@ -189,11 +189,12 @@ class BatchingBackend:
         prefix_cache: bool = False,
         mesh: Optional[Any] = None,
     ):
+        #: Mesh passthrough (``batching.py:109-113``): ``mesh={'dp': N, 'tp':
+        #: M}`` (or "dp=4,tp=2", or a MeshPlan) partitions the engine's slots
+        #: and page pools.  Left unset, the engine inherits the inner
+        #: backend's mesh_plan.
         if mesh is not None:
-            raise NotImplementedError(
-                "BatchingBackend(mesh=...), the decode engine's data-parallel "
-                "shards, is not ported yet (ROADMAP.md, queue A9)"
-            )
+            engine_options = {"mesh": mesh, **dict(engine_options or {})}
         #: Convenience flag: ``prefix_cache=True`` folds into the engine
         #: options (engine mode only — the flush-snapshot path has no page
         #: pool to cache into).  An explicit ``engine_options`` key wins.

@@ -74,6 +74,7 @@ from consensus_tpu_torch.obs.trace import (
     trace_current,
 )
 from consensus_tpu_torch.ops.kv_pages import BlockTable, PagePool, PrefixCache
+from consensus_tpu_torch.parallel.mesh import parse_mesh_spec
 
 #: Engine defaults.  ``NUM_PAGES``/``PAGE_SIZE`` give a 16k-token pool —
 #: roomy for CPU/fake runs; runs on the card size the pool from the
@@ -224,16 +225,21 @@ class DecodeEngine:
         self._stream_spec_seen = (0, 0)
         self._stream: Optional[Any] = None
         self._stream_slots: List[Optional["_Slot"]] = []
-        # Mesh mode (slots and page pools partitioned over data-parallel
-        # shards) waits for the multi-GPU port; one device is one shard, and
-        # the per-shard bookkeeping below keeps the JAX engine's structure.
-        if mesh is not None or getattr(inner, "mesh_plan", None) is not None:
-            raise NotImplementedError(
-                "DecodeEngine(mesh=...), the data-parallel slot shards, is "
-                "not ported yet (ROADMAP.md, queue A9)"
-            )
-        self.mesh_dp = 1
-        self.mesh_tp = 1
+        # Mesh mode: ``mesh`` is a {'dp': N, 'tp': M} dict, a "dp=4,tp=2"
+        # string, or a MeshPlan.  Left unset, the engine inherits the inner
+        # backend's mesh.  Slots and page pools partition over the dp
+        # shards; over a backend with no mesh of its own (the fake backend)
+        # that is bookkeeping only, and tp is recorded, as in the JAX engine.
+        if mesh is None:
+            mesh = getattr(inner, "mesh_plan", None)
+        if mesh is not None:
+            mesh = parse_mesh_spec(mesh)
+        self.mesh_dp = int(mesh["dp"]) if mesh else 1
+        self.mesh_tp = int(mesh["tp"]) if mesh else 1
+        #: Whether the inner backend runs each slot's rows on its shard's
+        #: card: it then receives every row's shard, so that a shard's pool
+        #: books the KV that lives on that card.
+        self._shard_rows = self.mesh_dp > 1 and getattr(inner, "mesh_plan", None) is not None
         if num_pages is None:
             suggest = getattr(inner, "suggest_kv_page_pool", None)
             num_pages = (
@@ -1022,7 +1028,12 @@ class DecodeEngine:
         batch_error: Optional[BaseException] = None
         t_dev = time.perf_counter()
         try:
-            results = self.inner.generate(requests)
+            if self._shard_rows:
+                results = self.inner.generate(
+                    requests, shards=[slot.shard for slot in cohort]
+                )
+            else:
+                results = self.inner.generate(requests)
         except PartialBatchError as exc:
             results = list(exc.results)
             row_errors = dict(exc.row_errors)
@@ -1078,14 +1089,15 @@ class DecodeEngine:
                 decode_steps=self.decode_steps)
         t_disp = time.perf_counter()
         try:
+            kwargs = {"shards": [slot.shard for slot in cohort]} if self._shard_rows else {}
             if self.speculative:
                 stream = self.inner.generate_stream(
                     requests, decode_steps=self.decode_steps,
-                    speculative=True,
+                    speculative=True, **kwargs,
                 )
             else:
                 stream = self.inner.generate_stream(
-                    requests, decode_steps=self.decode_steps
+                    requests, decode_steps=self.decode_steps, **kwargs
                 )
             stream.dispatch()
         except Exception as exc:

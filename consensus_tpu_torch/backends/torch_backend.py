@@ -43,6 +43,18 @@ config) and runs each protocol call as padded device batches:
   reference); ``suggest_kv_page_pool``
   sizes the engine's page pool from the session budget.
 
+Data parallelism (``dp=N``, ``mesh="dp=N,tp=1"`` or a ``MeshPlan``,
+``tpu.py:155-183, 359-372``): the params replicate to each dp shard's card
+(``mesh_devices``, default the visible cards; dp CPU shards with
+``device="cpu"``), and the rows of every padded batch split into dp
+contiguous blocks, each run on its shard's card with that card's replica,
+every shard launched before any is waited on and the outputs gathered in
+row order; a batch whose rows do not divide dp runs on shard 0.  The row
+arithmetic is the JAX package's (row buckets times dp, targets divisible
+by dp).  Search sessions split their slots over the shards; the decode
+engine's streams run each row on the card of its engine shard.  ``tp > 1``
+raises (ROADMAP.md, queue A15).
+
 Weights: ``checkpoint`` names a raw HF safetensors directory
 (``models/loader.py``) or one written by ``cli/ingest_checkpoint.py`` in
 the port's own format (``utils/checkpoint.py``), as ``tpu.py:264-331``;
@@ -67,12 +79,15 @@ wherever both models give the same logits.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import hashlib
 import logging
 import pathlib
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,6 +137,7 @@ from consensus_tpu_torch.models.transformer import (
     token_logprobs_streamed,
 )
 from consensus_tpu_torch.obs.backends import BackendInstruments
+from consensus_tpu_torch.parallel.mesh import MeshPlan, make_mesh, parse_mesh_spec, shard_params
 from consensus_tpu_torch.utils import threefry
 from consensus_tpu_torch.utils.device import resolve_device
 
@@ -172,6 +188,25 @@ class _SessionBudget:
             self._cond.notify_all()
 
 
+def _card_shares(devices: Sequence[torch.device]) -> List[int]:
+    """For each dp shard's device, how many shards of the plan sit on that
+    card (a plan may repeat a card): they split its memory budget.  CPU
+    shards stand for separate devices, as the JAX package's virtual CPU
+    devices do, and keep the whole (nominal) CPU budget each."""
+    names = [str(d) for d in devices]
+    return [names.count(n) if d.type == "cuda" else 1 for n, d in zip(names, devices)]
+
+
+def _session_budget_for(device_budget: int) -> _SessionBudget:
+    """The live-session budget of a card with ``device_budget`` bytes beside
+    its weights: what is left after the activation reserve, between the
+    floor and the cap."""
+    return _SessionBudget(min(
+        _SESSION_CACHE_BYTES_CAP,
+        max(_SESSION_MIN_BUDGET_BYTES, device_budget - _ACTIVATION_RESERVE_BYTES),
+    ))
+
+
 def _bucket(n: int, minimum: int = 32) -> int:
     size = minimum
     while size < n:
@@ -197,6 +232,39 @@ def _width_bucket(n: int, minimum: int = 128) -> int:
             return size + size // 2
         size *= 2
     return size
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One dp shard's part of a batch: its index, replica, card and row
+    block (``rows`` rows from ``lo``; every row when ``split`` is off)."""
+
+    index: int
+    params: Any
+    device: torch.device
+    rows: Optional[int]
+    lo: int
+    split: bool
+
+    def put(self, tensor: Optional[torch.Tensor], rows: bool = True) -> Optional[torch.Tensor]:
+        if tensor is None:
+            return None
+        if rows and self.split:
+            tensor = tensor[self.lo : self.lo + self.rows]
+        return tensor.to(self.device)
+
+    def put_kwargs(self, kwargs: Dict[str, Any], whole: Sequence[str] = ("eos_ids", "bias_table")):
+        """``put`` over a kwargs dict: row tensors split, ``whole`` ones not."""
+        return {
+            key: self.put(value, rows=key not in whole) if isinstance(value, torch.Tensor) else value
+            for key, value in kwargs.items()
+        }
+
+
+def _device_guard(device: torch.device):
+    """Make ``device`` the current card of this thread while its work is
+    issued (nothing on the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
@@ -234,9 +302,25 @@ class TorchBackend:
         quantize_frozen_kv: Optional[bool] = None,
         mesh: Optional[Any] = None,
         device: Optional[str] = None,
+        mesh_devices: Optional[Sequence[str]] = None,
     ):
-        if tp != 1 or (dp is not None and dp != 1) or mesh is not None:
-            raise _not_ported("tp/dp/mesh", "multi-GPU")
+        # ``mesh`` is the serving-path spelling of the tp/dp pair
+        # (``tpu.py:172-183``): a {'dp': N, 'tp': M} dict, a "dp=4,tp=2"
+        # string, or a MeshPlan, which also names the devices.  Explicit
+        # tp=/dp= win when both are given.
+        plan = mesh if isinstance(mesh, MeshPlan) else None
+        if plan is not None:
+            if mesh_devices is not None:
+                raise ValueError("mesh_devices conflicts with a MeshPlan, which names its devices")
+            tp, dp = plan.tp, plan.dp
+        elif mesh is not None:
+            parsed = parse_mesh_spec(mesh)
+            if tp == 1:
+                tp = parsed["tp"]
+            if dp is None:
+                dp = parsed["dp"]
+        if tp != 1:
+            raise _not_ported("tp > 1 (multi-GPU tensor parallelism)", "A15")
         # The older name of ``kv_quant``, kept as an alias (``tpu.py:232-233``).
         if quantize_frozen_kv is not None:
             kv_quant = bool(quantize_frozen_kv)
@@ -256,7 +340,22 @@ class TorchBackend:
         #: truncation -- so random-weight timing runs measure the workload
         #: real weights would run.  Never use for quality runs.
         self.pin_generation_budget = bool(pin_generation_budget)
-        self.device = resolve_device(device)
+        dp = int(dp or 1)
+        if mesh_devices is not None and dp == 1:
+            raise ValueError("mesh_devices names the cards of a dp > 1 mesh; dp is 1")
+        if plan is None and dp > 1:
+            # Pure dp (``tpu.py:359-372``): the first dp of ``mesh_devices``
+            # (which may repeat a card) or of the visible cards, or dp CPU
+            # shards when the caller asks for the CPU.
+            if mesh_devices is None and resolve_device(device).type == "cpu":
+                mesh_devices = [resolve_device(device)] * dp
+            plan = make_mesh(mesh_devices, tp=1, dp=dp)
+        #: The (dp, 1) device grid this backend serves over; None on one
+        #: device.  Params replicate over ``data`` and every batch's rows
+        #: split into dp contiguous blocks, one per shard's card.
+        self.mesh_plan = plan if plan is not None and plan.dp > 1 else None
+        self._dp = plan.dp if plan is not None else 1
+        self.device = plan.data_devices[0] if plan is not None else resolve_device(device)
         #: Whether a greedy request decodes the same tokens whatever batch it
         #: shares (the Habermas Machine then elides its no-op ranking
         #: retries, as with ``TPUBackend``).  Not on the card: chip_smoke's
@@ -311,6 +410,13 @@ class TorchBackend:
                 int8=self.quantization == "int8",
             )
 
+        #: Each dp shard's replica of the params, on its card (shard 0's is
+        #: ``self.params``; shards on one card share one copy).
+        self._shard_params = (
+            [row[0] for row in shard_params(self.params, self.mesh_plan)]
+            if self.mesh_plan is not None else [self.params]
+        )
+
         self._bias_id_cache: Dict[str, Tuple[int, ...]] = {}
         self.call_counts = {
             "generate": 0, "score": 0, "score_batches": 0, "search_advances": 0,
@@ -329,6 +435,8 @@ class TorchBackend:
         self.instruments = BackendInstruments("tpu")
         self._unseeded_calls = 0
         self._nonce_lock = threading.Lock()
+        #: The backend whose nonce a shard view draws (itself here).
+        self._nonce_owner = self
         #: The device memory left beside the resident weights, read ONCE,
         #: now: the counterpart of the reference's fixed ``_HBM_BYTES -
         #: params`` (``tpu.py:412-419``, ``:728-731``).  Row buckets and the
@@ -336,15 +444,20 @@ class TorchBackend:
         #: what other tenants of the card (another fleet replica, the CUDA
         #: cache) hold at call time.
         self._device_budget = self._free_device_bytes()
-        self._session_budget = _SessionBudget(
-            min(
-                _SESSION_CACHE_BYTES_CAP,
-                max(
-                    _SESSION_MIN_BUDGET_BYTES,
-                    self._device_budget - _ACTIVATION_RESERVE_BYTES,
-                ),
-            )
-        )
+        self._session_budget = _session_budget_for(self._device_budget)
+        #: One single-device view of this backend per dp shard (its
+        #: replica, its card, that card's budgets): the engine's streams and
+        #: the search sessions run on them.  None on one device.
+        self._shards: Optional[List["TorchBackend"]] = None
+        self._shard_pool = None
+        self._session_turn = 0
+        #: How many dp shards share this backend's card (a shard view's
+        #: row buckets take that share of the card's budget).
+        self._card_share = 1
+        if self.mesh_plan is not None:
+            budgets = {str(self.device): (self._device_budget, self._session_budget)}
+            shares = _card_shares(self.mesh_plan.data_devices)
+            self._shards = [self._shard_view(i, budgets, shares[i]) for i in range(self._dp)]
 
     def _restore_ingested(self, checkpoint: str, dtype: str) -> Dict[str, Any]:
         """Parameters of a directory written by ``cli/ingest_checkpoint.py``,
@@ -376,11 +489,95 @@ class TorchBackend:
             )
         return restore_params(str(pathlib.Path(checkpoint) / "params"), self.device)
 
+    # -- data-parallel shards ------------------------------------------------
+
+    def _shard_view(self, index: int, budgets: Dict[str, tuple], share: int) -> "TorchBackend":
+        """A single-device view of this backend on dp shard ``index``: the
+        same tokenizer, counters, instruments and nonce; its own replica,
+        card and (per card) memory budgets, of which its row buckets take
+        one ``share``-th."""
+        view = copy.copy(self)
+        view.params = self._shard_params[index]
+        view.device = self.mesh_plan.data_devices[index]
+        view.mesh_plan = None
+        view._dp = 1
+        view._shards = None
+        view._shard_params = [view.params]
+        key = str(view.device)
+        if key not in budgets:
+            free = view._free_device_bytes()
+            budgets[key] = (free, _session_budget_for(free))
+        view._device_budget, view._session_budget = budgets[key]
+        view._card_share = share
+        return view
+
+    def _map_shards(self, fn: Callable[[int], Any], indices: Sequence[int]) -> List[Any]:
+        """``fn(i)`` for each shard index, on the shard threads (each with its
+        card current and inference mode on), so that every shard's work is
+        issued before any is waited on."""
+        if self._shard_pool is None:
+            self._shard_pool = ThreadPoolExecutor(
+                max_workers=self._dp, thread_name_prefix="dp-shard"
+            )
+        devices = self.mesh_plan.data_devices
+
+        def run(i: int):
+            with torch.inference_mode(), _device_guard(devices[i]):
+                return fn(i)
+
+        return list(self._shard_pool.map(run, indices))
+
+    def _on_shards(self, body: Callable[["_Shard"], Any], n_rows: Optional[int] = None) -> List[Any]:
+        """Run ``body(shard)`` once per dp shard, every shard's work launched
+        before any is waited on; returns the per-shard results in shard order.
+
+        ``shard.put(tensor)`` gives the shard's contiguous block of the
+        tensor's leading (row) axis on the shard's card, ``shard.put(tensor,
+        rows=False)`` the whole tensor there; ``shard.rows`` is the block's
+        row count.  With ``n_rows`` not a multiple of dp the rows do not
+        split: shard 0 runs them all, as the JAX package leaves such a batch
+        replicated (``tpu.py:495-508``).  Without ``n_rows`` every shard gets
+        whole tensors (a replicated step, such as a shared prefill)."""
+        split = n_rows is not None and self._dp > 1 and n_rows % self._dp == 0
+        if self._dp == 1 or (n_rows is not None and not split):
+            with torch.inference_mode():
+                return [body(_Shard(0, self.params, self.device, n_rows, 0, False))]
+        block = n_rows // self._dp if split else n_rows
+        devices = self.mesh_plan.data_devices
+        return self._map_shards(
+            lambda i: body(_Shard(i, self._shard_params[i], devices[i], block,
+                                  i * block if split else 0, split)),
+            range(self._dp),
+        )
+
+    def _gather(self, outs: List[Any]) -> Any:
+        """Per-shard results -> one, rows concatenated in shard order on
+        ``self.device`` (a tensor, or a tuple of tensors field by field)."""
+        if len(outs) == 1:
+            return outs[0]
+        first = outs[0]
+        if isinstance(first, torch.Tensor):
+            return torch.cat([o.to(self.device) for o in outs])
+        fields = [self._gather([o[i] for o in outs]) for i in range(len(first))]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+    def _run_rows(self, body: Callable, n_rows: int) -> Any:
+        """:meth:`_on_shards` over ``n_rows`` rows, gathered."""
+        return self._gather(self._on_shards(body, n_rows))
+
+    def _next_nonce(self) -> int:
+        """The next unseeded-call nonce, shared by every shard view."""
+        owner = self._nonce_owner
+        with owner._nonce_lock:
+            owner._unseeded_calls += 1
+            return owner._unseeded_calls
+
     # -- helpers -------------------------------------------------------------
 
     def kv_cache_identity(self) -> tuple:
         """Content-key identity for cross-request prefix KV reuse: model,
-        KV mode (``tpu.py:423-436``) and tensor-parallel width (1 here)."""
+        KV mode and tensor-parallel width (``tpu.py:423-436``; 1 until queue
+        A15).  dp does not enter: pages replicate over data."""
         return (self.model_name, "int8" if self.kv_quant else "dense", ("tp", 1))
 
     def suggest_kv_page_pool(self, page_size: int = 16) -> int:
@@ -490,9 +687,7 @@ class TorchBackend:
         folds = []
         for row, seed in enumerate(seeds):
             if seed is None:
-                with self._nonce_lock:
-                    self._unseeded_calls += 1
-                    nonce = self._unseeded_calls
+                nonce = self._next_nonce()
                 folds.append(self._fold(kind, "unseeded", row, nonce))
             else:
                 folds.append(self._fold(kind, seed))
@@ -513,9 +708,16 @@ class TorchBackend:
     def _rows_for(self, row_bytes: int) -> int:
         """Largest batch of ``row_bytes``-per-row decode state that fits the
         fixed device budget beside the live search sessions, rounded down to
-        the {1, 1.5} x power-of-two ladder (``tpu.py:717-748``)."""
+        the {1, 1.5} x power-of-two ladder (``tpu.py:717-748``).  Shards on
+        one card split its budget, each keeping its own activation reserve."""
+        if self._shards is not None:
+            # dp shards hold dp x the rows of the tightest one; scaling the
+            # per-shard ladder keeps every chunk divisible by dp
+            # (``tpu.py:745-748``).
+            return min(view._rows_for(row_bytes) for view in self._shards) * self._dp
         budget = (
-            self._device_budget - _ACTIVATION_RESERVE_BYTES - self._session_budget.used
+            (self._device_budget - self._session_budget.used) // self._card_share
+            - _ACTIVATION_RESERVE_BYTES
         )
         allowed = max(1, budget // max(1, row_bytes))
         bucket = 1
@@ -581,12 +783,30 @@ class TorchBackend:
 
     # -- generate ------------------------------------------------------------
 
-    def generate(self, requests: Sequence[GenerationRequest]) -> List[GenerationResult]:
+    def generate(
+        self, requests: Sequence[GenerationRequest], shards: Optional[Sequence[int]] = None
+    ) -> List[GenerationResult]:
         """Slices of up to 256 requests: the shared-trunk path prefills one
         row, so a wide group of identical prompts decodes in one loop; the
-        classic path re-caps itself at ``max_batch_rows``."""
+        classic path re-caps itself at ``max_batch_rows``.
+
+        ``shards`` (the decode engine's, over dp shards) names each
+        request's shard: each shard's requests then run as one batch on
+        that shard's card, rather than split by position."""
         if not requests:
             return []
+        if shards is not None and self._shards is not None:
+            groups: Dict[int, List[int]] = {}
+            for row, shard in enumerate(shards):
+                groups.setdefault(shard % self._dp, []).append(row)
+            parts = self._map_shards(
+                lambda s: self._shards[s].generate([requests[r] for r in groups[s]]), list(groups)
+            )
+            results: List[Optional[GenerationResult]] = [None] * len(requests)
+            for s, part in zip(groups, parts):
+                for row, result in zip(groups[s], part):
+                    results[row] = result
+            return results  # type: ignore[return-value]
         return self._sliced(list(requests), self._generate_impl, limit=256)
 
     def _generate_impl(self, requests: Sequence[GenerationRequest]) -> List[GenerationResult]:
@@ -632,7 +852,8 @@ class TorchBackend:
         requests: Sequence[GenerationRequest],
         decode_steps: int = 1,
         speculative: bool = False,
-    ) -> "_PagedGenerateStream":
+        shards: Optional[Sequence[int]] = None,
+    ):
         """Multi-token decode stream, the engine's ``decode_steps`` seam
         (``tpu.py:619-643``): the cohort is prefilled into a private page
         pool and then served in K-step windows of
@@ -646,13 +867,22 @@ class TorchBackend:
         With ``speculative=True`` each window instead drafts K tokens per
         row from an n-gram self-proposer and verifies them in ONE
         ``stepper.paged_verify_steps`` dispatch: ``1 + accepted`` real
-        tokens per window, on the same sequential key schedule."""
-        return _PagedGenerateStream(self, list(requests), decode_steps, speculative=speculative)
+        tokens per window, on the same sequential key schedule.
+
+        Over dp shards the cohort's rows run as one stream per shard on the
+        shard's card (:class:`_ShardedStream`): by ``shards`` (the engine's
+        per-row shard, whose pool books the row's pages) or, without it, in
+        contiguous blocks."""
+        if self._shards is None:
+            return _PagedGenerateStream(self, list(requests), decode_steps, speculative=speculative)
+        return _ShardedStream(self, list(requests), decode_steps, speculative, shards)
 
     def _prep_generation_rows(self, requests: Sequence[GenerationRequest], allowed: int):
         """Row bucketing + per-row sampling state shared by the classic and
         shared-trunk paths (``tpu.py:815-855``)."""
         target = min(_bucket(len(requests), minimum=min(8, allowed)), allowed)
+        if target % self._dp:  # dp > 8: power-of-two buckets may undershoot
+            target = min(-(-target // self._dp) * self._dp, allowed)
         pad_rows = target - len(requests)
         temperatures = torch.tensor(
             [r.temperature for r in requests] + [1.0] * pad_rows,
@@ -716,17 +946,23 @@ class TorchBackend:
             bias_table=bias_table, bias_index=bias_index, pad_id=self.tokenizer.pad_id,
             init_done=self._to_device(init_done), rep_penalty=rep_penalty,
         )
-        with torch.inference_mode():
+        tokens, valid = self._to_device(tokens), self._to_device(valid)
+
+        def body(shard: _Shard):
+            # Every shard decodes its block of rows from its own copy of the
+            # one-row trunk.
+            trunk = (shard.put(tokens, rows=False), shard.put(valid, rows=False))
             if seg_len is not None:
-                out = gen.generate_tokens_shared_trunk_segmented(
-                    self.params, self.config, self._to_device(tokens), self._to_device(valid),
-                    target, max_new, seg_len=seg_len, kv_quant=self.kv_quant, **kwargs,
+                return gen.generate_tokens_shared_trunk_segmented(
+                    shard.params, self.config, *trunk, shard.rows, max_new,
+                    seg_len=seg_len, kv_quant=self.kv_quant, **shard.put_kwargs(kwargs),
                 )
-            else:
-                out = gen.generate_tokens_shared_trunk(
-                    self.params, self.config, self._to_device(tokens), self._to_device(valid),
-                    target, max_new, **kwargs,
-                )
+            return gen.generate_tokens_shared_trunk(
+                shard.params, self.config, *trunk, shard.rows, max_new,
+                **shard.put_kwargs(kwargs),
+            )
+
+        out = self._run_rows(body, target)
         return self._finish_generation(requests, out, target, max_new)
 
     def _generate_classic(
@@ -777,14 +1013,20 @@ class TorchBackend:
             bias_table=bias_table, bias_index=bias_index, pad_id=self.tokenizer.pad_id,
             rep_penalty=rep_penalty,
         )
-        with torch.inference_mode():
+
+        def body(shard: _Shard):
+            # A shard's segmented loop compacts its own rows.
             if seg_len is not None:
-                out = gen.generate_tokens_segmented(
-                    self.params, self.config, tokens, valid, max_new, seg_len=seg_len,
-                    kv_quant=self.kv_quant, **kwargs,
+                return gen.generate_tokens_segmented(
+                    shard.params, self.config, shard.put(tokens), shard.put(valid), max_new,
+                    seg_len=seg_len, kv_quant=self.kv_quant, **shard.put_kwargs(kwargs),
                 )
-            else:
-                out = gen.generate_tokens(self.params, self.config, tokens, valid, max_new, **kwargs)
+            return gen.generate_tokens(
+                shard.params, self.config, shard.put(tokens), shard.put(valid), max_new,
+                **shard.put_kwargs(kwargs),
+            )
+
+        out = self._run_rows(body, target)
         return self._finish_generation(requests, out, target, max_new)
 
     def _finish_generation(
@@ -912,7 +1154,7 @@ class TorchBackend:
 
     def _shared_prefill(self, ctx_ids: List[int]):
         """Prefill one shared scoring context, right-padded to
-        ``max_context`` columns -> (trunk, ctx_len, last_hidden)."""
+        ``max_context`` columns -> per dp shard (trunk, ctx_len, last_hidden)."""
         width = self.max_context
         self.instruments.record_padding("score_trunk", 1, width, len(ctx_ids))
         self.instruments.record_launch("score_trunk", (1, width))
@@ -920,10 +1162,13 @@ class TorchBackend:
         tokens[0, : len(ctx_ids)] = ctx_ids
         valid = np.zeros((1, width), bool)
         valid[0, : len(ctx_ids)] = True
-        with torch.inference_mode():
-            return shared_context_prefill(
-                self.params, self.config, self._to_device(tokens), self._to_device(valid)
+        tokens, valid = self._to_device(tokens), self._to_device(valid)
+        # One trunk per dp shard: every shard scores its rows against it.
+        return self._on_shards(
+            lambda shard: shared_context_prefill(
+                shard.params, self.config, shard.put(tokens), shard.put(valid)
             )
+        )
 
     def _score_shared_group(self, trunk_state, idxs: List[int], prepared, results, rows_cap: int) -> None:
         """Score one row chunk of a shared-context group against its trunk:
@@ -939,12 +1184,14 @@ class TorchBackend:
         for row, ids in enumerate(conts):
             tokens[row, : len(ids)] = ids
             valid[row, : len(ids)] = True
-        trunk, ctx_len, last_hidden = trunk_state
-        with torch.inference_mode():
-            logprobs = self._fetch(shared_context_cont_logprobs(
-                self.params, self.config, trunk, ctx_len, last_hidden,
-                self._to_device(tokens), self._to_device(valid),
-            ))
+        tokens_t, valid_t = self._to_device(tokens), self._to_device(valid)
+        logprobs = self._fetch(self._run_rows(
+            lambda shard: shared_context_cont_logprobs(
+                shard.params, self.config, *trunk_state[shard.index],
+                shard.put(tokens_t), shard.put(valid_t),
+            ),
+            n_rows,
+        ))
         for row, i in enumerate(idxs):
             ids = conts[row]
             self._tally(self.token_counts, "scored", len(ids))
@@ -1008,10 +1255,11 @@ class TorchBackend:
             "score", len(rows), width, sum(min(len(r), width) for r in rows[: len(requests)])
         )
         self.instruments.record_launch("score", (len(rows), width))
-        with torch.inference_mode():
-            logprobs = self._fetch(scorer(
-                self.params, self.config, self._to_device(tokens), self._to_device(valid)
-            ))
+        tokens_t, valid_t = self._to_device(tokens), self._to_device(valid)
+        logprobs = self._fetch(self._run_rows(
+            lambda shard: scorer(shard.params, self.config, shard.put(tokens_t), shard.put(valid_t)),
+            len(rows),
+        ))
 
         results = []
         for i, (ctx_len, cont_len) in enumerate(spans):
@@ -1130,17 +1378,21 @@ class TorchBackend:
         self._session_budget.acquire(nbytes)
         try:
             with torch.inference_mode():
-                state = stepper.make_page_state(c, num_pages, ps, dtype, self.device)
-                self._prefill_shared_pages(state, prefix_ids, shared, num_pages)
+                # One pool per dp shard, each holding the shared pages; a
+                # chunk's rows split over the shards.
+                states = self._on_shards(
+                    lambda shard: stepper.make_page_state(c, num_pages, ps, dtype, shard.device)
+                )
+                self._prefill_shared_pages(states, prefix_ids, shared, num_pages)
                 chunk_stats = []
                 for start in range(0, total_rows, chunk_rows):
                     chunk = rows[start : start + chunk_rows]
-                    stats, state = self._score_matrix_chunk(
-                        state, chunk, prefix_ids, chunk_rows, width, layout
+                    stats, states = self._score_matrix_chunk(
+                        states, chunk, prefix_ids, chunk_rows, width, layout
                     )
                     chunk_stats.append(tuple(t[: len(chunk)] for t in stats))
                     self._tally(self.matrix_stats, "chunks", 1)
-                del state
+                del states
                 stats = tuple(torch.cat([cs[i] for cs in chunk_stats]) for i in range(4))
                 utilities, welfare_vals, aux = stepper.utility_matrix(
                     stats, n_candidates, n_agents, stat=request.stat,
@@ -1162,9 +1414,9 @@ class TorchBackend:
             path="fused",
         )
 
-    def _prefill_shared_pages(self, state, prefix_ids, shared, sink: int) -> None:
+    def _prefill_shared_pages(self, states, prefix_ids, shared, sink: int) -> None:
         """Write every unique agent context's full pages (one row per unique
-        prefix, in chunks of up to 256 columns) into the pool
+        prefix, in chunks of up to 256 columns) into each dp shard's pool
         (``tpu.py:1522-1576``).  Rows that pad the batch bucket repeat row 0
         with their writes sent to the sink."""
         ps = self._SCORE_PAGE_SIZE
@@ -1201,15 +1453,19 @@ class TorchBackend:
             valid[len(pre):] = valid[0]
             lengths[len(pre):] = lengths[0]
             self.instruments.record_launch("score_matrix_prefill", (n_rows, chunk))
-            stepper.paged_prefill_chunk(
-                self.params, self.config, *map(self._to_device, (tokens, valid)), state,
-                *map(self._to_device, (tables, lengths, write_pages, write_offsets)),
+            inputs = [self._to_device(a) for a in (tokens, valid, tables, lengths, write_pages, write_offsets)]
+            self._on_shards(
+                lambda shard: stepper.paged_prefill_chunk(
+                    shard.params, self.config, *map(shard.put, inputs[:2]), states[shard.index],
+                    *map(shard.put, inputs[2:]),
+                )
             )
 
-    def _score_matrix_chunk(self, state, chunk, prefix_ids, n_rows: int, width: int, layout):
+    def _score_matrix_chunk(self, states, chunk, prefix_ids, n_rows: int, width: int, layout):
         """One fused teacher-forced pass over a chunk of matrix rows
-        (``tpu.py:1578-1638``); rows past the chunk repeat row 0, write to
-        the sink and score nothing."""
+        (``tpu.py:1578-1638``), its rows split over the dp shards' pools ->
+        (stats, per-shard states); rows past the chunk repeat row 0, write
+        to the sink and score nothing."""
         ps = self._SCORE_PAGE_SIZE
         shared, shared_total, max_private, max_blocks, sink = layout
         tokens = np.full((n_rows, width), self.tokenizer.pad_id, np.int32)
@@ -1246,19 +1502,37 @@ class TorchBackend:
             "score_matrix", n_rows, width, sum(q for (_, _, q, _) in chunk)
         )
         self.instruments.record_launch("score_matrix", (n_rows, width))
-        return stepper.paged_score_chunk(
-            self.params, self.config,
-            *map(self._to_device, (tokens, targets, score_mask, chunk_valid)), state,
-            *map(self._to_device, (tables, lengths, write_pages, write_offsets)),
+        inputs = [
+            self._to_device(a) for a in (tokens, targets, score_mask, chunk_valid,
+                                         tables, lengths, write_pages, write_offsets)
+        ]
+        outs = self._on_shards(
+            lambda shard: stepper.paged_score_chunk(
+                shard.params, self.config, *map(shard.put, inputs[:4]), states[shard.index],
+                *map(shard.put, inputs[4:]),
+            ),
+            n_rows,
         )
+        return self._gather([o[0] for o in outs]), [o[1] for o in outs] + states[len(outs):]
 
     # -- token-search sessions -----------------------------------------------
 
     def open_fused_token_search(self, spec: SearchSpec) -> "TorchTokenSearchSession":
         """Incremental KV-cache search session (``models/stepper.py``): one
         fused step per emitted token.  Raises :class:`FusedSessionUnavailable`
-        when its caches would not fit the session budget."""
-        return TorchTokenSearchSession(self, spec)
+        when its caches would not fit the session budget.
+
+        Over dp shards a session whose slots divide dp splits them into
+        contiguous blocks, one per shard's card (:class:`_ShardedSearchSession`);
+        any other runs whole on one shard, the shards taken in turn."""
+        if self._shards is None:
+            return TorchTokenSearchSession(self, spec)
+        if spec.n_slots % self._dp == 0:
+            return _ShardedSearchSession(self, spec)
+        with self._nonce_lock:
+            turn = self._session_turn
+            self._session_turn += 1
+        return TorchTokenSearchSession(self._shards[turn % self._dp], spec)
 
     # -- embed ---------------------------------------------------------------
 
@@ -1285,8 +1559,10 @@ class TorchBackend:
             sum(min(len(t), width) for t in token_lists[: len(texts)]),
         )
         self.instruments.record_launch("embed", (len(token_lists), width))
-        with torch.inference_mode():
-            hidden = _embed_forward(self.params, self.config, tokens, valid)
+        hidden = self._run_rows(
+            lambda shard: _embed_forward(shard.params, self.config, shard.put(tokens), shard.put(valid)),
+            len(token_lists),
+        )
         hidden = self._fetch(hidden[: len(texts)])
         norms = np.linalg.norm(hidden, axis=1, keepdims=True)
         return hidden / np.maximum(norms, 1e-12)
@@ -1343,12 +1619,15 @@ class TorchBackend:
         self.instruments.record_launch(
             "next_token", (all_rows, width, k, int(bias_table is not None))
         )
-        with torch.inference_mode():
-            ids, logprobs = gen.next_token_topk(
-                self.params, self.config, tokens, valid, keys, k, temperatures,
-                torch.tensor(gumbel_rows, dtype=torch.bool, device=self.device),
-                bias_table, bias_index, with_gumbel=any(gumbel_rows),
-            )
+        gumbel = torch.tensor(gumbel_rows, dtype=torch.bool, device=self.device)
+        ids, logprobs = self._run_rows(
+            lambda shard: gen.next_token_topk(
+                shard.params, self.config, shard.put(tokens), shard.put(valid), shard.put(keys),
+                k, shard.put(temperatures), shard.put(gumbel), shard.put(bias_table, rows=False),
+                shard.put(bias_index), with_gumbel=any(gumbel_rows),
+            ),
+            all_rows,
+        )
         ids, logprobs = self._fetch(ids, logprobs)
         out: List[List[TokenCandidate]] = []
         for row, request in enumerate(requests):
@@ -1705,9 +1984,18 @@ class TorchTokenSearchSession:
     ``fold_in(fold_in(fold_in(base_key, 2), salt_p), t)``.
     """
 
-    def __init__(self, backend: TorchBackend, spec: SearchSpec):
+    def __init__(
+        self,
+        backend: TorchBackend,
+        spec: SearchSpec,
+        base_key: Optional[torch.Tensor] = None,
+        slot_offset: int = 0,
+    ):
         self.backend = backend
         self.spec = spec
+        #: Global index of this session's slot 0: a dp shard's part of a
+        #: split session draws the noise of its own slots.
+        self._slot_offset = slot_offset
         tok = backend.tokenizer
         prefixes = [tok.raw_prompt(spec.ref_user, spec.ref_system)] + [
             tok.raw_prompt(a_user, a_system) for a_system, a_user in spec.agent_prompts
@@ -1751,11 +2039,10 @@ class TorchTokenSearchSession:
         self.dispatch_count = 0
         bias = backend._bias_vector(spec.bias_against_tokens, spec.bias_value)
         self._ref_bias = backend._to_device(bias) if bias is not None else None
-        if spec.seed is None:
-            with backend._nonce_lock:
-                backend._unseeded_calls += 1
-                nonce = backend._unseeded_calls
-            self._base_key = backend._fold_seed("search", "unseeded", nonce)
+        if base_key is not None:
+            self._base_key = base_key.to(backend.device)
+        elif spec.seed is None:
+            self._base_key = backend._fold_seed("search", "unseeded", backend._next_nonce())
         else:
             self._base_key = backend._fold_seed("search", spec.seed)
         self._eos_ids = tuple(tok.eos_ids)
@@ -1798,7 +2085,7 @@ class TorchTokenSearchSession:
             self.backend.params, self.backend.config, self._tokens, self._valid,
             spec.n_slots, self.n_roles, spec.temperature, spec.k, spec.sample,
             spec.max_steps, ref_bias=self._ref_bias,
-            base_key=self._base_key,
+            base_key=self._base_key, slot_offset=self._slot_offset,
         )
         return self._finish(out)
 
@@ -1832,7 +2119,7 @@ class TorchTokenSearchSession:
             [int(p) for p in parents], [c.token_id for c in chosen], self._step - 1,
             spec.n_slots, self.n_roles, spec.temperature, spec.k, spec.sample,
             ref_bias=self._ref_bias,
-            base_key=self._base_key,
+            base_key=self._base_key, slot_offset=self._slot_offset,
         )
         return self._finish(out)
 
@@ -2117,3 +2404,186 @@ class TorchTokenSearchSession:
                 )
             results.append(row_out)
         return results
+
+
+class _ShardedStream:
+    """A generate cohort over the dp shards: each shard's rows run as one
+    :class:`_PagedGenerateStream` on the shard's card, with the same stream
+    protocol.  ``dispatch()`` launches every shard's window before any is
+    waited on (a window holds no host sync); ``collect()`` gathers the
+    windows back in row order."""
+
+    def __init__(
+        self,
+        backend: TorchBackend,
+        requests: List[GenerationRequest],
+        decode_steps: int,
+        speculative: bool,
+        shards: Optional[Sequence[int]],
+    ):
+        dp = backend._dp
+        if shards is None:
+            block = -(-len(requests) // dp)
+            shards = [row // block for row in range(len(requests))]
+        groups: Dict[int, List[int]] = {}
+        for row, shard in enumerate(shards):
+            groups.setdefault(int(shard) % dp, []).append(row)
+        self.speculative = bool(speculative)
+        self._rows = list(groups.values())
+        # Each shard's prefill runs on its own thread and card.
+        self._parts = backend._map_shards(
+            lambda s: _PagedGenerateStream(
+                backend._shards[s], [requests[r] for r in groups[s]], decode_steps,
+                speculative=speculative,
+            ),
+            list(groups),
+        )
+        self._devices = [backend._shards[s].device for s in groups]
+        self._n_rows = len(requests)
+
+    @property
+    def finished(self) -> bool:
+        return all(part.finished for part in self._parts)
+
+    @property
+    def spec_proposed(self) -> int:
+        return sum(part.spec_proposed for part in self._parts)
+
+    @property
+    def spec_accepted(self) -> int:
+        return sum(part.spec_accepted for part in self._parts)
+
+    def dispatch(self) -> None:
+        for part, device in zip(self._parts, self._devices):
+            with _device_guard(device):
+                part.dispatch()
+
+    def collect(self) -> Tuple[List[int], Dict[int, GenerationResult]]:
+        row_tokens = [0] * self._n_rows
+        finished: Dict[int, GenerationResult] = {}
+        for rows, part in zip(self._rows, self._parts):
+            if part._pending is None:  # finished before this window
+                continue
+            tokens, done = part.collect()
+            for local, row in enumerate(rows):
+                row_tokens[row] = tokens[local]
+            for local, result in done.items():
+                finished[rows[local]] = result
+        return row_tokens, finished
+
+    def results(self) -> List[GenerationResult]:
+        out: List[Optional[GenerationResult]] = [None] * self._n_rows
+        for rows, part in zip(self._rows, self._parts):
+            for row, result in zip(rows, part.results()):
+                out[row] = result
+        return out  # type: ignore[return-value]
+
+    def close(self) -> None:
+        for part in self._parts:
+            part.close()
+
+
+class _ShardedSearchSession:
+    """A search session whose slots split over the dp shards: shard i holds
+    slots ``[i*m, (i+1)*m)`` (all their roles) as a
+    :class:`TorchTokenSearchSession` on its card, over its own copy of the
+    prefix trunk.  A step launches every shard's part before any is waited
+    on.  A slot whose parent lives on another shard takes the parent's
+    tails by a device-to-device copy, made for every shard before any
+    shard's step writes its tails in place.  Each slot draws the noise of
+    its global index from one session key, so the proposals equal those of
+    one session over every slot."""
+
+    def __init__(self, backend: TorchBackend, spec: SearchSpec):
+        self.backend = backend
+        self.spec = spec
+        dp = backend._dp
+        self._m = spec.n_slots // dp
+        if spec.seed is None:
+            key = backend._fold_seed("search", "unseeded", backend._next_nonce())
+        else:
+            key = backend._fold_seed("search", spec.seed)
+        sub_spec = dataclasses.replace(spec, n_slots=self._m)
+        self._subs: List[TorchTokenSearchSession] = []
+        try:
+            for i in range(dp):
+                self._subs.append(TorchTokenSearchSession(
+                    backend._shards[i], sub_spec, base_key=key, slot_offset=i * self._m,
+                ))
+        except BaseException:
+            self.close()
+            raise
+        self.n_roles = self._subs[0].n_roles
+
+    @property
+    def dispatch_count(self) -> int:
+        return self._subs[0].dispatch_count if self._subs else 0
+
+    def _on_subs(self, fn) -> List[List[ScoredCandidate]]:
+        parts = self.backend._map_shards(lambda i: fn(i, self._subs[i]), range(len(self._subs)))
+        return [row for part in parts for row in part]
+
+    def propose(self) -> List[List[ScoredCandidate]]:
+        return self._on_subs(lambda i, sub: sub.propose())
+
+    def advance_and_propose(
+        self, parents: Sequence[int], chosen: Sequence[ScoredCandidate]
+    ) -> List[List[ScoredCandidate]]:
+        spec, m = self.spec, self._m
+        if len(parents) != spec.n_slots or len(chosen) != spec.n_slots:
+            raise ValueError(
+                f"expected {spec.n_slots} (parent, token) pairs, got "
+                f"{len(parents)}/{len(chosen)}"
+            )
+        parents = [int(p) for p in parents]
+        local_parents = []
+        moved = {}
+        for i, sub in enumerate(self._subs):
+            mine = parents[i * m : (i + 1) * m]
+            if all(i * m <= p < (i + 1) * m for p in mine):
+                local_parents.append([p - i * m for p in mine])
+                continue
+            if sub._state is None:
+                raise ValueError("call propose() before advance_and_propose()")
+            moved[i] = self._gathered_state(sub, mine)
+            local_parents.append(list(range(m)))
+        for i, state in moved.items():
+            self._subs[i]._state = state
+        return self._on_subs(
+            lambda i, sub: sub.advance_and_propose(
+                local_parents[i], chosen[i * m : (i + 1) * m]
+            )
+        )
+
+    def _gathered_state(self, sub: TorchTokenSearchSession, parents: Sequence[int]):
+        """``sub``'s state with the tails of its slots' (global) parents,
+        copied from whichever shard holds them onto ``sub``'s card."""
+        roles, device = self.n_roles, sub.backend.device
+        pieces: Dict[str, list] = {"tail_k": [], "tail_v": [], "tail_positions": [], "cur_pos": []}
+        for p in parents:
+            src = self._subs[p // self._m]._state
+            if src is None:
+                raise ValueError("call propose() before advance_and_propose()")
+            rows = slice((p % self._m) * roles, (p % self._m + 1) * roles)
+            pieces["tail_k"].append(src.tail_k[:, rows].to(device))
+            pieces["tail_v"].append(src.tail_v[:, rows].to(device))
+            pieces["tail_positions"].append(src.tail_positions[rows].to(device))
+            pieces["cur_pos"].append(src.cur_pos[rows].to(device))
+        return sub._state._replace(
+            tail_k=torch.cat(pieces["tail_k"], dim=1),
+            tail_v=torch.cat(pieces["tail_v"], dim=1),
+            tail_positions=torch.cat(pieces["tail_positions"]),
+            cur_pos=torch.cat(pieces["cur_pos"]),
+        )
+
+    def _single_slot_only(self, *args, **kwargs):
+        raise ValueError("tree paths and rollouts require an n_slots=1 session")
+
+    propose_suffixes = rollout_from = rollout_many = _single_slot_only
+
+    def close(self) -> None:
+        for sub in getattr(self, "_subs", []):
+            sub.close()
+
+    def __del__(self):
+        self.close()

@@ -390,10 +390,12 @@ decode_partial_kernel(const Args a) {
 template <int HD>
 int launch(const Args& a, cudaStream_t stream) {
   using L = Layout<HD>;
-  // Once per instantiation (a thread-safe static), so that a launch holds
-  // only stream work and can be captured into a CUDA graph.
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      decode_partial_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  // The shared-memory limit is kept per device context: set it once per
+  // device, so that a later launch holds only stream work and can be
+  // captured into a CUDA graph.
+  static std::atomic<int> attr_set[kMaxDevices];
+  const cudaError_t attr_err = ensure_smem_limit(
+      (const void*)decode_partial_kernel<HD>, (int)L::BYTES, attr_set);
   if (attr_err != cudaSuccess) return (int)attr_err;
   const int rows = a.P * (a.H / a.KV);
   dim3 grid1((unsigned)(a.R * a.KV), (unsigned)(a.n_trunk + a.P * a.n_tail),

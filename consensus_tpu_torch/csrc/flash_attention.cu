@@ -361,10 +361,12 @@ int launch(const void* q, const void* k, const void* v, void* o,
            float scale, float softcap, int window, int causal,
            cudaStream_t stream) {
   using L = Layout<HD>;
-  // Once per instantiation (a thread-safe static), so that a launch holds
-  // only stream work and can be captured into a CUDA graph.
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  // The shared-memory limit is kept per device context: set it once per
+  // device, so that a later launch holds only stream work and can be
+  // captured into a CUDA graph.
+  static std::atomic<int> attr_set[kMaxDevices];
+  const cudaError_t attr_err = ensure_smem_limit(
+      (const void*)flash_fwd_kernel<HD>, (int)L::BYTES, attr_set);
   if (attr_err != cudaSuccess) return (int)attr_err;
   dim3 grid((unsigned)(B * H), (unsigned)((S + L::BQ - 1) / L::BQ));
   flash_fwd_kernel<HD><<<grid, L::THREADS, L::BYTES, stream>>>(

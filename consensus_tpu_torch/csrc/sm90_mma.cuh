@@ -21,12 +21,19 @@
 // Shared-memory tiles are row-major with HD + 8 bf16 per row: the 16-byte
 // pad puts the 8 rows an ldmatrix reads at one column on 8 different bank
 // groups.
+//
+// * ensure_smem_limit raises a kernel's dynamic shared-memory limit on the
+//   current device, once per device: the CUDA runtime keeps that attribute
+//   per device context.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace sm90 {
 
@@ -147,6 +154,25 @@ __device__ __forceinline__ int kt_offset(int lane) {
 template <int LD>
 __device__ __forceinline__ int v_offset(int lane) {
   return ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+}
+
+// Devices a process can address with the per-device flags below.
+constexpr int kMaxDevices = 64;
+
+// Set `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device unless `done[device]` says it is set already.  A call after the
+// first on a device is one cudaGetDevice and an atomic load: no stream work,
+// so it can run inside a CUDA-graph capture.
+inline cudaError_t ensure_smem_limit(const void* kernel, int bytes,
+                                     std::atomic<int>* done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[device].store(1, std::memory_order_release);
+  return err;
 }
 
 }  // namespace sm90

@@ -478,8 +478,18 @@ class Experiment:
         )
 
     def _mesh_labels(self) -> Dict[str, int]:
-        """The device-mesh layout this cell ran on: one device until the
-        multi-GPU port (ROADMAP.md, queue A9)."""
+        """The device-mesh layout this cell ran on (``experiment.py:478-490``),
+        so sweep readers can tell a dp=4 run from one card without
+        re-deriving it from throughput.  Unwraps batching/supervision
+        decorators to find the device backend; no mesh -> dp=1, tp=1."""
+        backend = self.backend
+        seen = set()
+        while backend is not None and id(backend) not in seen:
+            seen.add(id(backend))
+            plan = getattr(backend, "mesh_plan", None)
+            if plan is not None:
+                return {"dp": int(plan.dp), "tp": int(plan.tp)}
+            backend = getattr(backend, "inner", None)
         return {"dp": 1, "tp": 1}
 
     def _write_token_counts(

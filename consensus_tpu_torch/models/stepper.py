@@ -99,6 +99,7 @@ def _propose_and_score(
     step_index: int = 0,
     key_family: int = 0,  # trunk steps 0, suffix trees 1, rollouts 2
     noise: Optional[torch.Tensor] = None,  # (B, V) Gumbel noise
+    slot_offset: int = 0,  # global index of slot 0 (a dp shard's first slot)
 ) -> torch.Tensor:
     """Top-k proposals of the reference rows, scored under every agent row,
     packed into one (B, k, 2 + A) float32 tensor so the host needs a single
@@ -118,7 +119,9 @@ def _propose_and_score(
             if base_key is None:
                 raise ValueError("sample=True needs a base key or noise")
             step_key = threefry.fold_in(threefry.fold_in(base_key, key_family), step_index)
-            slots = torch.arange(n_beams, dtype=torch.int64, device=base_key.device)
+            slots = torch.arange(
+                slot_offset, slot_offset + n_beams, dtype=torch.int64, device=base_key.device
+            )
             noise = gumbel_noise(threefry.fold_in(step_key, slots), ref_lp.shape[-1])
         scores = scores + noise
     ids = torch.topk(scores, k, dim=-1).indices  # (B, k)
@@ -177,6 +180,7 @@ def search_prefill(
     ref_bias: Optional[torch.Tensor] = None,
     base_key: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    slot_offset: int = 0,
 ) -> StepOutput:
     """Prefill the (ref + agents) prefixes ONCE into the shared trunk,
     allocate empty per-(slot x role) tails, and return the root proposals
@@ -202,7 +206,7 @@ def search_prefill(
     hidden_last = hidden[:, -1, :].repeat(n_beams, 1)
     packed = _propose_and_score(
         params, c, hidden_last, n_beams, n_roles, temperature, k, sample, ref_bias,
-        base_key, 0, noise=noise,
+        base_key, 0, noise=noise, slot_offset=slot_offset,
     )
     return StepOutput(packed, state)
 
@@ -260,6 +264,7 @@ def search_step(
     ref_bias: Optional[torch.Tensor] = None,
     base_key: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    slot_offset: int = 0,
 ) -> StepOutput:
     """Advance every beam slot from its parent by one token; propose + score
     (noise of step ``write_col + 1``).  ``state`` is consumed: its tails may
@@ -269,7 +274,7 @@ def search_step(
     )
     packed = _propose_and_score(
         params, config, hidden, n_beams, n_roles, temperature, k, sample, ref_bias,
-        base_key, write_col + 1, noise=noise,
+        base_key, write_col + 1, noise=noise, slot_offset=slot_offset,
     )
     return StepOutput(packed, new_state)
 

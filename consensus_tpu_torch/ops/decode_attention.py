@@ -59,35 +59,53 @@ class LaunchCounter:
     of its latest launch]``, so a benchmark can time the kernel at the
     shapes and spans the path gave it.  Thread-safe: an experiment's worker
     threads launch kernels at once.  Each launch also adds one to the obs
-    registry's ``kernel_launches_total{kernel}`` counter, which a server's
-    ``/metrics`` exposes (``reset`` leaves that monotonic counter alone)."""
+    registry's ``kernel_launches_total{kernel}`` counter and to
+    ``kernel_launches_by_device_total{kernel,device}``, which a server's
+    ``/metrics`` exposes (``reset`` leaves those monotonic counters alone).
+    ``by_device`` counts the launches on each card (``"cuda:1"`` -> N)."""
 
     def __init__(self, kernel: str) -> None:
         self._lock = threading.Lock()
-        self._registry_counter = None
+        #: The registry's children, made once: ``kernel_launches_total``'s,
+        #: and ``kernel_launches_by_device_total``'s per device.
+        self._total_child = None
+        self._device_children: Dict[str, object] = {}
         self.kernel = kernel
         self.reset()
 
-    def _count_in_registry(self) -> None:
-        if self._registry_counter is None:
+    def _count_in_registry(self, device: str) -> None:
+        """Call with ``self._lock`` held."""
+        child = self._device_children.get(device)
+        if child is None:
             from consensus_tpu_torch.obs.metrics import get_registry
 
-            self._registry_counter = get_registry().counter(
-                "kernel_launches_total",
-                "Launches of the hand-written CUDA kernels, by kernel.",
-                labels=("kernel",),
-            ).labels(self.kernel)
-        self._registry_counter.inc()
+            registry = get_registry()
+            if self._total_child is None:
+                self._total_child = registry.counter(
+                    "kernel_launches_total",
+                    "Launches of the hand-written CUDA kernels, by kernel.",
+                    labels=("kernel",),
+                ).labels(self.kernel)
+            child = self._device_children[device] = registry.counter(
+                "kernel_launches_by_device_total",
+                "Launches of the hand-written CUDA kernels, by kernel and card.",
+                labels=("kernel", "device"),
+            ).labels(self.kernel, device)
+        self._total_child.inc()
+        child.inc()
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+            self.by_device: Dict[str, int] = {}
             self.shapes: Dict[tuple, list] = {}
 
-    def add(self, shape: tuple, args: tuple) -> None:
-        self._count_in_registry()
+    def add(self, shape: tuple, args: tuple, device: torch.device) -> None:
+        key = str(device)
         with self._lock:
+            self._count_in_registry(key)
             self.count += 1
+            self.by_device[key] = self.by_device.get(key, 0) + 1
             entry = self.shapes.setdefault(shape, [0, None])
             entry[0] += 1
             entry[1] = args
@@ -243,7 +261,8 @@ def decode_attention(
         starts, qpos, write_col, out, n_slots, n_roles, scale, softcap, window,
     )
     launches.add(
-        (tuple(q.shape), tuple(trunk_k.shape), tuple(tail_k.shape)), (starts, qpos, write_col)
+        (tuple(q.shape), tuple(trunk_k.shape), tuple(tail_k.shape)), (starts, qpos, write_col),
+        q.device,
     )
     return out
 
@@ -287,14 +306,16 @@ def launch_kernel(lib: ctypes.CDLL, q, trunk_k, trunk_v, tail_k, tail_v, starts,
     part_acc = torch.empty(
         (n_roles * kv, n_splits, group_rows, hd), dtype=torch.float32, device=q.device
     )
-    err = _kernel_call(lib)(
-        q.data_ptr(), trunk_k.data_ptr(), trunk_v.data_ptr(), tail_k.data_ptr(),
-        tail_v.data_ptr(), starts.data_ptr(), qpos.data_ptr(), part_ml.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(),
-        n_slots, n_roles, heads, kv, hd, w0, ts, write_col, n_trunk, n_tail, KEY_CHUNK,
-        float(scale), float(softcap or 0.0), int(window or 0),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # The launch runs in q's device context (see flash_attention.launch_kernel).
+    with torch.cuda.device(q.device):
+        err = _kernel_call(lib)(
+            q.data_ptr(), trunk_k.data_ptr(), trunk_v.data_ptr(), tail_k.data_ptr(),
+            tail_v.data_ptr(), starts.data_ptr(), qpos.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), out.data_ptr(),
+            n_slots, n_roles, heads, kv, hd, w0, ts, write_col, n_trunk, n_tail, KEY_CHUNK,
+            float(scale), float(softcap or 0.0), int(window or 0),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
 

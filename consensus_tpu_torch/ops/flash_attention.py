@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -50,36 +50,55 @@ class LaunchCounter:
     tensors, so a benchmark can time the kernel at the shapes and spans the
     main path gave it.  Thread-safe: an experiment's worker threads launch
     kernels at once.  Each launch also adds one to the obs registry's
-    ``kernel_launches_total{kernel}`` counter, which a server's ``/metrics``
-    exposes (``reset`` leaves that monotonic counter alone)."""
+    ``kernel_launches_total{kernel}`` counter and to
+    ``kernel_launches_by_device_total{kernel,device}``, which a server's
+    ``/metrics`` exposes (``reset`` leaves those monotonic counters alone).
+    ``by_device`` counts the launches on each card (``"cuda:1"`` -> N), so a
+    run over a device mesh can show that every card launched."""
 
     def __init__(self, kernel: str) -> None:
         self._lock = threading.Lock()
-        self._registry_counter = None
+        #: The registry's children, made once: ``kernel_launches_total``'s,
+        #: and ``kernel_launches_by_device_total``'s per device.
+        self._total_child = None
+        self._device_children: Dict[str, object] = {}
         self.kernel = kernel
         self.reset()
 
-    def _count_in_registry(self) -> None:
-        if self._registry_counter is None:
+    def _count_in_registry(self, device: str) -> None:
+        """Call with ``self._lock`` held."""
+        child = self._device_children.get(device)
+        if child is None:
             from consensus_tpu_torch.obs.metrics import get_registry
 
-            self._registry_counter = get_registry().counter(
-                "kernel_launches_total",
-                "Launches of the hand-written CUDA kernels, by kernel.",
-                labels=("kernel",),
-            ).labels(self.kernel)
-        self._registry_counter.inc()
+            registry = get_registry()
+            if self._total_child is None:
+                self._total_child = registry.counter(
+                    "kernel_launches_total",
+                    "Launches of the hand-written CUDA kernels, by kernel.",
+                    labels=("kernel",),
+                ).labels(self.kernel)
+            child = self._device_children[device] = registry.counter(
+                "kernel_launches_by_device_total",
+                "Launches of the hand-written CUDA kernels, by kernel and card.",
+                labels=("kernel", "device"),
+            ).labels(self.kernel, device)
+        self._total_child.inc()
+        child.inc()
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+            self.by_device: Dict[str, int] = {}
             self.last_shapes: Optional[tuple] = None
             self.last_spans: Optional[tuple] = None
 
-    def add(self, shapes: tuple, spans: tuple) -> None:
-        self._count_in_registry()
+    def add(self, shapes: tuple, spans: tuple, device: torch.device) -> None:
+        key = str(device)
         with self._lock:
+            self._count_in_registry(key)
             self.count += 1
+            self.by_device[key] = self.by_device.get(key, 0) + 1
             self.last_shapes = shapes
             self.last_spans = spans
 
@@ -198,6 +217,13 @@ def flash_attention(
         starts = torch.zeros_like(lengths)
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # The Pallas kernel this replaces has no backward either: jax.grad
+        # through it fails, on every device.
+        raise NotImplementedError(
+            "flash_attention has no backward; take gradients with "
+            "use_flash_attention off"
+        )
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, lengths, starts, scale, softcap, window, causal
@@ -220,7 +246,7 @@ def flash_attention(
         load_library("flash_attention"), q, k, v, out, lengths, starts,
         scale, softcap, window, causal,
     )
-    launches.add((tuple(q.shape), tuple(k.shape)), (lengths, starts))
+    launches.add((tuple(q.shape), tuple(k.shape)), (lengths, starts), q.device)
     return out
 
 
@@ -231,12 +257,15 @@ def launch_kernel(lib: ctypes.CDLL, q, k, v, out, lengths, starts,
     other than :func:`flash_attention` (a check of a deliberately broken
     build) must not move the launch counter."""
     batch, seq, heads, head_dim = q.shape
-    err = _kernel_call(lib)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(),
-        batch, seq, heads, k.shape[2], head_dim,
-        float(scale), float(softcap or 0.0), int(window or 0), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # The launch runs in q's device context: the kernel's shared-memory
+    # limit is set there, and the stream passed is that device's.
+    with torch.cuda.device(q.device):
+        err = _kernel_call(lib)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), starts.data_ptr(),
+            batch, seq, heads, k.shape[2], head_dim,
+            float(scale), float(softcap or 0.0), int(window or 0), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

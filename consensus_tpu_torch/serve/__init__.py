@@ -22,8 +22,7 @@ WAL, ``telemetry`` the welfare plane and ``slo`` the burn-rate SLO engine.
 ``python -m consensus_tpu_torch.serve --backend fake`` runs a hardware-free
 server; ``--backend torch`` (or ``tpu``) serves the resident
 ``TorchBackend`` on the card; ``serve.loadgen`` replays AAMAS scenarios
-against either.  ``mesh`` waits for queue A9 and raises
-``NotImplementedError``.
+against either.  ``mesh`` serves over the data-parallel device mesh.
 """
 
 from consensus_tpu_torch.serve.autoscale import Autoscaler  # noqa: F401
@@ -57,12 +56,6 @@ from consensus_tpu_torch.serve.service import (  # noqa: F401
     RequestValidationError,
     parse_request,
 )
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"serving option {option} is not ported yet (ROADMAP.md, queue {item})"
-    )
 
 
 def create_server(
@@ -161,8 +154,12 @@ def create_server(
     responses stay byte-identical to that path (pinned in
     tests/test_torch_fleet.py).
 
-    ``mesh`` (the data-parallel serving mesh) waits for queue A9 and
-    raises ``NotImplementedError``.
+    ``mesh`` (``"dp=4,tp=1"``, ``{'dp': 4, 'tp': 1}`` or a
+    :class:`~consensus_tpu_torch.parallel.mesh.MeshPlan`) makes the device
+    mesh the serving path: the resident backend is built over the dp
+    shards' cards and the decode engine partitions its slot table and page
+    pools over them (``--mesh`` on the CLI).  Other backends only see the
+    engine-side partitioning.  ``tp > 1`` raises (ROADMAP.md, queue A15).
 
     ``telemetry=True`` installs a
     :class:`~consensus_tpu_torch.obs.welfare.ServeTelemetry` sink: latency and
@@ -181,7 +178,13 @@ def create_server(
     from consensus_tpu_torch.backends import get_backend, wrap_backend
 
     if mesh is not None:
-        raise _not_ported("mesh (the data-parallel serving mesh)", "A9")
+        from consensus_tpu_torch.parallel.mesh import MeshPlan, parse_mesh_spec
+
+        # A MeshPlan keeps its devices; any other spelling is parsed.
+        mesh = mesh if isinstance(mesh, MeshPlan) else parse_mesh_spec(mesh)
+        if backend in ("tpu", "torch"):
+            backend_options = {"mesh": mesh, **dict(backend_options or {})}
+        engine_options = {"mesh": mesh, **dict(engine_options or {})}
 
     telemetry_obj = None
     if telemetry:

@@ -21,7 +21,8 @@ puts it on the CPU, the only way there (a tiny model only).
 SIGINT/SIGTERM drains gracefully: admission closes (new requests get 429),
 queued and in-flight requests finish, then the process exits.
 
-``--mesh`` raises ``NotImplementedError`` naming queue A9.
+``--mesh dp=N,tp=1`` serves over N data-parallel shards, one card each
+(``tp > 1`` raises: ROADMAP.md, queue A15).
 """
 
 from __future__ import annotations
@@ -128,9 +129,10 @@ def main(argv=None) -> int:
                              "elastic ladder respawns it")
     parser.add_argument("--mesh", default=None, metavar="dp=N,tp=M",
                         help="serve over the (data, model) device mesh: "
-                             "shard the backend params Megatron-style over "
-                             "tp and partition the decode engine's slots + "
-                             "page pools over dp (e.g. --mesh dp=4,tp=2)")
+                             "replicate the backend params over dp cards and "
+                             "partition the decode engine's slots + page "
+                             "pools over them (e.g. --mesh dp=4,tp=1; tp > 1 "
+                             "is not ported)")
     parser.add_argument("--state-dir", default=None, metavar="DIR",
                         help="arm the durable-state layer: fsync'd request "
                              "WAL + idempotency snapshots (single server) "

@@ -161,7 +161,10 @@ def nash_welfare_lottery(
         _fw_step(Ut, p, columns, gr, ls_iters)
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # Captured on ``side``, a stream of ``device``: torch.cuda.graph's default
+    # capture stream is made once per process, on the card current at the
+    # first capture, and would record nothing for another card.
+    with torch.cuda.graph(graph, stream=side):
         stepped = _fw_step(Ut, p, columns, gr, ls_iters)
     for _ in range(max_iters):
         graph.replay()

@@ -85,6 +85,30 @@ def _read_tensor(f, base: int, name: str, entry: dict, path) -> torch.Tensor:
     return buffer.view(dtype).reshape(shape)
 
 
+def read_tensor_slice(
+    path: str | pathlib.Path, base: int, name: str, entry: dict, index: Tuple[slice, ...]
+) -> torch.Tensor:
+    """The piece ``tensor[index]`` of one tensor of a file (``base`` and
+    ``entry`` from :func:`read_header`), read through a memory map: only the
+    bytes of the piece are copied out of the file."""
+    import numpy as np
+
+    dtype_name = entry["dtype"]
+    if dtype_name not in DTYPES:
+        raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {dtype_name}")
+    dtype = DTYPES[dtype_name]
+    shape = tuple(int(s) for s in entry["shape"])
+    begin, _ = (int(o) for o in entry["data_offsets"])
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    raw = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}[itemsize]
+    if not all(shape):
+        return torch.empty(shape, dtype=dtype)[index].clone()
+    mapped = np.memmap(path, dtype=raw, mode="r", offset=base + begin, shape=shape)
+    piece = np.array(mapped[index])  # a copy: the map is read-only and closed below
+    del mapped
+    return torch.from_numpy(piece).view(dtype)
+
+
 def iter_tensors(path: str | pathlib.Path) -> Iterator[Tuple[str, torch.Tensor]]:
     """Yield (name, CPU tensor) for every tensor of one file, in name order
     (the order of ``safetensors.safe_open(...).keys()``).  Each tensor is a

@@ -243,14 +243,31 @@ def test_get_backend_tpu_is_the_resident_backend():
      ("quantize_frozen_kv", True)],
 )
 def test_unported_options_raise(option, value, tmp_path, monkeypatch):
-    """tp / dp / mesh (multi-GPU, queue A9) still raise.  ``checkpoint`` and
-    ``quantize_frozen_kv`` are ported: the checkpoint (an HF safetensors
+    """tp (a mesh with tp > 1) still raises, naming queue A15.  dp is
+    ported: ``dp=2`` over two CPU shards gives dp=1's tokens and
+    logprobs, as the JAX backend's ``dp=2`` gives its own.  ``checkpoint``
+    and ``quantize_frozen_kv`` are ported: the checkpoint (an HF safetensors
     directory at the relative path ``weights/``) loads the params the JAX
     backend loads from it, and ``quantize_frozen_kv`` is the alias of
     ``kv_quant`` in both."""
-    if option in ("tp", "dp", "mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if option in ("tp", "mesh"):
+        with pytest.raises(NotImplementedError, match="A15"):
             TorchBackend(model=MODEL, device="cpu", **{option: value})
+        return
+    if option == "dp":
+        one = TorchBackend(model=MODEL, device="cpu", dtype="float32")
+        port = TorchBackend(model=MODEL, device="cpu", dtype="float32", params=one.params,
+                            dp=value)
+        assert port.mesh_plan.dp == value
+        ref = TPUBackend(model=MODEL, dp=value)
+        assert ref.mesh_plan.dp == value
+        requests = [GenerationRequest(user_prompt=f"Say {i}", max_tokens=6, seed=i)
+                    for i in range(3)]
+        assert ([r.token_ids for r in port.generate(requests)]
+                == [r.token_ids for r in one.generate(requests)])
+        scores = [ScoreRequest(context="c", continuation=f"w {i}") for i in range(3)]
+        for a, b in zip(port.score(scores), one.score(scores)):
+            np.testing.assert_allclose(a.logprobs, b.logprobs, atol=1e-6)
         return
     if option == "quantize_frozen_kv":
         for alias in (True, False):

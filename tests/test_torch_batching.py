@@ -558,8 +558,21 @@ class TestPerKindWakeups:
 
 class TestPortSpecifics:
     def test_engine_raises_naming_its_queue_item(self):
-        with pytest.raises(NotImplementedError, match="A9"):
-            BatchingBackend(CountingBackend(), engine=True, mesh={"dp": 2, "tp": 1})
+        """``mesh`` passes through into the engine options, as in the JAX
+        batching layer: a dp=2 engine partitions its pools and serves; a
+        tensor-parallel backend (queue A15) still raises."""
+        batching = BatchingBackend(CountingBackend(), engine=True, mesh={"dp": 2, "tp": 1})
+        try:
+            assert batching.engine.mesh_dp == 2 and len(batching.engine.pools) == 2
+            out = batching.generate([GenerationRequest(user_prompt="x", max_tokens=3)])
+            assert len(out) == 1
+        finally:
+            batching.close()
+        from consensus_tpu_torch.backends.torch_backend import TorchBackend
+
+        with pytest.raises(NotImplementedError, match="A15"):
+            BatchingBackend(TorchBackend(model="tiny-llama3", device="cpu", mesh="dp=1,tp=2"),
+                            engine=True)
 
     def test_duplicate_score_rows_computed_once(self):
         """Identical score rows of two sessions merged into one flush are

@@ -576,8 +576,9 @@ def test_engine_statement_matches_jax_engine(method):
 
 def test_engine_raises_for_speculative_and_mesh():
     """Speculative windows build now (``speculative`` alone implies K=4, as
-    in the JAX engine, and the fake stream drafts for real); ``mesh`` still
-    raises naming queue A9."""
+    in the JAX engine, and the fake stream drafts for real); ``mesh`` builds
+    too, its slots and pools over dp shards as in the JAX engine, and a
+    tensor-parallel backend (queue A15) raises."""
     engine = DecodeEngine(FakeBackend(), speculative=True, auto_start=False)
     ref = JaxDecodeEngine(JaxFakeBackend(), speculative=True, auto_start=False)
     try:
@@ -586,8 +587,19 @@ def test_engine_raises_for_speculative_and_mesh():
     finally:
         engine.close()
         ref.close()
-    with pytest.raises(NotImplementedError, match="A9"):
-        DecodeEngine(FakeBackend(), mesh={"dp": 2, "tp": 1}, auto_start=False)
+    engine = DecodeEngine(FakeBackend(), mesh={"dp": 2, "tp": 1}, auto_start=False)
+    ref = JaxDecodeEngine(JaxFakeBackend(), mesh={"dp": 2, "tp": 1}, auto_start=False)
+    try:
+        assert engine.mesh_dp == ref.mesh_dp == 2 and len(engine.pools) == len(ref.pools) == 2
+        assert engine.stats()["mesh"] == ref.stats()["mesh"]
+    finally:
+        engine.close()
+        ref.close()
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+
+    with pytest.raises(NotImplementedError, match="A15"):
+        DecodeEngine(TorchBackend(model="tiny-llama3", device="cpu", mesh="dp=1,tp=2"),
+                     auto_start=False)
     stream = FakeBackend().generate_stream([GenerationRequest(user_prompt="x", max_tokens=24)],
                                            decode_steps=4, speculative=True)
     while not stream.finished:

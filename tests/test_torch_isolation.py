@@ -54,3 +54,12 @@ _FORBIDDEN = re.compile(
 )
 def test_sources_import_nothing_of_jax(path):
     assert not _FORBIDDEN.findall(path.read_text()), path
+
+
+def test_parallel_package_is_covered():
+    """The data-parallel mesh modules are among those imported above."""
+    names = _modules()
+    for name in ("consensus_tpu_torch.parallel", "consensus_tpu_torch.parallel.mesh",
+                 "consensus_tpu_torch.parallel.ring_attention",
+                 "consensus_tpu_torch.parallel.train", "consensus_tpu_torch.cli.bench_mesh"):
+        assert name in names

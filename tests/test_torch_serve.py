@@ -748,10 +748,25 @@ def test_faulted_supervised_server_equals_jax_server():
 ])
 def test_deferred_options_raise_naming_their_item(option, item, tmp_path):
     """The queue-A8 options build their serving planes now and the server
-    answers through them; ``mesh`` (A9) still raises naming its item."""
-    if item != "A8":
-        with pytest.raises(NotImplementedError, match=item):
-            create_server(backend=FakeBackend(), port=0, registry=Registry(), **option)
+    answers through them.  ``mesh`` (A9) is ported: a dp=2 mesh serves with
+    the engine's slots and pools over two shards, as the JAX server's does;
+    a tensor-parallel mesh (queue A15) raises."""
+    if "mesh" in option:
+        payload = {"issue": TOPIC, "agent_opinions": OPINIONS, "method": "best_of_n",
+                   "params": dict(PARAMS), "seed": 7, "request_id": "a9-mesh"}
+        port = _served(create_server, FakeBackend(), Registry(), payload, **option)
+        ref = _served(jax_create_server, JaxFakeBackend(), JaxRegistry(), payload, **option)
+        assert port == ref
+        server = create_server(backend=FakeBackend(), port=0, registry=Registry(),
+                               **option).start()
+        try:
+            health = _get_json(server.base_url + "/healthz")
+        finally:
+            server.stop()
+        assert len(health["engine"]["mesh"]["per_shard"]) == 2
+        with pytest.raises(NotImplementedError, match="A15"):
+            create_server(backend="torch", port=0, registry=Registry(), mesh="dp=1,tp=2",
+                          backend_options={"model": "tiny-llama3", "device": "cpu"})
         return
     if "state_dir" in option:
         option = {"state_dir": str(tmp_path / option["state_dir"])}
@@ -822,14 +837,16 @@ def test_cli_serves_and_drains_on_sigterm(tmp_path):
 ])
 def test_cli_deferred_flags_raise(flags, item, tmp_path):
     """The queue-A8 flags serve now (a subprocess answers one request and
-    drains on SIGTERM, its startup JSON naming the plane); ``--mesh`` (A9)
-    still raises before serving."""
-    if item != "A8":
+    drains on SIGTERM, its startup JSON naming the plane); so does ``--mesh``
+    (A9) with dp=2, while a tensor-parallel mesh (queue A15) raises before
+    serving."""
+    if "--mesh" in flags:
         from consensus_tpu_torch.serve.__main__ import main
 
-        with pytest.raises(NotImplementedError, match=item):
-            main(["--backend", "fake", "--port", "0", "--log-level", "WARNING", *flags])
-        return
+        with pytest.raises(NotImplementedError, match="A15"):
+            main(["--backend", "torch", "--device", "cpu", "--port", "0", "--log-level",
+                  "WARNING", "--backend-options", '{"model": "tiny-llama3"}',
+                  "--mesh", "dp=1,tp=2"])
     flags = [str(tmp_path / f) if f == "x" else f for f in flags]
     env = dict(os.environ, PYTHONPATH=os.getcwd())
     proc = subprocess.Popen(
@@ -843,6 +860,8 @@ def test_cli_deferred_flags_raise(flags, item, tmp_path):
             assert startup["fleet"] == 2
         if "--speculative" in flags:
             assert startup["speculative"] is True
+        if "--mesh" in flags:
+            assert startup["mesh"] == "dp=2,tp=1"
         status, body = _post(startup["serving"], {"issue": TOPIC, "agent_opinions": OPINIONS,
                                                   **PARITY_PAYLOADS["best_of_n"]})
         assert status == 200 and body["statement"]
