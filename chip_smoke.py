@@ -3,9 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py sweep_path mcts_path concurrent_path serve_path
-fleet_path checkpoint_path parallel_path`` runs any of those late phases
-alone, with no summary and no ``ok`` line; parallel_path alone also runs
-the kernels' per-card cases).  Phases, one JSON
+fleet_path checkpoint_path parallel_path tensor_parallel_path`` runs any of
+those late phases alone, with no summary and no ``ok`` line; parallel_path
+alone also runs the kernels' per-card cases).  Phases, one JSON
 line each; any failure exits non-zero:
 
 1. ``device``  -- the card (nvidia-smi name and power limit), torch and CUDA.
@@ -198,6 +198,25 @@ line each; any failure exits non-zero:
    ``ring_self_attention`` at B=1, S=8192, H=32, hd=128 (bf16) over the
    plan's devices against ``full_attention_reference`` on one card, and
    one peer copy between the first two distinct cards timed.
+20. ``tensor_parallel_path`` -- tensor parallelism over tp=2 on cuda:0
+   twice with one card; with four, dp=1 x tp=4 over cuda:0-3 and, for (b),
+   dp=2 x tp=2 too: (a) K1 (llama3-8b and gemma2-2b scoring) and K2
+   (llama3-8b beam) at one rank's heads on every card against their plain
+   versions, and launched there with cuda:0 current; (b) main_path's
+   best-of-N config with generation through K2, cut to 32 tokens, on
+   ``TorchBackend(mesh=plan)`` against tp=1: ids equal or first differing
+   at a draw of margin under 0.1, scores within 0.1, K1 and K2 launched on
+   every card, and with four cards each card's weight bytes within 5% of
+   1/tp of tp=1's; (c) serve_path's cut requests through
+   ``create_server(mesh=plan)`` in process against a tp=1 server, every
+   statement equal or explained by its own near-tie or its beam session's
+   replay at tp within 0.1, ``/healthz`` naming tp, that replay the search
+   session held step by step, K1 and K2 on every card; (d)
+   ``train_step`` on gemma2-2b at full width over the plan (3 AdamW steps
+   of 2 x 256 tokens): losses falling, the first step's gradients within a
+   relative L2 of 2e-2 of tp=1's, peak per card; then, recorded and not
+   judged, one decode step's wall and device-busy ms at tp against tp=1
+   (8 and 32 rows) and the share of its device time in memory copies.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -4517,10 +4536,11 @@ def _parallel_plan():
     return make_mesh(devices, tp=1)
 
 
-def _cross_device_launch_check(index):
+def _cross_device_launch_check(index, heads=32, kv=8, hd=128):
     """K1 and K2 launched on tensors of ``cuda:index`` while cuda:0 is the
     current device, each against its plain version (the launch must take
-    its own device's context and stream)."""
+    its own device's context and stream), at ``heads`` / ``kv`` heads of
+    ``hd``."""
     import torch
     from consensus_tpu_torch.ops import decode_attention as da
     from consensus_tpu_torch.ops import flash_attention as fa
@@ -4532,20 +4552,21 @@ def _cross_device_launch_check(index):
         return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
 
     torch.cuda.set_device(0)
-    q, k, v = randn(2, 256, 32, 128), randn(2, 256, 8, 128), randn(2, 256, 8, 128)
+    q, k, v = randn(2, 256, heads, hd), randn(2, 256, kv, hd), randn(2, 256, kv, hd)
     lens = torch.tensor([256, 100], dtype=torch.int32, device=device)
     sts = torch.zeros(2, dtype=torch.int32, device=device)
     out = fa.flash_attention(q, k, v, lens, sts)
     flash_ok, flash_err, _ = compare(out, fa.flash_attention_reference(q, k, v, lens, sts))
-    args = (randn(8, 32, 128), randn(4, 300, 8, 128), randn(4, 300, 8, 128),
-            randn(8, 64, 8, 128), randn(8, 64, 8, 128),
+    args = (randn(8, heads, hd), randn(4, 300, kv, hd), randn(4, 300, kv, hd),
+            randn(8, 64, kv, hd), randn(8, 64, kv, hd),
             torch.tensor([0, 50, 100, 299], dtype=torch.int32, device=device),
             torch.tensor([300, 250, 200, 1], dtype=torch.int32, device=device) + 10, 10, 2, 4)
-    out = da.decode_attention(*args, scale=128 ** -0.5)
+    out = da.decode_attention(*args, scale=hd ** -0.5)
     decode_ok, decode_err, _ = compare(
-        out, da.decode_attention_reference(*args, scale=128 ** -0.5))
+        out, da.decode_attention_reference(*args, scale=hd ** -0.5))
     torch.cuda.synchronize(device)
     return {"device": str(device), "current_device": torch.cuda.current_device(),
+            "heads": [heads, kv, hd],
             "flash_ok": flash_ok, "flash_max_abs_err": flash_err,
             "decode_ok": decode_ok, "decode_max_abs_err": decode_err,
             "ok": flash_ok and decode_ok}
@@ -4879,12 +4900,27 @@ def _parallel_serve(plan, options, scenario, params, on_card):
             "sharded_session": sharded, "per_shard": per_shard}, checks, launches
 
 
-def _parallel_experiment(plan, params, on_card):
-    """(b): main_path's best-of-N config, every budget cut to
-    PARALLEL_TOKENS, through ``Experiment`` on ``TorchBackend`` over the plan
-    and on the dp=1 backend over the same weights: generate ids equal or
-    first differing at a draw of margin under DRAW_MARGIN, the logprobs of
-    every score request both ran within ROUTE_ATOL."""
+def _plan_name(plan):
+    return f"dp{plan.dp}" if plan.tp == 1 else f"dp{plan.dp}_tp{plan.tp}"
+
+
+def _plan_devices(plan):
+    """Every distinct device of the plan's grid, sorted."""
+    return sorted({str(d) for row in plan.devices for d in row})
+
+
+def _parallel_experiment(plans, params, on_card, prefix="b", decode_kernel=False):
+    """main_path's best-of-N config, every budget cut to PARALLEL_TOKENS,
+    through ``Experiment`` on ``TorchBackend`` over each plan and on the
+    one-device backend over the same weights: generate ids equal or first
+    differing at a draw of margin under DRAW_MARGIN, the logprobs of every
+    score request both ran within ROUTE_ATOL, K1 launched on every card of
+    each plan, and with ``decode_kernel``, which routes generation through
+    the monolithic loops, K2 on every card over the plans' runs (a dp
+    shard whose rows are all bucket padding starts done and decodes
+    nothing).  Returns (summary,
+    checks, launches, launches by device, the backends' weight bytes per
+    card)."""
     import torch
     import yaml
     from consensus_tpu_torch.backends.torch_backend import TorchBackend
@@ -4898,12 +4934,18 @@ def _parallel_experiment(plan, params, on_card):
         if "max_tokens" in (config.get(method) or {}):
             config[method]["max_tokens"] = PARALLEL_TOKENS
     options = {k: v for k, v in config["backend_options"].items() if k not in ("tp", "dp")}
+    if decode_kernel:
+        options["use_decode_attention"] = True
     runs = {}
     launches = {k: 0 for k in KERNELS}
     by_device = {k: {} for k in KERNELS}
+    weight_bytes = {}
     one = TorchBackend(**options, params=params, device=PARALLEL_DEVICE)
-    wide = TorchBackend(**options, params=one.params, mesh=plan)
-    for name, backend in (("dp1", one), (f"dp{plan.dp}", wide)):
+    weight_bytes["dp1"] = _weight_bytes_by_device(one.params)
+    for name, plan in [("dp1", None)] + [(_plan_name(p), p) for p in plans]:
+        backend = one if plan is None else TorchBackend(**options, params=one.params, mesh=plan)
+        if plan is not None:
+            weight_bytes[name] = _weight_bytes_by_device(backend.params)
         generated, scored = {}, {}
         dense_generate, dense_score = backend.generate, backend.score
 
@@ -4936,32 +4978,76 @@ def _parallel_experiment(plan, params, on_card):
                       "errors": [e for e in frame["error_message"] if e],
                       "launches": {"flash_attention": fa.launches.count,
                                    "decode_attention": da.launches.count},
-                      "flash_by_device": dict(fa.launches.by_device)}
+                      "flash_by_device": dict(fa.launches.by_device),
+                      "decode_by_device": dict(da.launches.by_device)}
         backend.generate, backend.score = dense_generate, dense_score
-    ref, got = runs["dp1"], runs[f"dp{plan.dp}"]
-    compare = _compare_generations(one, got["generated"], ref["generated"])
-    common = set(ref["scored"]) & set(got["scored"])
-    score_err = max((abs(a - b) for key in common
-                     for a, b in zip(ref["scored"][key], got["scored"][key])), default=None)
-    del wide, one
+        if plan is not None:
+            del backend
+            if on_card:
+                torch.cuda.empty_cache()
+    ref = runs["dp1"]
+    checks = {f"{prefix}_rows_error_free": not ref["errors"]}
+    compares, score_errs = {}, {}
+    for plan in plans:
+        name = _plan_name(plan)
+        got = runs[name]
+        compare = _compare_generations(one, got["generated"], ref["generated"])
+        common = set(ref["scored"]) & set(got["scored"])
+        score_err = max((abs(a - b) for key in common
+                         for a, b in zip(ref["scored"][key], got["scored"][key])), default=None)
+        compares[name] = dict(compare, diverged=compare["diverged"][:12],
+                              score_requests_compared=len(common))
+        score_errs[name] = score_err
+        distinct = _plan_devices(plan)
+        plan_checks = {
+            f"{prefix}_rows_error_free": not got["errors"],
+            f"{prefix}_ids_equal_or_diverge_below_margin": (
+                compare["only_one_mode"] == 0 and all(d["ok"] for d in compare["diverged"])),
+            f"{prefix}_scores_within_atol": score_err is not None and score_err <= ROUTE_ATOL,
+        }
+        if on_card:
+            plan_checks[f"{prefix}_flash_launched_on_every_card"] = all(
+                got["flash_by_device"].get(d, 0) > 0 for d in distinct)
+        for key, value in plan_checks.items():
+            checks[key] = checks.get(key, True) and value
+    if on_card and decode_kernel:
+        cards = {d for plan in plans for d in _plan_devices(plan)}
+        checks[f"{prefix}_decode_launched_on_every_card"] = all(
+            any(runs[_plan_name(plan)]["decode_by_device"].get(d, 0) > 0 for plan in plans)
+            for d in cards)
+    del one
     if on_card:
         torch.cuda.empty_cache()
-    distinct = sorted({str(d) for d in plan.data_devices})
-    checks = {
-        "b_rows_error_free": not ref["errors"] and not got["errors"],
-        "b_ids_equal_or_diverge_below_margin": (
-            compare["only_one_mode"] == 0 and all(d["ok"] for d in compare["diverged"])),
-        "b_scores_within_atol": score_err is not None and score_err <= ROUTE_ATOL,
-    }
-    if on_card:
-        checks["b_flash_launched_on_every_card"] = all(
-            got["flash_by_device"].get(d, 0) > 0 for d in distinct)
     summary = {name: {k: v for k, v in run.items() if k not in ("generated", "scored")}
                for name, run in runs.items()}
-    summary["generation_compare"] = dict(compare, diverged=compare["diverged"][:12])
-    summary["score_requests_compared"] = len(common)
-    summary["max_score_logprob_diff"] = score_err
-    return summary, checks, launches, by_device
+    if len(plans) == 1:
+        name = _plan_name(plans[0])
+        summary["generation_compare"] = compares[name]
+        summary["score_requests_compared"] = compares[name]["score_requests_compared"]
+        summary["max_score_logprob_diff"] = score_errs[name]
+    else:
+        summary["generation_compare"] = compares
+        summary["max_score_logprob_diff"] = score_errs
+    return summary, checks, launches, by_device, weight_bytes
+
+
+def _weight_bytes_by_device(params):
+    """Bytes of a parameter tree's tensors per device (every rank's tree of
+    a tensor-parallel model)."""
+    from consensus_tpu_torch.models.quant import QTensor
+    from consensus_tpu_torch.parallel.tensor import TPParams
+
+    trees = params.ranks if isinstance(params, TPParams) else (params,)
+    out = {}
+    for tree in trees:
+        leaves = [leaf for name, value in tree.items()
+                  for leaf in ([v for layer in value for v in layer.values()]
+                               if name == "layers" else [value])]
+        for leaf in leaves:
+            for t in ((leaf.q, leaf.scale) if isinstance(leaf, QTensor) else (leaf,)):
+                key = str(t.device)
+                out[key] = out.get(key, 0) + t.numel() * t.element_size()
+    return out
 
 
 def _grad_rel_err(got, want):
@@ -4972,8 +5058,62 @@ def _grad_rel_err(got, want):
     return (num / max(den, 1e-30)) ** 0.5
 
 
-def _parallel_train(plan, on_card):
-    """(c): ``train_step`` on gemma2-2b at full width over the plan."""
+def _split_contraction_grads(params, config, tokens, valid):
+    """One device's gradients with layer 0's two row-parallel contractions
+    (``wo``, ``w_down``) each taken as two float32 halves, summed, then
+    rounded once: the same sums in another order, which is all that a tp=2
+    split of a contraction changes there."""
+    from consensus_tpu_torch.models import transformer as tf
+    from consensus_tpu_torch.parallel.train import shard_grads
+
+    plain = tf._finish_layer
+    calls = [0]
+
+    def halves(a, w):
+        k = a.shape[-1] // 2
+        return (tf._row_parallel(a[..., :k], w[:k])
+                + tf._row_parallel(a[..., k:], w[k:])).to(a.dtype)
+
+    def finish(c, lp, x, attn):
+        calls[0] += 1
+        if calls[0] > 1:
+            return plain(c, lp, x, attn)
+        attn = halves(attn, lp["wo"])
+        if c.use_post_norms:
+            attn = tf.rms_norm(attn, lp["post_attn_norm"], c.rms_eps, c.rmsnorm_style)
+        x = x + attn
+        ffn = halves(tf._gated(c, lp, tf.rms_norm(x, lp["ffn_norm"], c.rms_eps,
+                                                  c.rmsnorm_style)), lp["w_down"])
+        if c.use_post_norms:
+            ffn = tf.rms_norm(ffn, lp["post_ffn_norm"], c.rms_eps, c.rmsnorm_style)
+        return x + ffn
+
+    tf._finish_layer = finish
+    try:
+        return shard_grads(params, config, tokens, valid, None)[1]
+    finally:
+        tf._finish_layer = plain
+
+
+def _float32_copy(params):
+    """A float32 copy of a parameter tree, its leaves trainable."""
+    def leaf(t):
+        return t.detach().float().requires_grad_(True)
+
+    return {name: ([{k: leaf(v) for k, v in layer.items()} for layer in value]
+                   if name == "layers" else leaf(value))
+            for name, value in params.items()}
+
+
+def _parallel_train(plan, on_card, prefix="c"):
+    """``train_step`` on gemma2-2b at full width over the plan: parallel_path
+    (c) over dp shards, tensor_parallel_path (d) over tp ranks.  Over dp the
+    first step's bf16 gradients are held against one device's.  Over tp
+    they are recorded beside what one reordered sum moves them on one
+    device (``_split_contraction_grads``): in bf16 that is most of tp's
+    difference, so the gradients are held against one device's on float32
+    copies of the same weights, where a rank's slice or a replicated leaf
+    assembled wrongly stands out."""
     import torch
     from consensus_tpu_torch.models.config import get_model_config
     from consensus_tpu_torch.models.transformer import init_params
@@ -4992,14 +5132,29 @@ def _parallel_train(plan, on_card):
     valid[-1, TRAIN_SEQ * 3 // 4:] = False  # one right-padded row
     params, opt_state, optimizer = init_train_state(params, learning_rate=TRAIN_LR)
     init_s = time.perf_counter() - t0
-    if on_card:
-        for d in {str(x) for x in plan.data_devices}:
-            torch.cuda.reset_peak_memory_stats(d)
+    cards = _plan_devices(plan)
     loss_n, grads_n = shard_grads(params, config, tokens, valid, plan)
     loss_1, grads_1 = shard_grads(params, config, tokens, valid, None)
     grad_err = _grad_rel_err(grads_n, grads_1)
     loss_diff = abs(float(loss_n) - float(loss_1))
-    del grads_n, grads_1
+    del grads_n
+    extra = {}
+    if plan.tp > 1:
+        extra["grad_rel_l2_err_bf16"] = grad_err
+        extra["split_contraction_rel_l2_err_bf16"] = _grad_rel_err(
+            _split_contraction_grads(params, config, tokens, valid), grads_1)
+        del grads_1
+        wide = _float32_copy(params)
+        _, grads_n = shard_grads(wide, config, tokens, valid, plan)
+        _, grads_1 = shard_grads(wide, config, tokens, valid, None)
+        grad_err = _grad_rel_err(grads_n, grads_1)
+        extra["grads_compared_in"] = "float32"
+        del wide, grads_n
+    del grads_1
+    if on_card:
+        torch.cuda.empty_cache()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -5009,21 +5164,22 @@ def _parallel_train(plan, on_card):
         if on_card:
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    peaks = ({d: torch.cuda.max_memory_allocated(d) / 1e9
-              for d in sorted({str(x) for x in plan.data_devices})} if on_card else None)
+    peaks = {d: torch.cuda.max_memory_allocated(d) / 1e9 for d in cards} if on_card else None
     del params, optimizer, opt_state
     if on_card:
         torch.cuda.empty_cache()
+    axis = "dp" if plan.tp == 1 else "tp"
     checks = {
-        "c_losses_finite": all(l == l and abs(l) < float("inf") for l in losses),
-        "c_loss_falling": all(b < a for a, b in zip(losses, losses[1:])),
-        "c_dp_grads_match_dp1": grad_err <= TRAIN_GRAD_RTOL,
+        f"{prefix}_losses_finite": all(l == l and abs(l) < float("inf") for l in losses),
+        f"{prefix}_loss_falling": all(b < a for a, b in zip(losses, losses[1:])),
+        f"{prefix}_{axis}_grads_match_{axis}1": grad_err <= TRAIN_GRAD_RTOL,
     }
     info = {"model": TRAIN_MODEL, "layers": config.n_layers, "vocab": config.vocab_size,
             "rows_per_shard": TRAIN_ROWS, "seq": TRAIN_SEQ, "learning_rate": TRAIN_LR,
             "init_s": init_s, "losses": losses, "step_s": step_s,
             "grad_rel_l2_err": grad_err, "grad_tolerance": TRAIN_GRAD_RTOL,
-            "first_loss_dp_vs_dp1_diff": loss_diff, "peak_memory_gb": peaks}
+            f"first_loss_{axis}_vs_{axis}1_diff": loss_diff, **extra,
+            "peak_memory_gb_of_the_steps": peaks}
     return info, checks
 
 
@@ -5110,8 +5266,8 @@ def parallel_path(params=None):
         plan, options, config["scenario"], params, on_card)
     phase_s["a"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    experiment_info, experiment_checks, experiment_launches, experiment_by_device = (
-        _parallel_experiment(plan, params, on_card))
+    experiment_info, experiment_checks, experiment_launches, experiment_by_device, _ = (
+        _parallel_experiment([plan], params, on_card))
     phase_s["b"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     train_info, train_checks = _parallel_train(plan, on_card)
@@ -5139,14 +5295,332 @@ def parallel_path(params=None):
     return row, launches
 
 
+#: tensor_parallel_path: the device of its plans ("cpu" rehearses it with
+#: tiny configs), the decode-step timing's rows, steps and trunk.
+TP_DEVICE = "cuda"
+TP_TIMING_ROWS = (8, 32)
+TP_TIMING_STEPS = 8
+TP_PROFILED_STEPS = 3
+TP_TIMING_TRUNK = 512
+#: With four cards, each card's weight bytes within this share of 1/tp of
+#: the tp=1 tree's.
+TP_WEIGHT_SHARE_RTOL = 0.05
+
+
+def _tp_plans():
+    """(main plan, more plans for (b)): tp=2 over cuda:0 twice on one card;
+    dp=1 x tp=4 and dp=2 x tp=2 with four."""
+    import torch
+    from consensus_tpu_torch.parallel.mesh import make_mesh
+
+    if TP_DEVICE == "cpu":
+        return make_mesh(["cpu", "cpu"], tp=2), []
+    n = torch.cuda.device_count()
+    if n >= 4:
+        cards = [f"cuda:{i}" for i in range(4)]
+        return make_mesh(cards, tp=4), [make_mesh(cards, tp=2)]
+    return make_mesh(["cuda:0", "cuda:0"], tp=2), []
+
+
+def tp_kernel_cases(plan):
+    """(a): K1 (llama3-8b and gemma2-2b scoring) and K2 (llama3-8b beam) at
+    one tp rank's heads on every card of the plan, each against its plain
+    version, with kernel / plain / SDPA / bound times; then both kernels at
+    those heads on each card's tensors while cuda:0, the lead, is current."""
+    import numpy as np
+    import torch
+
+    tp = plan.tp
+    rng = np.random.default_rng(9)
+    rows = []
+    for device in _plan_devices(plan):
+        index = torch.device(device).index
+        tag = f"tp={tp} rank on {device}"
+        with torch.cuda.device(index):
+            cases = [
+                flash_case(f"llama3-8b scoring, {tag}", 8, 768, 32 // tp, 8 // tp, 128,
+                           ragged(rng, 8, 768, 192), [0] * 8, seed=90 + index),
+                flash_case(f"gemma2-2b scoring, softcap 50, {tag}", 8, 512, 8 // tp, 4 // tp,
+                           256, ragged(rng, 8, 512, 128), [0] * 8, seed=94 + index,
+                           scale=256 ** -0.5, softcap=50.0, window=4096),
+                decode_case(f"llama3-8b beam, {tag}", 4, 6, 32 // tp, 8 // tp, 128, 1024, 200,
+                            DECODE_STARTS, 100, seed=98 + index),
+            ]
+        lead_current = _cross_device_launch_check(index, 32 // tp, 8 // tp)
+        rows.append({"device": device, "heads": {"llama3-8b": [32 // tp, 8 // tp, 128],
+                                                 "gemma2-2b": [8 // tp, 4 // tp, 256]},
+                     "flash_attention": cases[:2], "decode_attention": cases[2:],
+                     "lead_current_launch": lead_current,
+                     "ok": all(c["ok"] for c in cases) and lead_current["ok"]})
+    return rows
+
+
+def _tp_serve(plan, one, wide, scenario, on_card):
+    """(c): serve_path's cut requests through ``create_server(mesh=plan)``
+    in process on ``wide`` (the backend over the plan) against the same
+    requests through a server on ``one`` (tp=1, the same weights), posted
+    one at a time.  A statement that differs from tp=1's passes only on
+    its own request's evidence: a generate request's tp=1 draws hold one
+    under DRAW_MARGIN; a beam request's session, replayed at tp along tp=1's
+    decisions, stays within ROUTE_ATOL of tp=1's at every step and its
+    pruning departs from tp=1's at some step.  The replay of the first
+    recorded beam session is also the step-by-step session check."""
+    from consensus_tpu_torch.obs.metrics import Registry
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+    from consensus_tpu_torch.serve import create_server
+
+    payloads = _serve_payloads(scenario, cut=True)
+    by_payload, sessions = {}, {}
+    current = {"request": None}
+    dense_generate, dense_open = one.generate, one.open_fused_token_search
+
+    def generate(requests, shards=None):
+        results = dense_generate(requests, shards=shards)
+        mine = by_payload.setdefault(current["request"], [])
+        for request, result in zip(requests, results):
+            mine.append((request, tuple(result.token_ids)))
+        return results
+
+    def open_fused_token_search(spec):
+        log = {}
+        sessions.setdefault(current["request"], []).append(log)
+        return _RecordedSession(dense_open(spec), spec, log)
+
+    windows = {}
+    name = _plan_name(plan)
+    for label, backend, extra in (("tp1", one, {}), (name, wide, {"mesh": plan})):
+        if backend is one:
+            one.generate, one.open_fused_token_search = generate, open_fused_token_search
+        fa.launches.reset()
+        da.launches.reset()
+        server = create_server(backend=backend, port=0, registry=Registry(), max_inflight=4,
+                               default_timeout_s=SERVE_REQUEST_S, **extra).start()
+        try:
+            t0 = time.perf_counter()
+            results = []
+            for payload in payloads:
+                current["request"] = payload["request_id"]
+                results.append(_http(server.base_url + "/v1/consensus", payload))
+            wall = time.perf_counter() - t0
+            _, health, _ = _http(server.base_url + "/healthz")
+        finally:
+            server.stop()
+            one.generate, one.open_fused_token_search = dense_generate, dense_open
+        windows[label] = {
+            "statuses": [status for status, _, _ in results], "wall_s": wall,
+            "statements": [json.loads(body).get("statement") for _, body, _ in results],
+            "mesh": (json.loads(health).get("engine") or {}).get("mesh"),
+            "launches": {"flash_attention": fa.launches.count,
+                         "decode_attention": da.launches.count},
+            "launches_by_device": {"flash_attention": dict(fa.launches.by_device),
+                                   "decode_attention": dict(da.launches.by_device)},
+        }
+    rows = []
+    for payload, got, want in zip(payloads, windows[name]["statements"],
+                                  windows["tp1"]["statements"]):
+        rid = payload["request_id"]
+        row = {"request_id": rid, "method": payload["method"], "equal": got == want}
+        logs = sessions.get(rid, [])
+        if logs:
+            replay, steps = _session_parity(one, wide, logs[0])
+            replay["departs_at_step"] = _beam_departure(
+                logs[0]["proposals"], steps, payload["params"]["beam_width"])
+            row["replay"] = replay
+            row["ok"] = row["equal"] or (replay["ok"] and replay["departs_at_step"] is not None)
+        else:
+            if not row["equal"]:
+                entries = [e for e in by_payload.get(rid, []) if e[0].seed is not None]
+                row["near_tie"] = _trajectory_near_tie(one, entries)
+            row["ok"] = row["equal"] or row.get("near_tie") is not None
+        rows.append(row)
+    session = next((r["replay"] for r in rows if "replay" in r), None)
+    mesh = windows[name]["mesh"] or {}
+    checks = {
+        "c_served_every_request": all(w["statuses"] == [200] * len(payloads)
+                                      for w in windows.values()),
+        "c_statements_equal_tp1_or_explained": bool(rows) and all(r["ok"] for r in rows),
+        "c_healthz_engine_mesh_reports_tp": mesh.get("tp") == plan.tp and mesh.get("dp") == plan.dp,
+        "c_session_step_by_step_within_atol_of_tp1": (
+            session is not None and session["session"] == "TorchTokenSearchSession"
+            and session["ok"]),
+    }
+    if on_card:
+        by_device = windows[name]["launches_by_device"]
+        for k in KERNELS:
+            checks[f"c_{k}_launched_on_every_card"] = all(
+                by_device[k].get(d, 0) > 0 for d in _plan_devices(plan))
+    launches = {k: sum(w["launches"][k] for w in windows.values()) for k in KERNELS}
+    return {"windows": windows, "statements": rows, "session": session}, checks, launches
+
+
+def _tp_step_timing(plan, one, wide, on_card):
+    """Recorded, not judged: one decode step (``forward_trunk_tail`` over a
+    shared TP_TIMING_TRUNK-token trunk, through K2 when the config asks,
+    then the head) at tp=1 and over the plan, at each of TP_TIMING_ROWS
+    rows: wall ms a step (TP_TIMING_STEPS steps, no profiler), then over
+    TP_PROFILED_STEPS more under ``torch.profiler`` (device activity only)
+    device-busy ms a step and the share of busy in memory copies (the
+    reductions' peer copies; none where a card repeats)."""
+    import torch
+    from consensus_tpu_torch.cli.profile_search import _kernel_intervals, _union
+    from consensus_tpu_torch.models import generate as gen
+    from consensus_tpu_torch.models.transformer import (
+        forward_trunk_tail, params_dtype, project_logits)
+    from consensus_tpu_torch.parallel.tensor import kv_zeros
+
+    cfg = one.config
+    cards = _plan_devices(plan)
+
+    def sync():
+        if on_card:
+            for d in cards:
+                torch.cuda.synchronize(d)
+
+    out = []
+    for rows in TP_TIMING_ROWS:
+        entry = {"rows": rows, "trunk": TP_TIMING_TRUNK}
+        for label, backend in (("tp1", one), (_plan_name(plan), wide)):
+            params, device = backend.params, backend.device
+            g = torch.Generator(device=device).manual_seed(80 + rows)
+            prompt = torch.randint(1, cfg.vocab_size, (1, TP_TIMING_TRUNK), generator=g,
+                                   device=device).to(torch.int32)
+            tokens = torch.randint(1, cfg.vocab_size, (rows,), generator=g,
+                                   device=device).to(torch.int32)
+            width = 2 + TP_TIMING_STEPS + TP_PROFILED_STEPS
+            with torch.inference_mode():
+                _, trunk, last = gen._prefill_shared(
+                    params, cfg, prompt, torch.ones_like(prompt, dtype=torch.bool))
+                shape = (cfg.n_layers, rows, width, cfg.n_kv_heads, cfg.head_dim)
+                tail_k = kv_zeros(params, shape, params_dtype(params), device)
+                tail_v = kv_zeros(params, shape, params_dtype(params), device)
+                cols = torch.arange(width, dtype=torch.int32, device=device)
+                tail_pos = (last + 1 + cols)[None].expand(rows, width).contiguous()
+                col = [0]
+
+                def step():
+                    pos = (last + 1 + col[0]).to(torch.int32).expand(rows)
+                    hidden, _, _ = forward_trunk_tail(
+                        params, cfg, tokens, pos, trunk, tail_k, tail_v, tail_pos, col[0],
+                        rows, 1)
+                    project_logits(params, cfg, hidden)
+                    col[0] += 1
+
+                for _ in range(2):
+                    step()
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(TP_TIMING_STEPS):
+                    step()
+                sync()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / TP_TIMING_STEPS
+                kernels = []
+                if on_card:
+                    with torch.profiler.profile(
+                            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        for _ in range(TP_PROFILED_STEPS):
+                            step()
+                        sync()
+                    kernels = _kernel_intervals(prof)
+            busy = _union([(lo, hi) for _, lo, hi in kernels]) / 1e3 / TP_PROFILED_STEPS
+            copies = sum(hi - lo for name, lo, hi in kernels
+                         if name.startswith("Memcpy")) / 1e3 / TP_PROFILED_STEPS
+            entry[label] = {
+                "wall_ms": wall_ms,
+                "device_busy_ms": busy if kernels else None,
+                "copy_ms": copies if kernels else None,
+                "copy_share_of_busy": copies / busy if kernels and busy else None,
+            }
+            del trunk, tail_k, tail_v
+        entry["tp_over_tp1_wall"] = entry[_plan_name(plan)]["wall_ms"] / entry["tp1"]["wall_ms"]
+        out.append(entry)
+    return out
+
+
+def tensor_parallel_path(params=None):
+    """Tensor parallelism -> (row, launches): (a) K1 and K2 at each tp
+    rank's heads on every card against their plain versions, and launched
+    with the lead current; (b) main_path's best-of-N config (llama3-8b,
+    int8, full width and depth, generation through K2) cut to 32 tokens on
+    ``TorchBackend(mesh=plan)`` against tp=1; (c) serve_path's cut requests
+    through ``create_server(mesh=plan)`` against tp=1, and a search session
+    step by step; (d) ``train_step`` on gemma2-2b at full width over the
+    plan against tp=1's gradients; then one decode step's timing at tp
+    against tp=1.  ``params``: serve_path's llama3-8b weights (built from
+    the seed when None)."""
+    import torch
+    import yaml
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+
+    on_card = TP_DEVICE == "cuda"
+    plan, more = _tp_plans()
+    t0 = time.perf_counter()
+    phase_s = {}
+    kernels = tp_kernel_cases(plan) if on_card else []
+    phase_s["a"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    experiment_info, experiment_checks, experiment_launches, by_device, weight_bytes = (
+        _parallel_experiment([plan] + more, params, on_card, decode_kernel=True))
+    phase_s["b"] = time.perf_counter() - t1
+    tp1_total = sum(weight_bytes["dp1"].values())
+    shares = {name: {d: n / tp1_total for d, n in table.items()}
+              for name, table in weight_bytes.items() if name != "dp1"}
+    t1 = time.perf_counter()
+    config = yaml.safe_load((ROOT / SERVE_CONFIG).read_text())
+    options = {k: v for k, v in config["backend_options"].items() if k not in ("tp", "dp")}
+    options["pin_generation_budget"] = True
+    one = TorchBackend(**options, params=params, device=TP_DEVICE)
+    wide = TorchBackend(**options, params=one.params, mesh=plan)
+    serve_info, serve_checks, serve_launches = _tp_serve(plan, one, wide, config["scenario"],
+                                                         on_card)
+    phase_s["c"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    timing = _tp_step_timing(plan, one, wide, on_card)
+    phase_s["timing"] = time.perf_counter() - t1
+    del one, wide
+    if on_card:
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    train_info, train_checks = _parallel_train(plan, on_card, prefix="d")
+    phase_s["d"] = time.perf_counter() - t1
+    checks = {"a_kernels_within_tolerance_on_every_card": all(r["ok"] for r in kernels),
+              **experiment_checks, **serve_checks, **train_checks}
+    if on_card and plan.distinct_devices == plan.n_devices:
+        # Four cards: every card of a plan's first row holds one rank.
+        tps = {_plan_name(p): p.tp for p in [plan] + more}
+        checks["b_weight_bytes_per_card_within_5pct_of_one_over_tp"] = all(
+            abs(share * tps[name] - 1.0) <= TP_WEIGHT_SHARE_RTOL
+            for name, table in shares.items() for share in table.values())
+    if not on_card:
+        del checks["a_kernels_within_tolerance_on_every_card"]
+    launches = {k: experiment_launches[k] + serve_launches[k] for k in KERNELS}
+    for k in KERNELS:
+        for d, n in serve_info["windows"][_plan_name(plan)]["launches_by_device"][k].items():
+            by_device[k][d] = by_device[k].get(d, 0) + n
+    row = {
+        "phase": "tensor_parallel_path",
+        "plans": [[[str(d) for d in r] for r in p.devices] for p in [plan] + more],
+        "dp": plan.dp, "tp": plan.tp, "distinct_devices": plan.distinct_devices,
+        "kernels": kernels, "experiment": experiment_info,
+        "weight_bytes_per_card": weight_bytes, "weight_share_of_tp1_per_card": shares,
+        "serve": serve_info, "step_timing": timing, "train": train_info,
+        "launches": launches, "launches_by_device": by_device,
+        "phase_s": phase_s, "wall_s": time.perf_counter() - t0,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return row, launches
+
+
 def late_phases_alone(names) -> int:
     """``python3 chip_smoke.py sweep_path mcts_path concurrent_path
-    serve_path fleet_path checkpoint_path`` (any of them): those phases
-    alone, for iterating on them; concurrent_path runs on mcts_path's
-    backend, and fleet_path and checkpoint_path build their own weights.  Prints their lines, no
-    summary and no ``ok`` line; exits 1 if a phase failed."""
+    serve_path fleet_path checkpoint_path parallel_path
+    tensor_parallel_path`` (any of them): those phases alone, for iterating
+    on them; concurrent_path runs on mcts_path's backend, and the others
+    build their own weights.  Prints their lines, no summary and no ``ok``
+    line; exits 1 if a phase failed."""
     unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path",
-                            "fleet_path", "checkpoint_path", "parallel_path"}
+                            "fleet_path", "checkpoint_path", "parallel_path",
+                            "tensor_parallel_path"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     rows = []
@@ -5157,7 +5631,7 @@ def late_phases_alone(names) -> int:
         rows.append(mcts[0])
         if "concurrent_path" in names:
             rows.append(concurrent_path(mcts[4])[0])
-    if {"serve_path", "fleet_path", "parallel_path"} & set(names):
+    if {"serve_path", "fleet_path", "parallel_path", "tensor_parallel_path"} & set(names):
         from consensus_tpu_torch.ops import build
 
         # Built here, once: the server subprocesses and this process load it.
@@ -5176,6 +5650,8 @@ def late_phases_alone(names) -> int:
         rows.append({"phase": "kernels", "per_card": per_card,
                      "ok": all(c["ok"] for c in per_card)})
         rows.append(parallel_path()[0])
+    if "tensor_parallel_path" in names:
+        rows.append(tensor_parallel_path()[0])
     for row in rows:
         emit(row)
     return 0 if all(row["ok"] for row in rows) else 1
@@ -5281,9 +5757,11 @@ def main() -> int:
     fleet_row, fleet_launches, fleet_shapes = fleet_path(params)
     emit(fleet_row)
     parallel_row, parallel_launches = parallel_path(params)
+    emit(parallel_row)
+    tp_row, tp_launches = tensor_parallel_path(params)
     del params
     torch.cuda.empty_cache()
-    emit(parallel_row)
+    emit(tp_row)
     checkpoint_row, checkpoint_launches, checkpoint_shapes, checkpoint_case = checkpoint_path()
     emit(checkpoint_row)
     if checkpoint_case is None:
@@ -5297,6 +5775,7 @@ def main() -> int:
         "mcts_path": mcts_launches, "concurrent_path": concurrent_launches,
         "serve_path": serve_launches, "fleet_path": fleet_launches,
         "checkpoint_path": checkpoint_launches, "parallel_path": parallel_launches,
+        "tensor_parallel_path": tp_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
@@ -5327,7 +5806,7 @@ def main() -> int:
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
-              serve_row, fleet_row, checkpoint_row, parallel_row]
+              serve_row, fleet_row, checkpoint_row, parallel_row, tp_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

@@ -192,7 +192,7 @@ class BatchingBackend:
         #: Mesh passthrough (``batching.py:109-113``): ``mesh={'dp': N, 'tp':
         #: M}`` (or "dp=4,tp=2", or a MeshPlan) partitions the engine's slots
         #: and page pools.  Left unset, the engine inherits the inner
-        #: backend's mesh_plan.
+        #: backend's mesh (its dp shards and tp width).
         if mesh is not None:
             engine_options = {"mesh": mesh, **dict(engine_options or {})}
         #: Convenience flag: ``prefix_cache=True`` folds into the engine

@@ -228,10 +228,12 @@ class DecodeEngine:
         # Mesh mode: ``mesh`` is a {'dp': N, 'tp': M} dict, a "dp=4,tp=2"
         # string, or a MeshPlan.  Left unset, the engine inherits the inner
         # backend's mesh.  Slots and page pools partition over the dp
-        # shards; over a backend with no mesh of its own (the fake backend)
-        # that is bookkeeping only, and tp is recorded, as in the JAX engine.
+        # shards; tp lives inside the backend's model (each rank's pages
+        # hold its kv heads under one page table), so the engine records
+        # it.  Over a backend with no mesh of its own (the fake backend)
+        # both are bookkeeping only, as in the JAX engine.
         if mesh is None:
-            mesh = getattr(inner, "mesh_plan", None)
+            mesh = getattr(inner, "mesh", None) or getattr(inner, "mesh_plan", None)
         if mesh is not None:
             mesh = parse_mesh_spec(mesh)
         self.mesh_dp = int(mesh["dp"]) if mesh else 1

@@ -52,8 +52,15 @@ every shard launched before any is waited on and the outputs gathered in
 row order; a batch whose rows do not divide dp runs on shard 0.  The row
 arithmetic is the JAX package's (row buckets times dp, targets divisible
 by dp).  Search sessions split their slots over the shards; the decode
-engine's streams run each row on the card of its engine shard.  ``tp > 1``
-raises (ROADMAP.md, queue A15).
+engine's streams run each row on the card of its engine shard.
+
+Tensor parallelism (``tp=M``, ``mesh="dp=N,tp=M"`` or a ``MeshPlan`` with
+tp > 1): each dp shard's model runs over its row of tp cards
+(``parallel/tensor.py``): the params are quantized first, then sliced
+(``tpu.py:349``), every rank runs its heads and FFN columns on its card
+with two sums a layer, and every cache holds each rank's kv heads on its
+card.  Host reads happen on the lead (rank 0's) card, so nothing above the
+model layer changes; per-card KV budgets divide by tp.
 
 Weights: ``checkpoint`` names a raw HF safetensors directory
 (``models/loader.py``) or one written by ``cli/ingest_checkpoint.py`` in
@@ -67,8 +74,9 @@ to its full budget: no EOS stop, no stop strings).  Every call records into
 ``tpu.py``'s sites, under its label ``tpu``.  The shared counters
 (``call_counts``, ``token_counts``, ``matrix_stats``) are safe under
 concurrent callers: fused search sessions run on the experiment's worker
-threads beside the batching layer's flushes.  Options that select a path
-not ported yet raise ``NotImplementedError`` naming the ROADMAP item.
+threads beside the batching layer's flushes.  A tp that does not divide
+the model's heads, kv heads, FFN width or vocab raises ``ValueError``
+naming the count.
 
 Seeds: each request's seed folds into its OWN row threefry key exactly as
 ``tpu.py:579-603`` does (``utils/threefry.py`` is bit for bit
@@ -137,7 +145,14 @@ from consensus_tpu_torch.models.transformer import (
     token_logprobs_streamed,
 )
 from consensus_tpu_torch.obs.backends import BackendInstruments
-from consensus_tpu_torch.parallel.mesh import MeshPlan, make_mesh, parse_mesh_spec, shard_params
+from consensus_tpu_torch.parallel.mesh import (
+    MeshPlan,
+    make_mesh,
+    param_shardings,
+    parse_mesh_spec,
+    shard_params,
+)
+from consensus_tpu_torch.parallel.tensor import TPParams, check_tp, to_devices
 from consensus_tpu_torch.utils import threefry
 from consensus_tpu_torch.utils.device import resolve_device
 
@@ -195,6 +210,15 @@ def _card_shares(devices: Sequence[torch.device]) -> List[int]:
     devices do, and keep the whole (nominal) CPU budget each."""
     names = [str(d) for d in devices]
     return [names.count(n) if d.type == "cuda" else 1 for n, d in zip(names, devices)]
+
+
+def _kv_divisor(group: Sequence[torch.device]) -> int:
+    """By how much a tp group's per-card KV bytes are below the whole
+    model's: tp, divided by the most ranks any one card holds (CPU entries
+    stand for separate devices, as in :func:`_card_shares`)."""
+    names = [str(d) for d in group if d.type == "cuda"]
+    most = max([names.count(n) for n in names] or [1])
+    return max(1, len(group) // most)
 
 
 def _session_budget_for(device_budget: int) -> _SessionBudget:
@@ -267,13 +291,6 @@ def _device_guard(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to the PyTorch backend yet "
-        f"(ROADMAP.md, queue A: {item})"
-    )
-
-
 class TorchBackend:
     name = "torch"
 
@@ -319,8 +336,7 @@ class TorchBackend:
                 tp = parsed["tp"]
             if dp is None:
                 dp = parsed["dp"]
-        if tp != 1:
-            raise _not_ported("tp > 1 (multi-GPU tensor parallelism)", "A15")
+        tp = int(tp)
         # The older name of ``kv_quant``, kept as an alias (``tpu.py:232-233``).
         if quantize_frozen_kv is not None:
             kv_quant = bool(quantize_frozen_kv)
@@ -341,21 +357,28 @@ class TorchBackend:
         #: real weights would run.  Never use for quality runs.
         self.pin_generation_budget = bool(pin_generation_budget)
         dp = int(dp or 1)
-        if mesh_devices is not None and dp == 1:
+        if mesh_devices is not None and dp * tp == 1:
             raise ValueError("mesh_devices names the cards of a dp > 1 mesh; dp is 1")
-        if plan is None and dp > 1:
-            # Pure dp (``tpu.py:359-372``): the first dp of ``mesh_devices``
-            # (which may repeat a card) or of the visible cards, or dp CPU
-            # shards when the caller asks for the CPU.
+        if plan is None and dp * tp > 1:
+            # dp shards of tp cards each (``tpu.py:359-372``): the first
+            # dp * tp of ``mesh_devices`` (which may repeat a card) or of the
+            # visible cards, or CPU entries when the caller asks for the CPU.
             if mesh_devices is None and resolve_device(device).type == "cpu":
-                mesh_devices = [resolve_device(device)] * dp
-            plan = make_mesh(mesh_devices, tp=1, dp=dp)
-        #: The (dp, 1) device grid this backend serves over; None on one
+                mesh_devices = [resolve_device(device)] * (dp * tp)
+            plan = make_mesh(mesh_devices, tp=tp, dp=dp)
+        #: The (dp, tp) device grid this backend serves over; None on one
         #: device.  Params replicate over ``data`` and every batch's rows
-        #: split into dp contiguous blocks, one per shard's card.
+        #: split into dp contiguous blocks, one per shard; each shard's
+        #: model runs tensor-parallel over its row of tp cards.
+        self.mesh = plan if plan is not None and plan.n_devices > 1 else None
+        #: The dp part of the mesh (None without dp shards): the row blocks,
+        #: shard views and shard threads follow it.
         self.mesh_plan = plan if plan is not None and plan.dp > 1 else None
         self._dp = plan.dp if plan is not None else 1
+        self._tp = plan.tp if plan is not None else 1
         self.device = plan.data_devices[0] if plan is not None else resolve_device(device)
+        #: The tp group of this backend's (first) shard: the lead first.
+        self._tp_devices = plan.devices[0] if plan is not None else (self.device,)
         #: Whether a greedy request decodes the same tokens whatever batch it
         #: shares (the Habermas Machine then elides its no-op ranking
         #: retries, as with ``TPUBackend``).  Not on the card: chip_smoke's
@@ -383,13 +406,14 @@ class TorchBackend:
         self.base_seed = base_seed
         self.max_batch_rows = max(1, max_batch_rows)
         self.quantization = quantization if quantization != "none" else None
+        check_tp(self.config, self._tp)
 
         if params is not None:
             self.params = params
             if self.quantization == "int8" and not is_quantized(params):
                 self.params = quantize_params(params)
         elif checkpoint and (pathlib.Path(checkpoint) / "ingest.json").exists():
-            self.params = self._restore_ingested(checkpoint, dtype)
+            self.params = self._restore_ingested(checkpoint, dtype, plan if self._tp > 1 else None)
         elif checkpoint:
             # A raw HF safetensors directory: each tensor lands on the device
             # in the backend's dtype and, with int8, is quantized there.
@@ -411,11 +435,24 @@ class TorchBackend:
             )
 
         #: Each dp shard's replica of the params, on its card (shard 0's is
-        #: ``self.params``; shards on one card share one copy).
-        self._shard_params = (
-            [row[0] for row in shard_params(self.params, self.mesh_plan)]
-            if self.mesh_plan is not None else [self.params]
-        )
+        #: ``self.params``; shards on one card share one copy).  At tp > 1
+        #: each is a TPParams, quantized first, then sliced over the shard's
+        #: row of cards (``tpu.py:349``); the whole tree is then dropped.
+        if isinstance(self.params, list):  # restored straight into each row's ranks
+            self._shard_params = self.params
+            self.params = self._shard_params[0]
+        elif self.mesh is None:
+            self._shard_params = [self.params]
+        elif self._tp == 1:
+            self._shard_params = [row[0] for row in shard_params(self.params, plan)]
+        else:
+            self._shard_params = [
+                TPParams(ranks=tuple(trees), devices=plan.devices[d])
+                for d, trees in enumerate(shard_params(self.params, plan))
+            ]
+            self.params = self._shard_params[0]
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
         self._bias_id_cache: Dict[str, Tuple[int, ...]] = {}
         self.call_counts = {
@@ -454,18 +491,24 @@ class TorchBackend:
         #: How many dp shards share this backend's card (a shard view's
         #: row buckets take that share of the card's budget).
         self._card_share = 1
+        #: What one card holds of the KV state: tp splits the kv heads over
+        #: the group's cards (``tpu.py:401-411``), unless a card repeats in
+        #: the group (then it holds every rank that sits on it).
+        self._kv_divisor = _kv_divisor(self._tp_devices)
         if self.mesh_plan is not None:
             budgets = {str(self.device): (self._device_budget, self._session_budget)}
             shares = _card_shares(self.mesh_plan.data_devices)
             self._shards = [self._shard_view(i, budgets, shares[i]) for i in range(self._dp)]
 
-    def _restore_ingested(self, checkpoint: str, dtype: str) -> Dict[str, Any]:
+    def _restore_ingested(self, checkpoint: str, dtype: str, plan: Optional[MeshPlan] = None):
         """Parameters of a directory written by ``cli/ingest_checkpoint.py``,
         restored to the device in their stored form (int8 leaves stay as
         stored: no quantize pass), after the manifest is checked against this
-        backend's model, dtype and quantization (``tpu.py:264-322``)."""
+        backend's model, dtype and quantization (``tpu.py:264-322``).  With
+        a tensor-parallel ``plan`` each rank reads only its own slices,
+        straight onto its card: one TPParams per dp row."""
         from consensus_tpu_torch.cli.ingest_checkpoint import read_manifest
-        from consensus_tpu_torch.utils.checkpoint import restore_params
+        from consensus_tpu_torch.utils.checkpoint import checkpoint_template, restore_params
 
         meta = read_manifest(checkpoint)
         mismatches = []
@@ -487,7 +530,12 @@ class TorchBackend:
                 f"ingested checkpoint {checkpoint} does not match this "
                 "backend: " + "; ".join(mismatches)
             )
-        return restore_params(str(pathlib.Path(checkpoint) / "params"), self.device)
+        params_dir = str(pathlib.Path(checkpoint) / "params")
+        if plan is None:
+            return restore_params(params_dir, self.device)
+        shardings = param_shardings(checkpoint_template(params_dir), plan)
+        return [TPParams(ranks=tuple(row), devices=plan.devices[d])
+                for d, row in enumerate(restore_params(params_dir, shardings=shardings))]
 
     # -- data-parallel shards ------------------------------------------------
 
@@ -499,6 +547,8 @@ class TorchBackend:
         view = copy.copy(self)
         view.params = self._shard_params[index]
         view.device = self.mesh_plan.data_devices[index]
+        view._tp_devices = self.mesh_plan.devices[index]
+        view.mesh = None
         view.mesh_plan = None
         view._dp = 1
         view._shards = None
@@ -576,9 +626,10 @@ class TorchBackend:
 
     def kv_cache_identity(self) -> tuple:
         """Content-key identity for cross-request prefix KV reuse: model,
-        KV mode and tensor-parallel width (``tpu.py:423-436``; 1 until queue
-        A15).  dp does not enter: pages replicate over data."""
-        return (self.model_name, "int8" if self.kv_quant else "dense", ("tp", 1))
+        KV mode and tensor-parallel width (``tpu.py:423-436``): a tp=2
+        backend's pages hold each card's half of the kv heads.  dp does not
+        enter: pages replicate over data."""
+        return (self.model_name, "int8" if self.kv_quant else "dense", ("tp", self._tp))
 
     def suggest_kv_page_pool(self, page_size: int = 16) -> int:
         """Size the decode engine's KV page pool from the session budget
@@ -591,7 +642,9 @@ class TorchBackend:
         kv_itemsize = (
             1.25 if self.kv_quant else torch.finfo(params_dtype(self.params)).bits // 8
         )
-        bytes_per_token = int(2 * c.n_layers * c.n_kv_heads * c.head_dim * kv_itemsize) or 1
+        bytes_per_token = (
+            int(2 * c.n_layers * c.n_kv_heads * c.head_dim * kv_itemsize) // self._kv_divisor or 1
+        )
         return max(64, (self._session_budget.cap // 2) // (bytes_per_token * page_size))
 
     def _sliced(self, requests, fn, limit: Optional[int] = None):
@@ -730,7 +783,7 @@ class TorchBackend:
     def _kv_bytes_per_column(self) -> int:
         c = self.config
         itemsize = torch.finfo(params_dtype(self.params)).bits // 8
-        return 2 * c.n_layers * c.n_kv_heads * c.head_dim * itemsize
+        return 2 * c.n_layers * c.n_kv_heads * c.head_dim * itemsize // self._kv_divisor
 
     def _generate_rows_allowed(self, prompt_width: int, max_new: int) -> int:
         """Rows of a monolithic decode: a cache of ``prompt_width + max_new``
@@ -1356,7 +1409,7 @@ class TorchBackend:
         dtype = params_dtype(self.params)
         page_bytes = c.n_layers * ps * c.n_kv_heads * c.head_dim * 2 * (
             torch.finfo(dtype).bits // 8
-        )
+        ) // self._kv_divisor
 
         def pool_bytes(n_rows: int) -> int:
             return (shared_total + n_rows * max_private + 1) * page_bytes
@@ -1381,7 +1434,9 @@ class TorchBackend:
                 # One pool per dp shard, each holding the shared pages; a
                 # chunk's rows split over the shards.
                 states = self._on_shards(
-                    lambda shard: stepper.make_page_state(c, num_pages, ps, dtype, shard.device)
+                    lambda shard: stepper.make_page_state(
+                        c, num_pages, ps, dtype, shard.device, shard.params
+                    )
                 )
                 self._prefill_shared_pages(states, prefix_ids, shared, num_pages)
                 chunk_stats = []
@@ -1724,7 +1779,8 @@ class _PagedGenerateStream:
             "generate_stream", (target, num_pages, max_blocks, self.decode_steps)
         )
         state = stepper.make_page_state(
-            be.config, num_pages, ps, dtype=params_dtype(be.params), device=be.device
+            be.config, num_pages, ps, dtype=params_dtype(be.params), device=be.device,
+            params=be.params,
         )
         sink = num_pages
         tables_t = be._to_device(tables)
@@ -2019,7 +2075,7 @@ class TorchTokenSearchSession:
         # trunk+tail scratch copy (stepper._scratch_cache).
         cache_bytes = (
             2 * c.n_layers * (self.n_roles * self._w0 + n_rows * spec.max_steps)
-            * c.n_kv_heads * c.head_dim * itemsize
+            * c.n_kv_heads * c.head_dim * itemsize // backend._kv_divisor
         )
         if spec.n_slots == 1:
             cache_bytes *= 2
@@ -2326,6 +2382,7 @@ class TorchTokenSearchSession:
         itemsize = torch.finfo(params_dtype(self.backend.params)).bits // 8
         per_path = (
             2 * c.n_layers * self.n_roles * (span + depth) * c.n_kv_heads * c.head_dim * itemsize
+            // self.backend._kv_divisor
         )
         return max(1, int((self._budget_bytes // 8) // max(per_path, 1)))
 
@@ -2565,8 +2622,8 @@ class _ShardedSearchSession:
             if src is None:
                 raise ValueError("call propose() before advance_and_propose()")
             rows = slice((p % self._m) * roles, (p % self._m + 1) * roles)
-            pieces["tail_k"].append(src.tail_k[:, rows].to(device))
-            pieces["tail_v"].append(src.tail_v[:, rows].to(device))
+            pieces["tail_k"].append(to_devices(src.tail_k[:, rows], sub.backend._tp_devices))
+            pieces["tail_v"].append(to_devices(src.tail_v[:, rows], sub.backend._tp_devices))
             pieces["tail_positions"].append(src.tail_positions[rows].to(device))
             pieces["cur_pos"].append(src.cur_pos[rows].to(device))
         return sub._state._replace(

@@ -486,7 +486,7 @@ class Experiment:
         seen = set()
         while backend is not None and id(backend) not in seen:
             seen.add(id(backend))
-            plan = getattr(backend, "mesh_plan", None)
+            plan = getattr(backend, "mesh", None) or getattr(backend, "mesh_plan", None)
             if plan is not None:
                 return {"dp": int(plan.dp), "tp": int(plan.tp)}
             backend = getattr(backend, "inner", None)

@@ -52,6 +52,7 @@ from consensus_tpu_torch.models.transformer import (
     project_logits,
     quantize_kv,
 )
+from consensus_tpu_torch.parallel.tensor import kv_zeros
 from consensus_tpu_torch.utils import threefry
 
 
@@ -108,7 +109,7 @@ def _prefill_classic(
     """Prefill per-row prompts -> (next_logits (B, V), trunk, last_pos (B,))."""
     cache = make_cache(
         config, prompt_tokens.shape[0], prompt_tokens.shape[1], params_dtype(params),
-        prompt_tokens.device,
+        prompt_tokens.device, params,
     )
     positions = left_pad_positions(prompt_valid)
     hidden, cache = forward(
@@ -204,7 +205,7 @@ def generate_tokens_shared_trunk(
 def _prefill_shared(params, config: ModelConfig, prompt_tokens, prompt_valid):
     """Prefill one shared prompt row -> (next_logits (1, V), trunk, last_pos ())."""
     trunk = make_cache(
-        config, 1, prompt_tokens.shape[1], params_dtype(params), prompt_tokens.device
+        config, 1, prompt_tokens.shape[1], params_dtype(params), prompt_tokens.device, params
     )
     positions = left_pad_positions(prompt_valid)
     hidden, trunk = forward(
@@ -269,13 +270,13 @@ def _decode_segment(
     if quantize_tail:
         scale_shape = tail_shape[:-1] + (1,)
         tail_k, tail_v = (
-            (torch.zeros(tail_shape, dtype=torch.int8, device=device),
-             torch.zeros(scale_shape, dtype=torch.float32, device=device))
+            (kv_zeros(params, tail_shape, torch.int8, device),
+             kv_zeros(params, scale_shape, torch.float32, device))
             for _ in range(2)
         )
     else:
         dtype = params_dtype(params)
-        tail_k, tail_v = (torch.zeros(tail_shape, dtype=dtype, device=device) for _ in range(2))
+        tail_k, tail_v = (kv_zeros(params, tail_shape, dtype, device) for _ in range(2))
     tokens_buf = torch.full((seg_len, batch), pad_id, dtype=torch.int32, device=device)
     emitted_buf = torch.zeros((seg_len, batch), dtype=torch.bool, device=device)
     use_rp = presence is not None and rep_penalty is not None

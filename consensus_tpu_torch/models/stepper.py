@@ -54,19 +54,19 @@ from consensus_tpu_torch.models.sampling import gumbel_noise, sample_tokens
 from consensus_tpu_torch.models.transformer import (
     KVCache,
     _embed,
-    _finish_layer,
     _rope_angles,
     _rotate,
+    _run_layers,
     forward,
     forward_shared_trunk,
     forward_trunk_tail,
     make_cache,
     params_dtype,
     project_logits,
-    rms_norm,
 )
 from consensus_tpu_torch.ops.decode_attention import paged_attention
 from consensus_tpu_torch.ops.welfare import DEFAULT_REWARD, WELFARE_RULES, sanitize_utilities
+from consensus_tpu_torch.parallel.tensor import kv_zeros, lead_part
 from consensus_tpu_torch.utils import threefry
 
 
@@ -145,7 +145,7 @@ def _scratch_cache(state: SearchState, t_filled: int, extra: int = 0) -> Tuple[K
     ``t_filled``)."""
     trunk, tail_k = state.trunk, state.tail_k
     rows, t_tail = tail_k.shape[1:3]
-    device = tail_k.device
+    device = state.cur_pos.device
     tail_valid = (torch.arange(t_tail, device=device)[None, :] < t_filled).expand(rows, t_tail)
     parts_k, parts_v = [trunk.k, tail_k], [trunk.v, state.tail_v]
     key_positions = [trunk.key_positions, state.tail_positions]
@@ -190,7 +190,7 @@ def search_prefill(
     device = prefix_tokens.device
     dtype = params_dtype(params)
     positions = left_pad_positions(prefix_valid)
-    trunk = make_cache(c, n_roles, w0, dtype, device)
+    trunk = make_cache(c, n_roles, w0, dtype, device, params)
     hidden, trunk = forward(
         params, c, prefix_tokens, positions, prefix_valid, trunk, 0, return_hidden=True
     )
@@ -198,8 +198,8 @@ def search_prefill(
     tail_shape = (c.n_layers, rows, max_steps, c.n_kv_heads, c.head_dim)
     state = SearchState(
         trunk=trunk,
-        tail_k=torch.zeros(tail_shape, dtype=dtype, device=device),
-        tail_v=torch.zeros(tail_shape, dtype=dtype, device=device),
+        tail_k=kv_zeros(params, tail_shape, dtype, device),
+        tail_v=kv_zeros(params, tail_shape, dtype, device),
         tail_positions=torch.zeros((rows, max_steps), dtype=torch.int32, device=device),
         cur_pos=positions[:, -1].repeat(n_beams).to(torch.int32),
     )
@@ -453,10 +453,12 @@ def rollout_scored_many(
     )  # hidden (P, R, D); suf_k/v (L, P, R, suffix_len, KV, hd)
     width = suffix_len + depth
     tail_shape = (c.n_layers, rows, width, c.n_kv_heads, c.head_dim)
-    tail_k = torch.zeros(tail_shape, dtype=suf_k.dtype, device=device)
-    tail_v = torch.zeros(tail_shape, dtype=suf_v.dtype, device=device)
-    tail_k[:, :, :suffix_len] = suf_k.reshape(tail_shape[:2] + (suffix_len,) + tail_shape[3:])
-    tail_v[:, :, :suffix_len] = suf_v.reshape(tail_shape[:2] + (suffix_len,) + tail_shape[3:])
+    tail_k = kv_zeros(params, tail_shape, suf_k.dtype, device)
+    tail_v = kv_zeros(params, tail_shape, suf_v.dtype, device)
+    # The suffix's keys and values at this rank's (local) head count.
+    suffix_shape = (c.n_layers, rows, suffix_len) + tuple(suf_k.shape[-2:])
+    tail_k[:, :, :suffix_len] = suf_k.reshape(suffix_shape)
+    tail_v[:, :, :suffix_len] = suf_v.reshape(suffix_shape)
     suffix_pos = state.cur_pos[:, None] + 1 + torch.arange(
         suffix_len, dtype=torch.int32, device=device
     )[None, :]
@@ -583,12 +585,16 @@ def make_page_state(
     page_size: int,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cpu",
+    params=None,
 ) -> PagedSlotState:
+    """An empty pool; for a tensor-parallel ``params`` each rank's pages
+    hold its kv heads on its card (:class:`~consensus_tpu_torch.parallel.
+    tensor.Ranked`), under the one host-side page table."""
     c = config
     shape = (c.n_layers, num_pages + 1, page_size, c.n_kv_heads, c.head_dim)
     return PagedSlotState(
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
+        kv_zeros(params, shape, dtype, device),
+        kv_zeros(params, shape, dtype, device),
     )
 
 
@@ -607,26 +613,28 @@ def _paged_forward(
     attend every query through its row's block table -> (final-norm hidden
     (B, S, D), state)."""
     b, s = tokens.shape
-    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    hd = c.head_dim
     pages, offsets = write_pages.long(), write_offsets.long()
     x = _embed(params, c, tokens)
     cos, sin = _rope_angles(positions, hd, c.rope_theta, c.rope_scaling)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    for layer, lp in enumerate(params["layers"]):
-        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
-        q = _rotate(matmul(attn_in, lp["wq"]).reshape(b, s, h, hd), cos, sin)
-        k = _rotate(matmul(attn_in, lp["wk"]).reshape(b, s, kv, hd), cos, sin)
+
+    def attend(layer, lp, attn_in, r):
+        h, kv = r.config.n_heads, r.config.n_kv_heads
+        q = _rotate(matmul(attn_in, lp["wq"]).reshape(b, s, h, hd), r(cos), r(sin))
+        k = _rotate(matmul(attn_in, lp["wk"]).reshape(b, s, kv, hd), r(cos), r(sin))
         v = matmul(attn_in, lp["wv"]).reshape(b, s, kv, hd)
-        k_pages, v_pages = state.k_pages[layer], state.v_pages[layer]
-        k_pages[pages, offsets] = k
-        v_pages[pages, offsets] = v
+        k_pages, v_pages = r(state.k_pages)[layer], r(state.v_pages)[layer]
+        k_pages[r(pages), r(offsets)] = k
+        v_pages[r(pages), r(offsets)] = v
         attn = paged_attention(
-            q, k_pages, v_pages, block_tables, lengths, positions, scale=c.q_scale,
+            q, k_pages, v_pages, r(block_tables), r(lengths), r(positions), scale=c.q_scale,
             softcap=c.attn_softcap,
             window=c.sliding_window if c.layer_is_local(layer) else None,
         )
-        x = _finish_layer(c, lp, x, attn.reshape(b, s, h * hd))
-    return rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style), state
+        return attn.reshape(b, s, h * hd)
+
+    return lead_part(_run_layers(params, c, x, attend)), state
 
 
 def _chunk_positions(chunk_valid: torch.Tensor, lengths: torch.Tensor):

@@ -49,6 +49,15 @@ from consensus_tpu_torch.models.quant import (
 )
 from consensus_tpu_torch.ops.decode_attention import decode_attention
 from consensus_tpu_torch.ops.flash_attention import flash_attention
+from consensus_tpu_torch.parallel.tensor import (
+    Ranked,
+    all_reduce,
+    gather_vocab,
+    is_tp,
+    kv_zeros,
+    lead_part,
+    rank_views,
+)
 
 Params = Dict[str, Any]
 
@@ -121,6 +130,8 @@ def init_params(
 
 
 def params_dtype(params: Params) -> torch.dtype:
+    if is_tp(params):
+        params = params.ranks[0]
     embed = params["embed"]
     return embed.compute_dtype if isinstance(embed, QTensor) else embed.dtype
 
@@ -210,12 +221,16 @@ def make_cache(
     max_len: int,
     dtype: torch.dtype,
     device: torch.device | str,
+    params: Optional[Params] = None,
 ) -> KVCache:
+    """An empty cache; for a tensor-parallel ``params`` its k/v are
+    :class:`Ranked` (each rank's kv heads on its card) and the positions
+    and validity stay on ``device``, the lead."""
     c = config
     shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=kv_zeros(params, shape, dtype, device),
+        v=kv_zeros(params, shape, dtype, device),
         key_positions=torch.zeros((batch, max_len), dtype=torch.int32, device=device),
         key_valid=torch.zeros((batch, max_len), dtype=torch.bool, device=device),
     )
@@ -261,11 +276,12 @@ def forward(
     cache, this call's k/v are written into it at ``write_index`` (the same
     slot for every row -- callers left-pad prompts) and attention runs over
     the whole cache buffer.  ``return_hidden=True`` returns the final-norm
-    hidden states (B, S, D) instead of logits."""
+    hidden states (B, S, D) instead of logits.  Tensor-parallel ``params``
+    (:class:`~consensus_tpu_torch.parallel.tensor.TPParams`) run each rank's
+    heads on its card; the results lie on the lead card."""
     c = config
     batch, span = tokens.shape
-    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
-    reps = h // kv
+    hd = c.head_dim
 
     x = _embed(params, c, tokens)
 
@@ -288,42 +304,78 @@ def forward(
     cos, sin = _rope_angles(positions, hd, c.rope_theta, c.rope_scaling)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
-    for layer, lp in enumerate(params["layers"]):
+    def attend(layer, lp, attn_in, r):
+        h, kv = r.config.n_heads, r.config.n_kv_heads
+        reps = h // kv
         is_local = c.layer_is_local(layer)
-        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
         q = matmul(attn_in, lp["wq"]).reshape(batch, span, h, hd)
         k = matmul(attn_in, lp["wk"]).reshape(batch, span, kv, hd)
         v = matmul(attn_in, lp["wv"]).reshape(batch, span, kv, hd)
-        q = _rotate(q, cos, sin)
-        k = _rotate(k, cos, sin)
+        q = _rotate(q, r(cos), r(sin))
+        k = _rotate(k, r(cos), r(sin))
 
         if cache is None:
             keys, values = k, v
         else:
-            cache.k[layer, :, write_index : write_index + span] = k
-            cache.v[layer, :, write_index : write_index + span] = v
-            keys, values = cache.k[layer], cache.v[layer]
+            cache_k, cache_v = r(cache.k), r(cache.v)
+            cache_k[layer, :, write_index : write_index + span] = k
+            cache_v[layer, :, write_index : write_index + span] = v
+            keys, values = cache_k[layer], cache_v[layer]
 
         if use_flash:
             window = c.sliding_window if is_local else None
             attn = flash_attention(
-                q, keys, values, lengths, starts,
+                q, keys, values, r(lengths), r(starts),
                 scale=c.q_scale, softcap=c.attn_softcap, window=window, causal=True,
-            ).to(x.dtype)
+            ).to(attn_in.dtype)
         else:
             qg = q.reshape(batch, span, kv, reps, hd)
             logits = torch.einsum("bsgrd,btgd->bgrst", qg, keys).to(torch.float32)
             logits = _softcap(logits * c.q_scale, c.attn_softcap)
-            mask = local_mask if is_local else global_mask
+            mask = r(local_mask if is_local else global_mask)
             logits = logits.masked_fill(~mask[:, :, None], MASK_FILL)
-            weights = torch.softmax(logits, dim=-1).to(x.dtype)
+            weights = torch.softmax(logits, dim=-1).to(attn_in.dtype)
             attn = torch.einsum("bgrst,btgd->bsgrd", weights, values)
-        x = _finish_layer(c, lp, x, attn.reshape(batch, span, h * hd))
+        return attn.reshape(batch, span, h * hd)
 
-    x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
+    x = _run_layers(params, c, x, attend)
     if return_hidden:
-        return x, cache
+        return lead_part(x), cache
     return project_logits(params, c, x), cache
+
+
+def _run_layers(params, c: ModelConfig, x, attend):
+    """The layer loop every forward shares: ``attend(layer, lp, attn_in,
+    view)`` is the caller's attention half for one layer on one rank (its
+    output (..., H_local * hd)); the projection, FFN and residuals follow.
+    Returns the final-norm hidden states: a tensor, or for a
+    tensor-parallel model a list with every rank's identical copy."""
+    if not is_tp(params):
+        (view,) = rank_views(params, c)
+        for layer, lp in enumerate(params["layers"]):
+            attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
+            x = _finish_layer(c, lp, x, attend(layer, lp, attn_in, view))
+        return rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
+    views = rank_views(params, c)
+    for layer in range(c.n_layers):
+        lps = [view.tree["layers"][layer] for view in views]
+        attns = [
+            attend(layer, lp, rms_norm(xt, lp["attn_norm"], c.rms_eps, c.rmsnorm_style), view)
+            for view, lp, xt in zip(views, lps, x)
+        ]
+        x = _finish_layer_tp(c, lps, x, attns)
+    return [rms_norm(xt, view.tree["final_norm"], c.rms_eps, c.rmsnorm_style)
+            for view, xt in zip(views, x)]
+
+
+def _gated(c: ModelConfig, lp, ffn_in: torch.Tensor) -> torch.Tensor:
+    """The gated FFN's hidden activations, before ``w_down``."""
+    gate = matmul(ffn_in, lp["w_gate"])
+    if c.activation == "geglu":
+        gate = F.gelu(gate, approximate="tanh")
+    else:
+        gate = F.silu(gate)
+    return gate * matmul(ffn_in, lp["w_up"])
 
 
 def _finish_layer(c: ModelConfig, lp, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
@@ -334,22 +386,117 @@ def _finish_layer(c: ModelConfig, lp, x: torch.Tensor, attn: torch.Tensor) -> to
         attn = rms_norm(attn, lp["post_attn_norm"], c.rms_eps, c.rmsnorm_style)
     x = x + attn
     ffn_in = rms_norm(x, lp["ffn_norm"], c.rms_eps, c.rmsnorm_style)
-    gate = matmul(ffn_in, lp["w_gate"])
-    if c.activation == "geglu":
-        gate = F.gelu(gate, approximate="tanh")
-    else:
-        gate = F.silu(gate)
-    ffn = matmul(gate * matmul(ffn_in, lp["w_up"]), lp["w_down"])
+    ffn = matmul(_gated(c, lp, ffn_in), lp["w_down"])
     if c.use_post_norms:
         ffn = rms_norm(ffn, lp["post_ffn_norm"], c.rms_eps, c.rmsnorm_style)
     return x + ffn
 
 
-def _embed(params: Params, c: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+class _FloatResultMatmul(torch.autograd.Function):
+    """``a @ w`` of half-precision (M, K) and (K, N) operands with the
+    tensor cores' float32 result, unrounded (``torch.mm(..., out_dtype=)``,
+    which has no derivative of its own).  The backward takes the products
+    in the operands' dtype, as a plain ``a @ w`` would: the incoming
+    gradient is the float32 image of a half-precision one."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, w = ctx.saved_tensors
+        grad = grad.to(a.dtype)
+        grad_a = grad @ w.t() if ctx.needs_input_grad[0] else None
+        grad_w = a.t() @ grad if ctx.needs_input_grad[1] else None
+        return grad_a, grad_w
+
+
+def _row_parallel(a: torch.Tensor, w) -> torch.Tensor:
+    """One rank's share of a row-parallel product ``a @ w`` (its slice of
+    the contraction) in float32, so that the ranks' shares sum in float32
+    and round to the activation dtype once, as one device's float32
+    accumulator does.  On the card the half-precision product runs on the
+    tensor cores with a float32 result (:class:`_FloatResultMatmul`);
+    elsewhere on float32 operands."""
+    q, scale = (w.q, w.scale.reshape(-1)) if isinstance(w, QTensor) else (w, None)
+    if a.is_cuda and a.dtype != torch.float32:
+        flat = _FloatResultMatmul.apply(a.reshape(-1, a.shape[-1]), q.to(a.dtype))
+        y = flat.reshape(*a.shape[:-1], flat.shape[-1])
+    else:
+        y = torch.matmul(a.to(torch.float32), q.to(torch.float32))
+    return y if scale is None else y * scale
+
+
+def _finish_layer_tp(c: ModelConfig, lps, xs, attns):
+    """:func:`_finish_layer` over tp ranks: each rank projects its heads
+    through its ``wo`` rows and its FFN columns through its ``w_down`` rows
+    (:func:`_row_parallel`), and the partials are summed over the ranks
+    (:func:`all_reduce`) in float32, then rounded once, before Gemma-2's
+    post-norms, which need the whole sum."""
+    dtype = xs[0].dtype
+    attn = [a.to(dtype) for a in all_reduce(
+        [_row_parallel(a, lp["wo"]) for a, lp in zip(attns, lps)])]
+    if c.use_post_norms:
+        attn = [rms_norm(a, lp["post_attn_norm"], c.rms_eps, c.rmsnorm_style)
+                for a, lp in zip(attn, lps)]
+    xs = [x + a for x, a in zip(xs, attn)]
+    ffn = [f.to(dtype) for f in all_reduce([
+        _row_parallel(_gated(c, lp, rms_norm(x, lp["ffn_norm"], c.rms_eps, c.rmsnorm_style)),
+                      lp["w_down"])
+        for x, lp in zip(xs, lps)
+    ])]
+    if c.use_post_norms:
+        ffn = [rms_norm(f, lp["post_ffn_norm"], c.rms_eps, c.rmsnorm_style)
+               for f, lp in zip(ffn, lps)]
+    return [x + f for x, f in zip(xs, ffn)]
+
+
+def _embed(params: Params, c: ModelConfig, tokens: torch.Tensor):
+    if is_tp(params):
+        return _embed_tp(params, c, tokens)
     x = take_rows(params["embed"], tokens)
     if c.scale_embeddings:
         x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
     return x
+
+
+def _embed_tp(params, c: ModelConfig, tokens: torch.Tensor):
+    """Vocab-parallel lookup: each rank gathers the rows in its vocab range
+    and zeros elsewhere, summed over the ranks; the ``sqrt(d_model)`` scale
+    follows the sum, as unsharded.  Returns every rank's copy."""
+    parts = []
+    for t, (tree, device) in enumerate(zip(params.ranks, params.devices)):
+        table = tree["embed"]
+        n = table.shape[0]
+        local = tokens.to(device).long() - t * n
+        inside = (local >= 0) & (local < n)
+        rows = take_rows(table, local.clamp(0, n - 1))
+        parts.append(rows * inside[..., None].to(rows.dtype))
+    xs = all_reduce(parts)
+    if c.scale_embeddings:
+        xs = [x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype) for x in xs]
+    return xs
+
+
+def _each(fn, x):
+    """``fn`` on a tensor, or on each rank's copy of a per-rank list."""
+    return [fn(xt) for xt in x] if isinstance(x, list) else fn(x)
+
+
+def _per_rank(params, config: ModelConfig, x):
+    """(view, rank's copy of ``x``) per rank: a per-rank list as it is, a
+    lead tensor copied to each rank's card."""
+    views = rank_views(params, config)
+    if isinstance(x, list):
+        return list(zip(views, x))
+    return [(view, view(x)) for view in views]
+
+
+def _ranked(parts):
+    """Per-rank results as one value: the tensor itself at tp=1."""
+    return parts[0] if len(parts) == 1 else Ranked(parts)
 
 
 def quantize_kv(arr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -431,7 +578,7 @@ def forward_trunk_tail(
 
     Returns (final-norm hidden (Rows, D), tail_k, tail_v)."""
     c = config
-    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    hd = c.head_dim
     rows = tokens.shape[0]
     frozen_k, frozen_v = tuple(frozen_k), tuple(frozen_v)
     tail_quantized = isinstance(tail_k, tuple)
@@ -439,6 +586,7 @@ def forward_trunk_tail(
     t_tail = _block_width(tail_k)
     w0 = _block_width(trunk.k)
     x = _embed(params, c, tokens)  # (Rows, D)
+    device = tokens.device
 
     use_kernel = (
         c.use_decode_attention and use_decode_kernel
@@ -454,11 +602,11 @@ def forward_trunk_tail(
         # order [trunk, frozen..., tail].
         qp = positions.reshape(n_slots, n_roles)[:, :, None]
         trunk_mask = trunk.key_valid[None].expand(n_slots, n_roles, w0)
-        tail_fill = (torch.arange(t_tail, device=x.device) <= write_col)[None, None, :]
+        tail_fill = (torch.arange(t_tail, device=device) <= write_col)[None, None, :]
         tail_mask = tail_fill.expand(n_slots, n_roles, t_tail)
         widths = [_block_width(b) for b in frozen_k]
         global_masks = [trunk_mask]
-        global_masks += [torch.ones((n_slots, n_roles, w), dtype=torch.bool, device=x.device)
+        global_masks += [torch.ones((n_slots, n_roles, w), dtype=torch.bool, device=device)
                          for w in widths]
         global_masks.append(tail_mask)
         if c.sliding_window is not None:
@@ -477,36 +625,40 @@ def forward_trunk_tail(
     cos, sin = _rope_angles(positions[:, None], hd, c.rope_theta, c.rope_scaling)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
-    for layer, lp in enumerate(params["layers"]):
+    def attend(layer, lp, attn_in, r):
+        h, kv = r.config.n_heads, r.config.n_kv_heads
         is_local = c.layer_is_local(layer)
-        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
-        q = _rotate(matmul(attn_in, lp["wq"]).reshape(rows, 1, h, hd), cos, sin)
-        k = _rotate(matmul(attn_in, lp["wk"]).reshape(rows, 1, kv, hd), cos, sin)
+        q = _rotate(matmul(attn_in, lp["wq"]).reshape(rows, 1, h, hd), r(cos), r(sin))
+        k = _rotate(matmul(attn_in, lp["wk"]).reshape(rows, 1, kv, hd), r(cos), r(sin))
         v = matmul(attn_in, lp["wv"]).reshape(rows, kv, hd)
+        rank_tail_k, rank_tail_v = r(tail_k), r(tail_v)
         if tail_quantized:
-            for block, new in ((tail_k, k[:, 0]), (tail_v, v)):
+            for block, new in ((rank_tail_k, k[:, 0]), (rank_tail_v, v)):
                 values, scales = quantize_kv(new)
                 block[0][layer, :, write_col] = values
                 block[1][layer, :, write_col] = scales
         else:
-            tail_k[layer, :, write_col] = k[:, 0]
-            tail_v[layer, :, write_col] = v
+            rank_tail_k[layer, :, write_col] = k[:, 0]
+            rank_tail_v[layer, :, write_col] = v
 
+        rank_trunk = r(trunk)
         if use_kernel:
             attn = decode_attention(
-                q[:, 0], trunk.k[layer], trunk.v[layer], tail_k[layer], tail_v[layer],
-                starts, qpos_r, write_col, n_slots, n_roles, scale=c.q_scale,
-                softcap=c.attn_softcap, window=c.sliding_window if is_local else None,
-            ).to(x.dtype)
+                q[:, 0], rank_trunk.k[layer], rank_trunk.v[layer], rank_tail_k[layer],
+                rank_tail_v[layer], r(starts), r(qpos_r), write_col, n_slots, n_roles,
+                scale=c.q_scale, softcap=c.attn_softcap,
+                window=c.sliding_window if is_local else None,
+            ).to(attn_in.dtype)
         else:
             attn = _trunk_tail_attention(
-                c, q, x.dtype, layer, trunk, frozen_k, frozen_v, tail_k, tail_v,
-                n_slots, n_roles, local_mask if is_local else global_mask,
+                r.config, q, attn_in.dtype, layer, rank_trunk, r(frozen_k), r(frozen_v),
+                rank_tail_k, rank_tail_v, n_slots, n_roles,
+                r(local_mask if is_local else global_mask),
             )
-        x = _finish_layer(c, lp, x, attn.reshape(rows, h * hd))
+        return attn.reshape(rows, h * hd)
 
-    x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
-    return x, tail_k, tail_v
+    x = _run_layers(params, c, x, attend)
+    return lead_part(x), tail_k, tail_v
 
 
 def _layer_block(block, layer: int):
@@ -588,14 +740,13 @@ def forward_shared_trunk(
     shared prefill."""
     c = config
     n_paths, span = suffix_tokens.shape
-    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
-    reps = h // kv
+    hd = c.head_dim
     n_roles = cache.key_valid.shape[0]
     t_len = cache.k.shape[2]
     device = suffix_tokens.device
 
     x = _embed(params, c, suffix_tokens)  # (P, L, D)
-    x = x[:, None].expand(n_paths, n_roles, span, x.shape[-1])
+    x = _each(lambda xt: xt[:, None].expand(n_paths, n_roles, span, xt.shape[-1]), x)
 
     # Suffix positions continue each role's trunk: (R, L).  Masks are
     # path-independent: every suffix position sees every valid trunk key
@@ -617,40 +768,45 @@ def forward_shared_trunk(
     cos, sin = _rope_angles(positions.repeat(n_paths, 1), hd, c.rope_theta, c.rope_scaling)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
-    suffix_k, suffix_v = [], []
-    for layer, lp in enumerate(params["layers"]):
+    suffix_k = [[] for _ in range(params.tp if is_tp(params) else 1)]
+    suffix_v = [[] for _ in suffix_k]
+
+    def attend(layer, lp, attn_in, r):
+        h, kv = r.config.n_heads, r.config.n_kv_heads
+        reps = h // kv
         is_local = c.layer_is_local(layer)
-        attn_in = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rmsnorm_style)
         flat = attn_in.reshape(n_paths * n_roles, span, -1)
-        q = _rotate(matmul(flat, lp["wq"]).reshape(n_paths * n_roles, span, h, hd), cos, sin)
-        ks = _rotate(matmul(flat, lp["wk"]).reshape(n_paths * n_roles, span, kv, hd), cos, sin)
+        q = _rotate(matmul(flat, lp["wq"]).reshape(n_paths * n_roles, span, h, hd), r(cos), r(sin))
+        ks = _rotate(matmul(flat, lp["wk"]).reshape(n_paths * n_roles, span, kv, hd), r(cos), r(sin))
         vs = matmul(flat, lp["wv"]).reshape(n_paths, n_roles, span, kv, hd)
         qg = q.reshape(n_paths, n_roles, span, kv, reps, hd)
         ks = ks.reshape(n_paths, n_roles, span, kv, hd)
         if return_suffix_kv:
-            suffix_k.append(ks)
-            suffix_v.append(vs)
+            suffix_k[r.index].append(ks)
+            suffix_v[r.index].append(vs)
 
+        cache_k, cache_v = r(cache.k), r(cache.v)
         logits = torch.cat(
             [
-                torch.einsum("prsgmd,rtgd->prgmst", qg, cache.k[layer]).to(torch.float32),
+                torch.einsum("prsgmd,rtgd->prgmst", qg, cache_k[layer]).to(torch.float32),
                 torch.einsum("prsgmd,prtgd->prgmst", qg, ks).to(torch.float32),
             ],
             dim=-1,
         )
         logits = _softcap(logits * c.q_scale, c.attn_softcap)
-        mask = local_mask if is_local else global_mask
+        mask = r(local_mask if is_local else global_mask)
         logits = logits.masked_fill(~mask, MASK_FILL)
-        weights = torch.softmax(logits, dim=-1).to(x.dtype)
+        weights = torch.softmax(logits, dim=-1).to(attn_in.dtype)
         attn = torch.einsum(
-            "prgmst,rtgd->prsgmd", weights[..., :t_len], cache.v[layer]
+            "prgmst,rtgd->prsgmd", weights[..., :t_len], cache_v[layer]
         ) + torch.einsum("prgmst,prtgd->prsgmd", weights[..., t_len:], vs)
-        x = _finish_layer(c, lp, x, attn.reshape(n_paths, n_roles, span, h * hd))
+        return attn.reshape(n_paths, n_roles, span, h * hd)
 
-    x = rms_norm(x, params["final_norm"], c.rms_eps, c.rmsnorm_style)
+    x = lead_part(_run_layers(params, c, x, attend))
     out = x if return_all_positions else x[:, :, -1, :]
     if return_suffix_kv:
-        return out, torch.stack(suffix_k), torch.stack(suffix_v)
+        return (out, _ranked([torch.stack(k) for k in suffix_k]),
+                _ranked([torch.stack(v) for v in suffix_v]))
     return out
 
 
@@ -659,11 +815,21 @@ def forward_shared_trunk(
 # ---------------------------------------------------------------------------
 
 
-def project_logits(params: Params, config: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+def project_logits(params: Params, config: ModelConfig, hidden) -> torch.Tensor:
     """Head-project hidden states (..., D) -> float32 logits (..., V), with
-    the model's final softcap."""
-    head = params["embed"] if config.tie_lm_head else params["lm_head"]
-    return _softcap(head_matmul(hidden, head), config.final_softcap)
+    the model's final softcap.  A tensor-parallel model projects each
+    rank's vocab slice on its card and gathers the slices on the lead."""
+    if not is_tp(params):
+        head = params["embed"] if config.tie_lm_head else params["lm_head"]
+        return _softcap(head_matmul(hidden, head), config.final_softcap)
+    return gather_vocab([
+        _softcap(head_matmul(h, _head(view.tree, config)), config.final_softcap)
+        for view, h in _per_rank(params, config, hidden)
+    ])
+
+
+def _head(tree: Params, config: ModelConfig):
+    return tree["embed"] if config.tie_lm_head else tree["lm_head"]
 
 
 def _score_positions(valid: torch.Tensor) -> torch.Tensor:
@@ -711,25 +877,56 @@ def _streamed_target_logprobs(
     vocab_chunk: int,
 ) -> torch.Tensor:
     c = config
-    head = params["embed"] if c.tie_lm_head else params["lm_head"]
+    if is_tp(params):
+        return _streamed_target_logprobs_tp(params, c, x, targets, vocab_chunk)
+    head = _head(params, c)
+    run_max, run_sum = _streamed_lse(head, x, c.final_softcap, vocab_chunk)
+    lse = run_max + torch.log(run_sum)
+    target_logits = _softcap(gather_target_logits(x, head, targets.long()), c.final_softcap)
+    return target_logits - lse
+
+
+def _streamed_lse(head, x: torch.Tensor, softcap, vocab_chunk: int):
+    """Running (max, sum of exp(logit - max)) over ``head``'s rows in
+    ``vocab_chunk`` tiles: no (..., V) tensor."""
     vocab = head.shape[0]
     x32 = x.to(torch.float32)
-    run_max = torch.full(targets.shape, -math.inf, dtype=torch.float32, device=x.device)
-    run_sum = torch.zeros(targets.shape, dtype=torch.float32, device=x.device)
+    run_max = torch.full(x.shape[:-1], -math.inf, dtype=torch.float32, device=x.device)
+    run_sum = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     for start in range(0, vocab, vocab_chunk):
         rows, row_scales = slice_rows(head, start, min(vocab_chunk, vocab - start))
         tile = torch.matmul(x32, rows.to(torch.float32).t())
         if row_scales is not None:
             tile = tile * row_scales[:, 0]
-        tile = _softcap(tile, c.final_softcap)
+        tile = _softcap(tile, softcap)
         new_max = torch.maximum(run_max, tile.amax(dim=-1))
         run_sum = run_sum * torch.exp(run_max - new_max) + torch.exp(
             tile - new_max[..., None]
         ).sum(dim=-1)
         run_max = new_max
-    lse = run_max + torch.log(run_sum)
-    target_logits = _softcap(gather_target_logits(x, head, targets.long()), c.final_softcap)
-    return target_logits - lse
+    return run_max, run_sum
+
+
+def _streamed_target_logprobs_tp(params, c: ModelConfig, x, targets, vocab_chunk: int):
+    """The streamed route over tp ranks: each rank streams its vocab slice
+    to a running (max, sum) and takes the target logit where the target is
+    in its range; the lead merges them by a logsumexp, so no rank ever
+    holds (B, S, V) logits."""
+    lead = targets.device
+    maxes, sums, picked = [], [], []
+    for view, xt in _per_rank(params, c, x):
+        head = _head(view.tree, c)
+        n = head.shape[0]
+        run_max, run_sum = _streamed_lse(head, xt, c.final_softcap, vocab_chunk)
+        local = view(targets).long() - view.index * n
+        inside = (local >= 0) & (local < n)
+        logit = _softcap(gather_target_logits(xt, head, local.clamp(0, n - 1)), c.final_softcap)
+        maxes.append(run_max.to(lead))
+        sums.append(run_sum.to(lead))
+        picked.append(torch.where(inside, logit, torch.zeros_like(logit)).to(lead))
+    top = torch.stack(maxes).amax(dim=0)
+    total = sum(s * torch.exp(m - top) for m, s in zip(maxes, sums))
+    return sum(picked) - (top + torch.log(total))
 
 
 # ---------------------------------------------------------------------------
@@ -770,7 +967,7 @@ def shared_context_prefill(
     prefills its context once (``transformer.py:981-1006``).  Positions come
     from a cumsum over the right-padded valid mask."""
     trunk = make_cache(
-        config, 1, ctx_tokens.shape[1], params_dtype(params), ctx_tokens.device
+        config, 1, ctx_tokens.shape[1], params_dtype(params), ctx_tokens.device, params
     )
     hidden, trunk = forward(
         params, config, ctx_tokens, _score_positions(ctx_valid), ctx_valid, trunk, 0,

@@ -17,8 +17,8 @@ One process drives every device (as one JAX controller drives
 ``torch.device``s, and :func:`shard_params` gives one parameter tree per
 grid position.  Over ``data`` the trees are replicas (a device that repeats
 in the grid shares one copy); over ``model`` they are the Megatron slices,
-which are layout only here: the port's forward runs unsharded weights, so
-a backend or a train step refuses ``tp > 1`` (ROADMAP.md, queue A15).
+which the tensor-parallel forward runs (``parallel/tensor.py``'s
+``TPParams``: one slice tree per rank of a dp shard's row).
 
 The port keeps a per-layer list, ``params["layers"]``, where the JAX package
 stacks layers on a leading tensor axis.  The rules keep the JAX regexes and
@@ -294,7 +294,13 @@ def parse_mesh_spec(
 
 
 def _place(tensor: torch.Tensor, sharding: NamedSharding, d: int, t: int, device) -> torch.Tensor:
-    return tensor[sharding.index(tensor.shape, d, t)].to(device)
+    """Grid position (d, t)'s piece of ``tensor`` on ``device``: the tensor
+    itself where it already lies whole there, else a contiguous copy (a
+    slice never keeps the whole tensor alive)."""
+    index = sharding.index(tensor.shape, d, t)
+    if all(part == slice(None) for part in index):
+        return tensor.to(device)
+    return tensor[index].to(device, copy=True).contiguous()
 
 
 def shard_params(params: Dict[str, Any], plan: MeshPlan) -> List[List[Dict[str, Any]]]:

@@ -8,7 +8,13 @@ scored positions, so the shards' gradients sum to the gradient of the whole
 batch's loss.  The sum is taken once per shard (also where two shards share
 one card) and applied in one optimizer step to the master parameters; each
 step places its replicas afresh from the master, so they stay equal.
-Tensor parallelism raises (ROADMAP.md, queue A15).
+
+With tp > 1 each shard's replica is its row's Megatron slices
+(``parallel/tensor.py``), placed from the master by differentiable slices
+and copies: a sharded leaf's gradient lands in its slice of the master's
+gradient, and a replicated leaf (the norms, ``final_norm``) gets the sum of
+its copies' gradients, so every copy takes the same update.  The loss's
+logits are gathered over the vocab slices on the lead card.
 
 The hand-written flash kernel has no backward, as the Pallas kernel it
 replaces has none (``jax.grad`` through it fails): a loss taken with
@@ -27,6 +33,7 @@ from consensus_tpu_torch.models.config import ModelConfig
 from consensus_tpu_torch.models.quant import QTensor
 from consensus_tpu_torch.models.transformer import forward
 from consensus_tpu_torch.parallel.mesh import MeshPlan, shard_params
+from consensus_tpu_torch.parallel.tensor import TPParams
 
 Params = Dict[str, Any]
 
@@ -80,17 +87,6 @@ def init_train_state(
     return params, optimizer.state, optimizer
 
 
-def _check_plan(plan: Optional[MeshPlan]) -> int:
-    if plan is None:
-        return 1
-    if plan.tp > 1:
-        raise NotImplementedError(
-            "train_step over tp > 1 needs the tensor-parallel forward "
-            "(ROADMAP.md, queue A15)"
-        )
-    return plan.dp
-
-
 def shard_grads(
     params: Params,
     config: ModelConfig,
@@ -99,18 +95,29 @@ def shard_grads(
     plan: Optional[MeshPlan] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(loss, gradients in :func:`_leaves` order) of the whole batch.  With
-    ``plan`` (dp shards, tp 1) the rows split into dp contiguous blocks (the
-    row count must divide dp), each block runs on its shard's replica on its
-    own device, every shard launched before any is waited on, and the
-    shards' gradients are summed once each onto the master's devices."""
-    dp = _check_plan(plan)
+    ``plan`` the rows split into dp contiguous blocks (the row count must
+    divide dp), each block runs on its shard's replica on its own device(s),
+    every shard launched before any is waited on, and the shards' gradients
+    are summed once each onto the master's devices.  At tp > 1 a shard's
+    replica is its row's slices, and the gradients are taken through the
+    placement, so they come back whole: a sharded leaf's in its slice, a
+    replicated leaf's summed over its copies."""
+    dp = plan.dp if plan is not None else 1
+    tp = plan.tp if plan is not None else 1
     if tokens.shape[0] % dp:
         raise ValueError(f"{tokens.shape[0]} batch rows do not split over dp={dp}")
-    if dp == 1:
+    if dp * tp == 1:
         loss = lm_loss(params, config, tokens, valid)
         return loss.detach(), list(torch.autograd.grad(loss, _leaves(params)))
     mask_count = torch.clamp((valid[:, :-1] & valid[:, 1:]).to(torch.float32).sum(), min=1.0)
-    replicas = [row[0] for row in shard_params(params, plan)]
+    master = _leaves(params)
+    with torch.enable_grad():
+        placed = shard_params(params, plan)
+    if tp == 1:
+        replicas = [row[0] for row in placed]
+    else:
+        replicas = [TPParams(ranks=tuple(row), devices=plan.devices[d])
+                    for d, row in enumerate(placed)]
     block = tokens.shape[0] // dp
 
     def one_shard(s: int):
@@ -121,11 +128,11 @@ def shard_grads(
                 replicas[s], config, tokens[rows].to(device), valid[rows].to(device)
             )
             loss = -total / mask_count.to(device)
-            return loss.detach(), torch.autograd.grad(loss, _leaves(replicas[s]))
+            wrt = master if tp > 1 else _leaves(replicas[s])
+            return loss.detach(), torch.autograd.grad(loss, wrt)
 
     with ThreadPoolExecutor(max_workers=dp) as pool:
         parts = list(pool.map(one_shard, range(dp)))
-    master = _leaves(params)
     loss = sum(part[0].to(tokens.device) for part in parts)
     grads = [sum(part[1][i].to(leaf.device) for part in parts) for i, leaf in enumerate(master)]
     return loss, grads

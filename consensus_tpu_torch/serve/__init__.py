@@ -154,12 +154,13 @@ def create_server(
     responses stay byte-identical to that path (pinned in
     tests/test_torch_fleet.py).
 
-    ``mesh`` (``"dp=4,tp=1"``, ``{'dp': 4, 'tp': 1}`` or a
+    ``mesh`` (``"dp=4,tp=2"``, ``{'dp': 4, 'tp': 2}`` or a
     :class:`~consensus_tpu_torch.parallel.mesh.MeshPlan`) makes the device
     mesh the serving path: the resident backend is built over the dp
-    shards' cards and the decode engine partitions its slot table and page
-    pools over them (``--mesh`` on the CLI).  Other backends only see the
-    engine-side partitioning.  ``tp > 1`` raises (ROADMAP.md, queue A15).
+    shards' cards, each shard's model tensor-parallel over its row of tp
+    cards, and the decode engine partitions its slot table and page pools
+    over the dp shards (``--mesh`` on the CLI).  Other backends only see
+    the engine-side partitioning.
 
     ``telemetry=True`` installs a
     :class:`~consensus_tpu_torch.obs.welfare.ServeTelemetry` sink: latency and

@@ -21,8 +21,9 @@ puts it on the CPU, the only way there (a tiny model only).
 SIGINT/SIGTERM drains gracefully: admission closes (new requests get 429),
 queued and in-flight requests finish, then the process exits.
 
-``--mesh dp=N,tp=1`` serves over N data-parallel shards, one card each
-(``tp > 1`` raises: ROADMAP.md, queue A15).
+``--mesh dp=N,tp=M`` serves over N data-parallel shards of M cards each,
+every shard's model tensor-parallel over its M cards (``--device cpu``
+takes CPU entries, for a run without cards).
 """
 
 from __future__ import annotations
@@ -129,10 +130,11 @@ def main(argv=None) -> int:
                              "elastic ladder respawns it")
     parser.add_argument("--mesh", default=None, metavar="dp=N,tp=M",
                         help="serve over the (data, model) device mesh: "
-                             "replicate the backend params over dp cards and "
-                             "partition the decode engine's slots + page "
-                             "pools over them (e.g. --mesh dp=4,tp=1; tp > 1 "
-                             "is not ported)")
+                             "replicate the backend params over dp shards of "
+                             "tp cards each, shard each replica's heads, FFN "
+                             "and vocab over its tp cards, and partition the "
+                             "decode engine's slots + page pools over the dp "
+                             "shards (e.g. --mesh dp=2,tp=2)")
     parser.add_argument("--state-dir", default=None, metavar="DIR",
                         help="arm the durable-state layer: fsync'd request "
                              "WAL + idempotency snapshots (single server) "

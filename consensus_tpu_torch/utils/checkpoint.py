@@ -142,14 +142,7 @@ def restore_params(
         _check_template(template, header, file)
 
     def assemble(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        leaves: Dict[str, Any] = {}
-        for name, dtype_name in qtensors.items():
-            leaves[name] = QTensor(
-                q=flat.pop(name + ".q"), scale=flat.pop(name + ".scale"),
-                compute_dtype=_DTYPE_NAMES[dtype_name],
-            )
-        leaves.update(flat)
-        return _unflatten(leaves)
+        return _assemble(flat, qtensors)
 
     if shardings is None:
         return assemble(
@@ -180,6 +173,33 @@ def restore_params(
                 flat[name] = placed[key + (str(dev),)]
             trees[-1].append(assemble(flat))
     return trees
+
+
+def _assemble(flat: Dict[str, torch.Tensor], qtensors: Dict[str, str]) -> Dict[str, Any]:
+    """Dotted-name tensors -> the parameter dict, int8 pairs as QTensors."""
+    leaves: Dict[str, Any] = {}
+    for name, dtype_name in qtensors.items():
+        leaves[name] = QTensor(
+            q=flat.pop(name + ".q"), scale=flat.pop(name + ".scale"),
+            compute_dtype=_DTYPE_NAMES[dtype_name],
+        )
+    leaves.update(flat)
+    return _unflatten(leaves)
+
+
+def checkpoint_template(path: str) -> Dict[str, Any]:
+    """The parameter dict a checkpoint directory holds, as ``meta`` tensors
+    of its shapes and dtypes, read from the header alone: what
+    ``parallel.mesh.param_shardings`` lays out before a sharded
+    :func:`restore_params`."""
+    file = pathlib.Path(path) / PARAMS_FILE
+    header, metadata, _ = safetensors_io.read_header(file)
+    flat = {
+        name: torch.empty([int(d) for d in entry["shape"]],
+                          dtype=safetensors_io.DTYPES[entry["dtype"]], device="meta")
+        for name, entry in header.items()
+    }
+    return _assemble(flat, json.loads(metadata.get("qtensors", "{}")))
 
 
 def _flatten_shardings(shardings: Dict[str, Any]) -> Dict[str, Any]:

@@ -243,7 +243,9 @@ def test_get_backend_tpu_is_the_resident_backend():
      ("quantize_frozen_kv", True)],
 )
 def test_unported_options_raise(option, value, tmp_path, monkeypatch):
-    """tp (a mesh with tp > 1) still raises, naming queue A15.  dp is
+    """tp (``tp=2`` or a mesh with tp > 1) is ported: the model runs
+    tensor-parallel over two CPU ranks and gives tp=1's tokens, and its
+    KV identity carries the width.  dp is
     ported: ``dp=2`` over two CPU shards gives dp=1's tokens and
     logprobs, as the JAX backend's ``dp=2`` gives its own.  ``checkpoint``
     and ``quantize_frozen_kv`` are ported: the checkpoint (an HF safetensors
@@ -251,8 +253,14 @@ def test_unported_options_raise(option, value, tmp_path, monkeypatch):
     backend loads from it, and ``quantize_frozen_kv`` is the alias of
     ``kv_quant`` in both."""
     if option in ("tp", "mesh"):
-        with pytest.raises(NotImplementedError, match="A15"):
-            TorchBackend(model=MODEL, device="cpu", **{option: value})
+        one = TorchBackend(model=MODEL, device="cpu", dtype="float32")
+        port = TorchBackend(model=MODEL, device="cpu", dtype="float32", params=one.params,
+                            **{option: value})
+        assert port._tp == 2 and port.kv_cache_identity()[-1] == ("tp", 2)
+        requests = [GenerationRequest(user_prompt=f"Say {i}", max_tokens=6, seed=i)
+                    for i in range(3)]
+        assert ([r.token_ids for r in port.generate(requests)]
+                == [r.token_ids for r in one.generate(requests)])
         return
     if option == "dp":
         one = TorchBackend(model=MODEL, device="cpu", dtype="float32")
@@ -329,8 +337,13 @@ def test_row_buckets_stay_fixed_while_free_memory_changes(monkeypatch):
 
 
 def test_unported_mesh_and_default_device():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TorchBackend(model=MODEL, device="cpu", tp=2)
+    """tp=2 on the CPU builds the tensor-parallel backend over two CPU
+    ranks (queue A15, ported); a tp that does not divide the heads raises
+    naming them."""
+    backend = TorchBackend(model=MODEL, device="cpu", tp=2)
+    assert backend._tp == 2 and backend.mesh.devices == ((torch.device("cpu"),) * 2,)
+    with pytest.raises(ValueError, match="n_heads"):
+        TorchBackend(model=MODEL, device="cpu", tp=3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchBackend(model=MODEL)

@@ -559,8 +559,8 @@ class TestPerKindWakeups:
 class TestPortSpecifics:
     def test_engine_raises_naming_its_queue_item(self):
         """``mesh`` passes through into the engine options, as in the JAX
-        batching layer: a dp=2 engine partitions its pools and serves; a
-        tensor-parallel backend (queue A15) still raises."""
+        batching layer: a dp=2 engine partitions its pools and serves; so
+        does a tensor-parallel backend, whose engine records tp=2."""
         batching = BatchingBackend(CountingBackend(), engine=True, mesh={"dp": 2, "tp": 1})
         try:
             assert batching.engine.mesh_dp == 2 and len(batching.engine.pools) == 2
@@ -570,9 +570,15 @@ class TestPortSpecifics:
             batching.close()
         from consensus_tpu_torch.backends.torch_backend import TorchBackend
 
-        with pytest.raises(NotImplementedError, match="A15"):
-            BatchingBackend(TorchBackend(model="tiny-llama3", device="cpu", mesh="dp=1,tp=2"),
-                            engine=True)
+        batching = BatchingBackend(
+            TorchBackend(model="tiny-llama3", device="cpu", mesh="dp=1,tp=2"), engine=True
+        )
+        try:
+            assert batching.engine.mesh_tp == 2 and batching.engine.mesh_dp == 1
+            out = batching.generate([GenerationRequest(user_prompt="x", max_tokens=3, seed=1)])
+            assert len(out) == 1 and len(out[0].token_ids) <= 3
+        finally:
+            batching.close()
 
     def test_duplicate_score_rows_computed_once(self):
         """Identical score rows of two sessions merged into one flush are

@@ -577,8 +577,8 @@ def test_engine_statement_matches_jax_engine(method):
 def test_engine_raises_for_speculative_and_mesh():
     """Speculative windows build now (``speculative`` alone implies K=4, as
     in the JAX engine, and the fake stream drafts for real); ``mesh`` builds
-    too, its slots and pools over dp shards as in the JAX engine, and a
-    tensor-parallel backend (queue A15) raises."""
+    too, its slots and pools over dp shards as in the JAX engine, and over a
+    tensor-parallel backend the engine records its tp width."""
     engine = DecodeEngine(FakeBackend(), speculative=True, auto_start=False)
     ref = JaxDecodeEngine(JaxFakeBackend(), speculative=True, auto_start=False)
     try:
@@ -597,9 +597,12 @@ def test_engine_raises_for_speculative_and_mesh():
         ref.close()
     from consensus_tpu_torch.backends.torch_backend import TorchBackend
 
-    with pytest.raises(NotImplementedError, match="A15"):
-        DecodeEngine(TorchBackend(model="tiny-llama3", device="cpu", mesh="dp=1,tp=2"),
-                     auto_start=False)
+    engine = DecodeEngine(TorchBackend(model="tiny-llama3", device="cpu", mesh="dp=1,tp=2"),
+                          auto_start=False)
+    try:
+        assert engine.mesh_tp == 2 and engine.stats()["mesh"]["tp"] == 2
+    finally:
+        engine.close()
     stream = FakeBackend().generate_stream([GenerationRequest(user_prompt="x", max_tokens=24)],
                                            decode_steps=4, speculative=True)
     while not stream.finished:

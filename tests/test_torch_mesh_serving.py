@@ -267,9 +267,16 @@ class TestBackendDataParallel:
     @pytest.mark.parametrize("option, value", [("tp", 2), ("mesh", "dp=1,tp=2"),
                                                ("mesh", {"dp": 2, "tp": 2})])
     def test_tp_raises_naming_a15(self, backends, option, value):
+        """The tp spellings build a tensor-parallel backend (queue A15,
+        ported) that answers as tp=1 does."""
         _, port = backends
-        with pytest.raises(NotImplementedError, match="A15"):
-            TorchBackend(**TINY, params=port.params, device="cpu", **{option: value})
+        wide = TorchBackend(**TINY, params=port.params, config=port.config, dtype="float32",
+                            device="cpu", **{option: value})
+        assert wide._tp == 2 and wide._dp == (2 if isinstance(value, dict) else 1)
+        requests = [GenerationRequest(user_prompt=f"x{i}", max_tokens=4, seed=i)
+                    for i in range(2)]
+        assert ([r.token_ids for r in wide.generate(requests)]
+                == [r.token_ids for r in port.generate(requests)])
 
     def test_a_plan_names_the_devices(self, backends):
         _, port = backends

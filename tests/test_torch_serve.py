@@ -750,7 +750,7 @@ def test_deferred_options_raise_naming_their_item(option, item, tmp_path):
     """The queue-A8 options build their serving planes now and the server
     answers through them.  ``mesh`` (A9) is ported: a dp=2 mesh serves with
     the engine's slots and pools over two shards, as the JAX server's does;
-    a tensor-parallel mesh (queue A15) raises."""
+    a tensor-parallel mesh (queue A15) serves too, its healthz naming tp."""
     if "mesh" in option:
         payload = {"issue": TOPIC, "agent_opinions": OPINIONS, "method": "best_of_n",
                    "params": dict(PARAMS), "seed": 7, "request_id": "a9-mesh"}
@@ -764,9 +764,15 @@ def test_deferred_options_raise_naming_their_item(option, item, tmp_path):
         finally:
             server.stop()
         assert len(health["engine"]["mesh"]["per_shard"]) == 2
-        with pytest.raises(NotImplementedError, match="A15"):
-            create_server(backend="torch", port=0, registry=Registry(), mesh="dp=1,tp=2",
-                          backend_options={"model": "tiny-llama3", "device": "cpu"})
+        server = create_server(backend="torch", port=0, registry=Registry(), mesh="dp=1,tp=2",
+                               backend_options={"model": "tiny-llama3", "device": "cpu",
+                                                "max_context": 256}).start()
+        try:
+            status, body = _post(server.base_url, payload)
+            health = _get_json(server.base_url + "/healthz")
+        finally:
+            server.stop()
+        assert status == 200 and health["engine"]["mesh"]["tp"] == 2
         return
     if "state_dir" in option:
         option = {"state_dir": str(tmp_path / option["state_dir"])}
@@ -838,32 +844,40 @@ def test_cli_serves_and_drains_on_sigterm(tmp_path):
 def test_cli_deferred_flags_raise(flags, item, tmp_path):
     """The queue-A8 flags serve now (a subprocess answers one request and
     drains on SIGTERM, its startup JSON naming the plane); so does ``--mesh``
-    (A9) with dp=2, while a tensor-parallel mesh (queue A15) raises before
-    serving."""
-    if "--mesh" in flags:
-        from consensus_tpu_torch.serve.__main__ import main
-
-        with pytest.raises(NotImplementedError, match="A15"):
-            main(["--backend", "torch", "--device", "cpu", "--port", "0", "--log-level",
-                  "WARNING", "--backend-options", '{"model": "tiny-llama3"}',
-                  "--mesh", "dp=1,tp=2"])
+    (A9) with dp=2, and a tensor-parallel mesh (queue A15) answers through
+    the torch backend's two CPU ranks."""
     flags = [str(tmp_path / f) if f == "x" else f for f in flags]
+    runs = [(["--backend", "fake", *flags], PARITY_PAYLOADS["best_of_n"])]
+    if "--mesh" in flags:
+        # A tiny model in float32 with a short best_of_n keeps the CPU
+        # request well inside the post's timeout.
+        runs.append((["--backend", "torch", "--device", "cpu", "--backend-options",
+                      '{"model": "tiny-llama3", "dtype": "float32", "max_context": 256}',
+                      "--mesh", "dp=1,tp=2"],
+                     {"method": "best_of_n", "params": {"n": 2, "max_tokens": 8}, "seed": 7}))
     env = dict(os.environ, PYTHONPATH=os.getcwd())
+    for run, payload in runs:
+        _serve_one_request(run, payload, env)
+
+
+def _serve_one_request(run, payload, env):
+    """Start the CLI with ``run``'s flags, post one ``payload`` request,
+    check the startup JSON and the answer, and drain it with SIGTERM."""
     proc = subprocess.Popen(
-        [sys.executable, "-m", "consensus_tpu_torch.serve", "--backend", "fake",
-         "--port", "0", "--log-level", "WARNING", *flags],
+        [sys.executable, "-m", "consensus_tpu_torch.serve", "--port", "0", "--log-level",
+         "WARNING", *run],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
     )
     try:
         startup = json.loads(proc.stdout.readline())
-        if "--fleet" in flags:
+        if "--fleet" in run:
             assert startup["fleet"] == 2
-        if "--speculative" in flags:
+        if "--speculative" in run:
             assert startup["speculative"] is True
-        if "--mesh" in flags:
-            assert startup["mesh"] == "dp=2,tp=1"
+        if "--mesh" in run:
+            assert startup["mesh"] == run[run.index("--mesh") + 1]
         status, body = _post(startup["serving"], {"issue": TOPIC, "agent_opinions": OPINIONS,
-                                                  **PARITY_PAYLOADS["best_of_n"]})
+                                                  **payload})
         assert status == 200 and body["statement"]
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0

@@ -116,11 +116,20 @@ def test_dp_equals_dp1(setup, dp):
 
 
 def test_tp_raises_naming_a15(setup):
+    """The train step runs over dp=2 x tp=2 (queue A15, ported): its loss
+    is the one-device loss and the loss falls over three steps."""
     config, jax_params, tokens, valid = setup
-    params, state, optimizer = init_train_state(_port(config, jax_params))
-    with pytest.raises(NotImplementedError, match="A15"):
-        train_step(params, state, config, optimizer, torch.from_numpy(tokens),
-                   torch.from_numpy(valid), plan=make_mesh(["cpu"] * 4, tp=2))
+    t, v = torch.from_numpy(tokens), torch.from_numpy(valid)
+    one, s1, o1 = init_train_state(_port(config, jax_params), learning_rate=LR)
+    params, state, optimizer = init_train_state(_port(config, jax_params), learning_rate=LR)
+    plan = make_mesh(["cpu"] * 4, tp=2)
+    losses = []
+    for _ in range(3):
+        one, s1, l1 = train_step(one, s1, config, o1, t, v)
+        params, state, loss = train_step(params, state, config, optimizer, t, v, plan=plan)
+        assert float(loss) == pytest.approx(float(l1), rel=1e-5)
+        losses.append(float(loss))
+    assert losses[-1] < losses[0]
 
 
 def test_flash_attention_has_no_gradient_as_in_jax(setup):
