@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py sweep_path mcts_path concurrent_path serve_path
-fleet_path checkpoint_path parallel_path tensor_parallel_path`` runs any of
+fleet_path checkpoint_path parallel_path tensor_parallel_path
+tensor_parallel_replicated_kv`` runs any of
 those late phases alone, with no summary and no ``ok`` line; parallel_path
 alone also runs the kernels' per-card cases).  Phases, one JSON
 line each; any failure exits non-zero:
@@ -217,6 +218,25 @@ line each; any failure exits non-zero:
    relative L2 of 2e-2 of tp=1's, peak per card; then, recorded and not
    judged, one decode step's wall and device-busy ms at tp against tp=1
    (8 and 32 rows) and the share of its device time in memory copies.
+21. ``tensor_parallel_replicated_kv`` -- tensor parallelism past the kv
+   heads: gemma2-2b at full width and its real vocab (int8, bf16) at tp=8,
+   cuda:0 eight times with one card, cuda:0-3 twice each with four, every
+   rank one query head and a copy of the kv head it reads.  Seeded weights
+   written in the port's checkpoint format and restored straight into the
+   ranks (each holding its head's ``wk``/``wv`` columns; gathered back,
+   the whole tree).  (a) K1 and K2 at one rank's heads (1 q / 1 kv, hd 256,
+   softcap 50) on every card against their plain versions; (b) 4 seeded
+   32-token generations through K2 and 6 scored cells through K1 at tp=8
+   against tp=1: ids equal or first differing at a draw of margin under
+   0.1, scores within 0.1, K1 and K2 on every card; (c) serve_path's first
+   cut best-of-N request (the engine) and its cut beam search (a fused
+   session, replayed at tp=8 step by step) through
+   ``create_server(mesh=plan)`` against tp=1, ``/healthz`` naming tp=8; (d) each card's KV bytes of a fixed cache
+   equal to the rank's kv heads x its ranks on the card x the per-head
+   bytes, and to the backend's own count; one decode step's wall and
+   device-busy ms at tp=8 against tp=1, recorded; (e) one ``train_step`` at tp=8
+   (2 x 256 tokens): float32 gradients within 2e-2 of tp=1's, and the
+   ranks that share a kv head bit-equal after the AdamW step.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -5355,7 +5375,7 @@ def tp_kernel_cases(plan):
     return rows
 
 
-def _tp_serve(plan, one, wide, scenario, on_card):
+def _tp_serve(plan, one, wide, scenario, on_card, payloads=None):
     """(c): serve_path's cut requests through ``create_server(mesh=plan)``
     in process on ``wide`` (the backend over the plan) against the same
     requests through a server on ``one`` (tp=1, the same weights), posted
@@ -5364,13 +5384,17 @@ def _tp_serve(plan, one, wide, scenario, on_card):
     under DRAW_MARGIN; a beam request's session, replayed at tp along tp=1's
     decisions, stays within ROUTE_ATOL of tp=1's at every step and its
     pruning departs from tp=1's at some step.  The replay of the first
-    recorded beam session is also the step-by-step session check."""
+    recorded beam session is also the step-by-step session check, where
+    ``payloads`` (default: all of serve_path's cut requests) holds a beam
+    request.  Each kernel that the requests launch at tp=1 must launch on
+    every card of the plan."""
     from consensus_tpu_torch.obs.metrics import Registry
     from consensus_tpu_torch.ops import decode_attention as da
     from consensus_tpu_torch.ops import flash_attention as fa
     from consensus_tpu_torch.serve import create_server
 
-    payloads = _serve_payloads(scenario, cut=True)
+    if payloads is None:
+        payloads = _serve_payloads(scenario, cut=True)
     by_payload, sessions = {}, {}
     current = {"request": None}
     dense_generate, dense_open = one.generate, one.open_fused_token_search
@@ -5441,20 +5465,22 @@ def _tp_serve(plan, one, wide, scenario, on_card):
                                       for w in windows.values()),
         "c_statements_equal_tp1_or_explained": bool(rows) and all(r["ok"] for r in rows),
         "c_healthz_engine_mesh_reports_tp": mesh.get("tp") == plan.tp and mesh.get("dp") == plan.dp,
-        "c_session_step_by_step_within_atol_of_tp1": (
-            session is not None and session["session"] == "TorchTokenSearchSession"
-            and session["ok"]),
     }
+    if any(p["method"] == "beam_search" for p in payloads):
+        checks["c_session_step_by_step_within_atol_of_tp1"] = (
+            session is not None and session["session"] == "TorchTokenSearchSession"
+            and session["ok"])
     if on_card:
         by_device = windows[name]["launches_by_device"]
         for k in KERNELS:
-            checks[f"c_{k}_launched_on_every_card"] = all(
-                by_device[k].get(d, 0) > 0 for d in _plan_devices(plan))
+            if windows["tp1"]["launches"][k]:
+                checks[f"c_{k}_launched_on_every_card"] = all(
+                    by_device[k].get(d, 0) > 0 for d in _plan_devices(plan))
     launches = {k: sum(w["launches"][k] for w in windows.values()) for k in KERNELS}
     return {"windows": windows, "statements": rows, "session": session}, checks, launches
 
 
-def _tp_step_timing(plan, one, wide, on_card):
+def _tp_step_timing(plan, one, wide, on_card, row_counts=TP_TIMING_ROWS):
     """Recorded, not judged: one decode step (``forward_trunk_tail`` over a
     shared TP_TIMING_TRUNK-token trunk, through K2 when the config asks,
     then the head) at tp=1 and over the plan, at each of TP_TIMING_ROWS
@@ -5478,7 +5504,7 @@ def _tp_step_timing(plan, one, wide, on_card):
                 torch.cuda.synchronize(d)
 
     out = []
-    for rows in TP_TIMING_ROWS:
+    for rows in row_counts:
         entry = {"rows": rows, "trunk": TP_TIMING_TRUNK}
         for label, backend in (("tp1", one), (_plan_name(plan), wide)):
             params, device = backend.params, backend.device
@@ -5611,16 +5637,364 @@ def tensor_parallel_path(params=None):
     return row, launches
 
 
+#: tensor_parallel_replicated_kv: gemma2-2b (8 q / 4 kv heads) at tp=8, so
+#: every rank holds one query head and a copy of the kv head it reads.  The
+#: plan is cuda:0 eight times on one card, cuda:0-3 twice each on four;
+#: TPR_DEVICE "cpu" rehearses it on CPU ranks, cut by TPR_OVERRIDES (for
+#: example ``{"n_layers": 2, "vocab_size": 2048}``).
+TPR_DEVICE = "cuda"
+TPR_OVERRIDES = {}
+TPR_TP = 8
+TPR_SEED = CHECKPOINT_SEED
+#: (d): the KV cache whose bytes each card holds.
+TPR_KV_ROWS = 8
+TPR_KV_COLUMNS = 256
+#: (b)'s generations run to TPR_TOKENS pinned tokens (PARALLEL_TOKENS, as
+#: _parallel_experiment cuts them); (c) posts serve_path's first cut
+#: best-of-N request (the engine's paged streams) and its cut beam search
+#: (a fused session, replayed step by step); the decode step is timed at
+#: TPR_TIMING_ROWS rows.
+TPR_TOKENS = PARALLEL_TOKENS
+TPR_SERVE_REQUESTS = ("serve-0-best_of_n", "serve-2-beam_search")
+TPR_TIMING_ROWS = (8,)
+#: The phase's own time budget on one card, reported beside its wall.
+TPR_BUDGET_S = 120.0
+
+
+def _tpr_plan():
+    from consensus_tpu_torch.parallel.mesh import make_mesh
+
+    if TPR_DEVICE == "cpu":
+        return make_mesh(["cpu"] * TPR_TP, tp=TPR_TP)
+    import torch
+
+    cards = 4 if torch.cuda.device_count() >= 4 else 1
+    return make_mesh([f"cuda:{i * cards // TPR_TP}" for i in range(TPR_TP)], tp=TPR_TP)
+
+
+def _tpr_kernel_cases(plan, config):
+    """(a): K1 (scoring, B=8, S=384 ragged) and K2 (classic generation rows,
+    P=1, R=8, W0=128, Ts=32, write column 31) at one tp=8 rank's heads
+    (1 q / 1 kv, hd 256, softcap 50) on every card of the plan."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(14)
+    rows = []
+    for device in _plan_devices(plan):
+        index = torch.device(device).index
+        tag = f"tp={plan.tp} rank on {device}"
+        kw = dict(scale=config.q_scale, softcap=config.attn_softcap, window=config.sliding_window)
+        with torch.cuda.device(index):
+            cases = [
+                flash_case(f"gemma2-2b scoring, 1 q / 1 kv heads, {tag}", 8, 384, 1, 1, 256,
+                           ragged(rng, 8, 384, 96), [0] * 8, seed=140 + index, **kw),
+                decode_case(f"gemma2-2b generation, 1 q / 1 kv heads, {tag}", 1, 8, 1, 1, 256,
+                            128, 32, [64, 40, 72, 52, 90, 90, 90, 90], 31, seed=144 + index,
+                            **kw),
+            ]
+        rows.append({"device": device, "heads": [1, 1, 256],
+                     "flash_attention": cases[:1], "decode_attention": cases[1:],
+                     "ok": all(c["ok"] for c in cases)})
+    return rows
+
+
+def _tpr_kv_bytes(plan, config, wide):
+    """(d): each card's bytes of one TPR_KV_ROWS x TPR_KV_COLUMNS cache at
+    tp against KV_local x the ranks on the card x the per-head bytes, and
+    the most loaded card's against what the backend counts per column."""
+    import torch
+    from consensus_tpu_torch.models.transformer import make_cache
+    from consensus_tpu_torch.parallel.tensor import local_config
+
+    cache = make_cache(config, TPR_KV_ROWS, TPR_KV_COLUMNS, torch.bfloat16, wide.device,
+                       params=wide.params)
+    per_card = {}
+    for block in (cache.k, cache.v):
+        for part in block.parts:
+            key = str(part.device)
+            per_card[key] = per_card.get(key, 0) + part.numel() * part.element_size()
+    per_head = 2 * config.n_layers * TPR_KV_ROWS * TPR_KV_COLUMNS * config.head_dim * 2
+    kv_local = local_config(config, plan.tp).n_kv_heads
+    ranks = {d: sum(str(x) == d for x in plan.devices[0]) for d in _plan_devices(plan)}
+    expected = {d: kv_local * n * per_head for d, n in ranks.items()}
+    counted = wide._kv_bytes_per_column() * TPR_KV_ROWS * TPR_KV_COLUMNS
+    if TPR_DEVICE == "cpu":
+        expected = {"cpu": sum(expected.values())}
+        counted *= plan.tp  # CPU ranks stand for separate devices
+    del cache
+    info = {"rows": TPR_KV_ROWS, "columns": TPR_KV_COLUMNS, "kv_heads_local": kv_local,
+            "ranks_per_card": ranks, "bytes_per_card": per_card, "expected": expected,
+            "backend_counts_per_card": counted,
+            "kv_heads_per_card": wide._kv_heads_per_card,
+            "whole_model_bytes": per_head * config.n_kv_heads,
+            "divide_by_tp_figure": per_head * config.n_kv_heads // plan.tp,
+            "replication": plan.tp * kv_local // config.n_kv_heads}
+    checks = {
+        "d_kv_bytes_per_card_eq_local_heads_x_ranks": per_card == expected,
+        "d_kv_bytes_eq_backend_accounting": max(per_card.values()) == counted,
+    }
+    return info, checks
+
+
+def _tpr_train(plan, config, on_card):
+    """(e): ``train_step`` on gemma2-2b over the tp=8 plan: the first step's
+    gradients on float32 copies of the seeded bf16 weights against one
+    device's (relative L2, TRAIN_GRAD_RTOL), then one AdamW step of the bf16
+    master at tp=8, after which the ranks that share a kv head hold
+    bit-equal ``wk``/``wv`` columns."""
+    import torch
+    from consensus_tpu_torch.models.transformer import init_params
+    from consensus_tpu_torch.parallel.mesh import shard_params
+    from consensus_tpu_torch.parallel.tensor import kv_heads_of_rank
+    from consensus_tpu_torch.parallel.train import init_train_state, shard_grads, train_step
+
+    device = plan.data_devices[0]
+    generator = torch.Generator(device=device)
+    generator.manual_seed(TRAIN_SEED)
+    params = init_params(config, generator, device, torch.bfloat16)
+    tokens = torch.randint(0, config.vocab_size, (TRAIN_ROWS, TRAIN_SEQ), generator=generator,
+                           device=device, dtype=torch.int64).to(torch.int32)
+    valid = torch.ones((TRAIN_ROWS, TRAIN_SEQ), dtype=torch.bool, device=device)
+    valid[-1, TRAIN_SEQ * 3 // 4:] = False
+    t0 = time.perf_counter()
+    wide = _float32_copy(params)
+    loss_n, grads_n = shard_grads(wide, config, tokens, valid, plan)
+    loss_1, grads_1 = shard_grads(wide, config, tokens, valid, None)
+    grad_err = _grad_rel_err(grads_n, grads_1)
+    loss_diff = abs(float(loss_n) - float(loss_1))
+    del wide, grads_n, grads_1
+    grads_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+    params, opt_state, optimizer = init_train_state(params, learning_rate=TRAIN_LR)
+    t0 = time.perf_counter()
+    params, opt_state, loss = train_step(params, opt_state, config, optimizer, tokens, valid,
+                                         plan=plan)
+    if on_card:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ranks = shard_params(params, plan, config)[0]
+    holders = {}
+    for t in range(plan.tp):
+        holders.setdefault(kv_heads_of_rank(config, plan.tp, t), []).append(t)
+    copies_equal = all(
+        torch.equal(ranks[group[0]]["layers"][i][key], ranks[t]["layers"][i][key])
+        for group in holders.values() for t in group[1:]
+        for i in range(config.n_layers) for key in ("wk", "wv"))
+    del params, optimizer, opt_state, ranks
+    if on_card:
+        torch.cuda.empty_cache()
+    info = {"rows": TRAIN_ROWS, "seq": TRAIN_SEQ, "grads_compared_in": "float32",
+            "grad_rel_l2_err": grad_err, "grad_tolerance": TRAIN_GRAD_RTOL,
+            "first_loss_tp_vs_tp1_diff": loss_diff, "step_loss": float(loss),
+            "grads_s": grads_s, "step_s": step_s,
+            "ranks_sharing_a_head": [g for g in holders.values() if len(g) > 1]}
+    checks = {
+        "e_tp_grads_match_tp1": grad_err <= TRAIN_GRAD_RTOL,
+        "e_step_loss_finite": loss == loss and abs(float(loss)) < float("inf"),
+        "e_shared_head_copies_bit_equal_after_adamw": bool(holders) and copies_equal,
+    }
+    return info, checks
+
+
+def tensor_parallel_replicated_kv():
+    """Tensor parallelism past the kv heads -> (row, launches): gemma2-2b at
+    full width and its real vocab (26 layers, int8 weights, bf16) at tp=8,
+    where each rank holds one query head and a copy of the kv head it reads.
+    The seeded weights are written in the port's checkpoint format and
+    restored straight into the 8 ranks (and whole for tp=1).  (a) K1 and K2
+    at one rank's heads on every card of the plan; (b) TPR_TOKENS-token
+    seeded generations through K2 and scored cells through K1 at tp=8
+    against tp=1, with every count zeroed just before (b) and read after
+    (c); (c) a cut best-of-N and a cut beam-search request through
+    ``create_server(mesh=plan)`` against tp=1; (d) each card's KV bytes; then one decode step's timing
+    at tp=8 against tp=1 (``_tp_step_timing``, recorded, not judged); (e)
+    the tp=8 train step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+    from consensus_tpu_torch.backends.base import GenerationRequest, ScoreRequest
+    from consensus_tpu_torch.backends.torch_backend import TorchBackend
+    from consensus_tpu_torch.evaluation import EVAL_SYSTEM_TEMPLATE
+    from consensus_tpu_torch.models.config import get_model_config
+    from consensus_tpu_torch.models.transformer import init_params
+    from consensus_tpu_torch.ops import decode_attention as da
+    from consensus_tpu_torch.ops import flash_attention as fa
+    from consensus_tpu_torch.parallel.mesh import unshard_params
+    from consensus_tpu_torch.parallel.tensor import TPParams, kv_heads_of_rank
+    from consensus_tpu_torch.utils.checkpoint import FORMAT, save_params
+
+    on_card = TPR_DEVICE == "cuda"
+    plan = _tpr_plan()
+    lead = plan.data_devices[0]
+    config = get_model_config(CHECKPOINT_MODEL, **TPR_OVERRIDES)
+    t0 = time.perf_counter()
+    phase_s = {}
+    kernels = _tpr_kernel_cases(plan, config) if on_card else []
+    phase_s["a"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="tensor_parallel_replicated_kv_", dir=OUT_DIR))
+    try:
+        generator = torch.Generator(device=lead)
+        generator.manual_seed(TPR_SEED)
+        source = init_params(config, generator, lead, torch.bfloat16, int8=True)
+        written = save_params(str(root / "params"), source)
+        (root / "ingest.json").write_text(json.dumps({
+            "format": FORMAT, "model": config.name, "quantization": "int8",
+            "dtype": "bfloat16", "source": f"init_params seed {TPR_SEED}"}))
+        del source
+        phase_s["write"] = time.perf_counter() - t1
+        options = dict(model=CHECKPOINT_MODEL, config=config, checkpoint=str(root),
+                       quantization="int8", dtype="bfloat16", use_flash_attention=True,
+                       use_decode_attention=True, pin_generation_budget=True)
+        t1 = time.perf_counter()
+        one = TorchBackend(**options, device=lead)
+        phase_s["restore_tp1"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        wide = TorchBackend(**options, mesh=plan)
+        phase_s["restore_tp8"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    hd = config.head_dim
+    def head_columns(i, key, h, device):
+        return one.params["layers"][i][key].q[:, h * hd:(h + 1) * hd].to(device)
+
+    restored_slices = isinstance(wide.params, TPParams) and wide.params.kv_heads == 1 and all(
+        torch.equal(tree["layers"][i][key].q, head_columns(i, key, h, tree["embed"].q.device))
+        for t, tree in enumerate(wide.params.ranks) for h in kv_heads_of_rank(config, plan.tp, t)
+        for i in range(config.n_layers) for key in ("wk", "wv"))
+    gathered_equal = _params_equal(unshard_params(wide.params.ranks, config, lead), one.params)
+
+    generate = [GenerationRequest(user_prompt=p, max_tokens=TPR_TOKENS, temperature=1.0,
+                                  seed=100 + i) for i, p in enumerate(CHECKPOINT_PROMPTS)]
+    score = [ScoreRequest(context=EVAL_SYSTEM_TEMPLATE.format(issue=CHECKPOINT_PROMPTS[0],
+                                                              opinion=opinion),
+                          continuation=statement, role="user")
+             for statement in CHECKPOINT_STATEMENTS for opinion in CHECKPOINT_AGENTS.values()]
+    tb = time.perf_counter()
+    runs = {}
+    b_launches = {k: 0 for k in KERNELS}
+    b_by_device = {k: {} for k in KERNELS}
+    decode_shapes = []
+    for name, backend in (("tp1", one), (f"tp{plan.tp}", wide)):
+        fa.launches.reset()
+        da.launches.reset()
+        t1 = time.perf_counter()
+        generated = backend.generate(generate)
+        if on_card:
+            torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        scored = backend.score(score)
+        if on_card:
+            torch.cuda.synchronize()
+        counters = (("flash_attention", fa.launches), ("decode_attention", da.launches))
+        runs[name] = {"generate_s": generate_s, "score_s": time.perf_counter() - t1,
+                      "generated": {_request_key(r): [(r, tuple(g.token_ids))]
+                                    for r, g in zip(generate, generated)},
+                      "logprobs": [list(r.logprobs) for r in scored],
+                      "launches": {k: c.count for k, c in counters},
+                      "launches_by_device": {k: dict(c.by_device) for k, c in counters},
+                      "flash_last_shapes": ([list(x) for x in fa.launches.last_shapes]
+                                            if fa.launches.count else None)}
+        for k, counter in counters:
+            b_launches[k] += counter.count
+            for d, n in counter.by_device.items():
+                b_by_device[k][d] = b_by_device[k].get(d, 0) + n
+        decode_shapes += [{"run": name, "q": list(q), "trunk": list(t), "tail": list(l),
+                           "launches": count}
+                          for (q, t, l), (count, _) in da.launches.shapes.items()]
+    name = f"tp{plan.tp}"
+    compare = _compare_generations(one, runs[name]["generated"], runs["tp1"]["generated"])
+    score_err = max(abs(a - b) for x, y in zip(runs[name]["logprobs"], runs["tp1"]["logprobs"])
+                    for a, b in zip(x, y))
+    phase_s["b"] = time.perf_counter() - tb
+
+    t1 = time.perf_counter()
+    scenario = yaml.safe_load((ROOT / SERVE_CONFIG).read_text())["scenario"]
+    payloads = [p for p in _serve_payloads(scenario, cut=True)
+                if p["request_id"] in TPR_SERVE_REQUESTS]
+    serve_info, serve_checks, serve_launches = _tp_serve(plan, one, wide, scenario, on_card,
+                                                         payloads)
+    phase_s["c"] = time.perf_counter() - t1
+    launches = {k: b_launches[k] + serve_launches[k] for k in KERNELS}
+    by_device = {k: dict(b_by_device[k]) for k in KERNELS}
+    for k in KERNELS:
+        for d, n in serve_info["windows"][_plan_name(plan)]["launches_by_device"][k].items():
+            by_device[k][d] = by_device[k].get(d, 0) + n
+
+    kv_info, kv_checks = _tpr_kv_bytes(plan, config, wide)
+    t1 = time.perf_counter()
+    timing = _tp_step_timing(plan, one, wide, on_card, TPR_TIMING_ROWS)
+    phase_s["timing"] = time.perf_counter() - t1
+    del one, wide
+    if on_card:
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    train_info, train_checks = _tpr_train(plan, config, on_card)
+    phase_s["e"] = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+
+    checks = {
+        "a_kernels_within_tolerance_on_every_card": all(r["ok"] for r in kernels),
+        "real_vocab_and_width": (config.vocab_size == 256128 and config.d_model == 2304
+                                 and (config.n_heads, config.n_kv_heads, hd) == (8, 4, 256)),
+        "restored_ranks_hold_their_kv_head_columns": restored_slices,
+        "gathered_ranks_eq_whole_tree": gathered_equal,
+        "b_ids_equal_or_diverge_below_margin": (
+            compare["only_one_mode"] == 0 and all(d["ok"] for d in compare["diverged"])),
+        "b_scores_within_atol": score_err <= ROUTE_ATOL,
+        "b_logprobs_finite": all(np.isfinite(lp).all() and len(lp) > 0
+                                 for run in runs.values() for lp in run["logprobs"]),
+        **serve_checks, **kv_checks, **train_checks,
+    }
+    if on_card:
+        for k in KERNELS:
+            # Every rank launches each kernel where tp=1 launches it once.
+            checks[f"b_{k}_launched_by_every_rank_on_every_card"] = (
+                runs["tp1"]["launches"][k] > 0
+                and runs[name]["launches"][k] == plan.tp * runs["tp1"]["launches"][k]
+                and all(runs[name]["launches_by_device"][k].get(d, 0) > 0
+                        for d in _plan_devices(plan)))
+    else:
+        del checks["a_kernels_within_tolerance_on_every_card"]
+    row = {
+        "phase": "tensor_parallel_replicated_kv", "model": CHECKPOINT_MODEL,
+        "n_layers": config.n_layers, "d_model": config.d_model, "vocab": config.vocab_size,
+        "heads": [config.n_heads, config.n_kv_heads, hd], "tp": plan.tp,
+        "plan": [[str(d) for d in r] for r in plan.devices],
+        "kv_heads_of_rank": [kv_heads_of_rank(config, plan.tp, t) for t in range(plan.tp)],
+        "checkpoint_bytes": written, "kernels": kernels,
+        "runs": {k: {key: v[key] for key in ("generate_s", "score_s", "launches",
+                                             "launches_by_device", "flash_last_shapes")}
+                 for k, v in runs.items()},
+        "generation_compare": compare, "max_score_logprob_diff": score_err,
+        "decode_shapes": decode_shapes, "serve": serve_info, "kv_bytes": kv_info,
+        "step_timing": timing, "train": train_info, "launches": launches, "launches_by_device": by_device,
+        "phase_s": phase_s, "wall_s": wall, "budget_s": TPR_BUDGET_S,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return row, launches
+
+
 def late_phases_alone(names) -> int:
     """``python3 chip_smoke.py sweep_path mcts_path concurrent_path
     serve_path fleet_path checkpoint_path parallel_path
-    tensor_parallel_path`` (any of them): those phases alone, for iterating
+    tensor_parallel_path tensor_parallel_replicated_kv`` (any of them):
+    those phases alone, for iterating
     on them; concurrent_path runs on mcts_path's backend, and the others
     build their own weights.  Prints their lines, no summary and no ``ok``
     line; exits 1 if a phase failed."""
     unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path",
                             "fleet_path", "checkpoint_path", "parallel_path",
-                            "tensor_parallel_path"}
+                            "tensor_parallel_path", "tensor_parallel_replicated_kv"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     rows = []
@@ -5631,7 +6005,8 @@ def late_phases_alone(names) -> int:
         rows.append(mcts[0])
         if "concurrent_path" in names:
             rows.append(concurrent_path(mcts[4])[0])
-    if {"serve_path", "fleet_path", "parallel_path", "tensor_parallel_path"} & set(names):
+    if {"serve_path", "fleet_path", "parallel_path", "tensor_parallel_path",
+            "tensor_parallel_replicated_kv"} & set(names):
         from consensus_tpu_torch.ops import build
 
         # Built here, once: the server subprocesses and this process load it.
@@ -5652,6 +6027,8 @@ def late_phases_alone(names) -> int:
         rows.append(parallel_path()[0])
     if "tensor_parallel_path" in names:
         rows.append(tensor_parallel_path()[0])
+    if "tensor_parallel_replicated_kv" in names:
+        rows.append(tensor_parallel_replicated_kv()[0])
     for row in rows:
         emit(row)
     return 0 if all(row["ok"] for row in rows) else 1
@@ -5762,6 +6139,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     emit(tp_row)
+    tpr_row, tpr_launches = tensor_parallel_replicated_kv()
+    torch.cuda.empty_cache()
+    emit(tpr_row)
     checkpoint_row, checkpoint_launches, checkpoint_shapes, checkpoint_case = checkpoint_path()
     emit(checkpoint_row)
     if checkpoint_case is None:
@@ -5776,6 +6156,7 @@ def main() -> int:
         "serve_path": serve_launches, "fleet_path": fleet_launches,
         "checkpoint_path": checkpoint_launches, "parallel_path": parallel_launches,
         "tensor_parallel_path": tp_launches,
+        "tensor_parallel_replicated_kv": tpr_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
@@ -5806,7 +6187,7 @@ def main() -> int:
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
-              serve_row, fleet_row, checkpoint_row, parallel_row, tp_row]
+              serve_row, fleet_row, checkpoint_row, parallel_row, tp_row, tpr_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

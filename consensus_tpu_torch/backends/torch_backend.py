@@ -152,7 +152,7 @@ from consensus_tpu_torch.parallel.mesh import (
     parse_mesh_spec,
     shard_params,
 )
-from consensus_tpu_torch.parallel.tensor import TPParams, check_tp, to_devices
+from consensus_tpu_torch.parallel.tensor import check_tp, local_config, to_devices, tp_group
 from consensus_tpu_torch.utils import threefry
 from consensus_tpu_torch.utils.device import resolve_device
 
@@ -212,13 +212,14 @@ def _card_shares(devices: Sequence[torch.device]) -> List[int]:
     return [names.count(n) if d.type == "cuda" else 1 for n, d in zip(names, devices)]
 
 
-def _kv_divisor(group: Sequence[torch.device]) -> int:
-    """By how much a tp group's per-card KV bytes are below the whole
-    model's: tp, divided by the most ranks any one card holds (CPU entries
-    stand for separate devices, as in :func:`_card_shares`)."""
+def _kv_heads_per_card(config: ModelConfig, group: Sequence[torch.device]) -> int:
+    """The kv heads whose KV state one card of a tp group holds: each
+    rank's kv heads (``local_config``; copies of a shared head count once
+    for every rank that holds one) times the most ranks any one card holds
+    (CPU entries stand for separate devices, as in :func:`_card_shares`)."""
     names = [str(d) for d in group if d.type == "cuda"]
     most = max([names.count(n) for n in names] or [1])
-    return max(1, len(group) // most)
+    return local_config(config, len(group)).n_kv_heads * most
 
 
 def _session_budget_for(device_budget: int) -> _SessionBudget:
@@ -447,8 +448,8 @@ class TorchBackend:
             self._shard_params = [row[0] for row in shard_params(self.params, plan)]
         else:
             self._shard_params = [
-                TPParams(ranks=tuple(trees), devices=plan.devices[d])
-                for d, trees in enumerate(shard_params(self.params, plan))
+                tp_group(trees, plan.devices[d], self.config)
+                for d, trees in enumerate(shard_params(self.params, plan, self.config))
             ]
             self.params = self._shard_params[0]
             if self.device.type == "cuda":
@@ -491,10 +492,11 @@ class TorchBackend:
         #: How many dp shards share this backend's card (a shard view's
         #: row buckets take that share of the card's budget).
         self._card_share = 1
-        #: What one card holds of the KV state: tp splits the kv heads over
-        #: the group's cards (``tpu.py:401-411``), unless a card repeats in
-        #: the group (then it holds every rank that sits on it).
-        self._kv_divisor = _kv_divisor(self._tp_devices)
+        #: The kv heads whose KV state one card holds: tp splits the kv
+        #: heads over the group's cards (``tpu.py:401-411``) where it divides
+        #: them, else each rank holds copies of the heads its query heads
+        #: read; a card that repeats in the group holds every rank on it.
+        self._kv_heads_per_card = _kv_heads_per_card(self.config, self._tp_devices)
         if self.mesh_plan is not None:
             budgets = {str(self.device): (self._device_budget, self._session_budget)}
             shares = _card_shares(self.mesh_plan.data_devices)
@@ -533,8 +535,8 @@ class TorchBackend:
         params_dir = str(pathlib.Path(checkpoint) / "params")
         if plan is None:
             return restore_params(params_dir, self.device)
-        shardings = param_shardings(checkpoint_template(params_dir), plan)
-        return [TPParams(ranks=tuple(row), devices=plan.devices[d])
+        shardings = param_shardings(checkpoint_template(params_dir), plan, self.config)
+        return [tp_group(row, plan.devices[d], self.config)
                 for d, row in enumerate(restore_params(params_dir, shardings=shardings))]
 
     # -- data-parallel shards ------------------------------------------------
@@ -643,7 +645,7 @@ class TorchBackend:
             1.25 if self.kv_quant else torch.finfo(params_dtype(self.params)).bits // 8
         )
         bytes_per_token = (
-            int(2 * c.n_layers * c.n_kv_heads * c.head_dim * kv_itemsize) // self._kv_divisor or 1
+            int(2 * c.n_layers * self._kv_heads_per_card * c.head_dim * kv_itemsize) or 1
         )
         return max(64, (self._session_budget.cap // 2) // (bytes_per_token * page_size))
 
@@ -783,7 +785,7 @@ class TorchBackend:
     def _kv_bytes_per_column(self) -> int:
         c = self.config
         itemsize = torch.finfo(params_dtype(self.params)).bits // 8
-        return 2 * c.n_layers * c.n_kv_heads * c.head_dim * itemsize // self._kv_divisor
+        return 2 * c.n_layers * self._kv_heads_per_card * c.head_dim * itemsize
 
     def _generate_rows_allowed(self, prompt_width: int, max_new: int) -> int:
         """Rows of a monolithic decode: a cache of ``prompt_width + max_new``
@@ -1407,9 +1409,9 @@ class TorchBackend:
                 max_blocks = max(max_blocks, n_pages + n_private)
 
         dtype = params_dtype(self.params)
-        page_bytes = c.n_layers * ps * c.n_kv_heads * c.head_dim * 2 * (
+        page_bytes = c.n_layers * ps * self._kv_heads_per_card * c.head_dim * 2 * (
             torch.finfo(dtype).bits // 8
-        ) // self._kv_divisor
+        )
 
         def pool_bytes(n_rows: int) -> int:
             return (shared_total + n_rows * max_private + 1) * page_bytes
@@ -2075,7 +2077,7 @@ class TorchTokenSearchSession:
         # trunk+tail scratch copy (stepper._scratch_cache).
         cache_bytes = (
             2 * c.n_layers * (self.n_roles * self._w0 + n_rows * spec.max_steps)
-            * c.n_kv_heads * c.head_dim * itemsize // backend._kv_divisor
+            * backend._kv_heads_per_card * c.head_dim * itemsize
         )
         if spec.n_slots == 1:
             cache_bytes *= 2
@@ -2381,8 +2383,8 @@ class TorchTokenSearchSession:
         c = self.backend.config
         itemsize = torch.finfo(params_dtype(self.backend.params)).bits // 8
         per_path = (
-            2 * c.n_layers * self.n_roles * (span + depth) * c.n_kv_heads * c.head_dim * itemsize
-            // self.backend._kv_divisor
+            2 * c.n_layers * self.n_roles * (span + depth) * self.backend._kv_heads_per_card
+            * c.head_dim * itemsize
         )
         return max(1, int((self._budget_bytes // 8) // max(per_path, 1)))
 

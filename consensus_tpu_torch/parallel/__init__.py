@@ -14,8 +14,10 @@ from consensus_tpu_torch.parallel.tensor import (
     all_reduce,
     check_tp,
     gather_vocab,
+    kv_heads_of_rank,
     local_config,
     replicate,
+    tp_group,
     tp_params,
 )
 from consensus_tpu_torch.parallel.mesh import (
@@ -28,6 +30,7 @@ from consensus_tpu_torch.parallel.mesh import (
     parse_mesh_spec,
     shard_batch,
     shard_params,
+    unshard_params,
 )
 
 #: The train step imports the transformer, which imports this package's
@@ -52,6 +55,7 @@ __all__ = [
     "batch_sharding",
     "check_tp",
     "gather_vocab",
+    "kv_heads_of_rank",
     "local_config",
     "make_mesh",
     "match_partition_rules",
@@ -60,7 +64,9 @@ __all__ = [
     "replicate",
     "shard_batch",
     "shard_params",
+    "tp_group",
     "tp_params",
+    "unshard_params",
     "train_step",
     "init_train_state",
     "lm_loss",

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from consensus_tpu_torch.models.config import ModelConfig
 from consensus_tpu_torch.models.quant import QTensor
 
 DATA_AXIS = "data"
@@ -203,19 +204,28 @@ def _numel(shape: Tuple[int, ...]) -> int:
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """Where each piece of one tensor lives on a mesh: a spec over its axes.
-    ``index(shape, d, t)`` is the slice of the tensor that grid position
+    ``index(shape, d, t)`` is the piece of the tensor that grid position
     ``(d, t)`` holds (a dim named ``model`` splits evenly over tp; ``data``
-    over dp; None replicates)."""
+    over dp; None replicates).  With ``heads`` the ``model`` dim is instead
+    a row of ``head_dim``-wide heads and tp rank t holds heads
+    ``heads[t]`` (``tensor.kv_heads_of_rank``: a head may repeat across
+    ranks and within one); the piece is then a slice where those heads are
+    contiguous and a list of columns where they are not."""
 
     plan: MeshPlan
     spec: P
+    heads: Optional[Tuple[Tuple[int, ...], ...]] = None
+    head_dim: int = 0
 
-    def index(self, shape: Sequence[int], d: int, t: int) -> Tuple[slice, ...]:
-        out = []
+    def index(self, shape: Sequence[int], d: int, t: int) -> Tuple[Union[slice, List[int]], ...]:
+        out: List[Union[slice, List[int]]] = []
         for dim, axis in enumerate(tuple(self.spec) + (None,) * (len(shape) - len(self.spec))):
             size = int(shape[dim])
             if axis is None:
                 out.append(slice(None))
+                continue
+            if axis == MODEL_AXIS and self.heads is not None:
+                out.append(_head_columns(self.heads[t], self.head_dim))
                 continue
             parts, at = (self.plan.tp, t) if axis == MODEL_AXIS else (self.plan.dp, d)
             if size % parts:
@@ -227,32 +237,73 @@ class NamedSharding:
         return tuple(out)
 
 
-def _leaf_sharding(leaf: Any, spec: P, plan: MeshPlan) -> Any:
+def _head_columns(heads: Sequence[int], head_dim: int) -> Union[slice, List[int]]:
+    """The columns of ``heads`` (each ``head_dim`` wide), in order: a slice
+    where the heads are consecutive, else the column list."""
+    heads = list(heads)
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return slice(heads[0] * head_dim, (heads[-1] + 1) * head_dim)
+    return [h * head_dim + j for h in heads for j in range(head_dim)]
+
+
+def _leaf_sharding(leaf: Any, spec: P, plan: MeshPlan, heads=None, head_dim: int = 0) -> Any:
     """Sharding of one leaf (``mesh.py:151-172``).  A QTensor's ``q`` shards
     as the full-precision weight; its ``scale`` keeps the weight's rank
     with the contraction axis at extent 1, so it takes the weight's spec
     with None on every size-1 axis (wo/w_down split their input features,
     whose per-output-channel scales replicate)."""
     if isinstance(leaf, QTensor):
-        axes = tuple(spec) + (None,) * (leaf.scale.ndim - len(spec))
-        scale_spec = P(*[None if dim == 1 else axis for axis, dim in zip(axes, leaf.scale.shape)])
         return QTensor(
-            q=NamedSharding(plan, spec),
-            scale=NamedSharding(plan, scale_spec),
+            q=NamedSharding(plan, spec, heads, head_dim),
+            scale=NamedSharding(plan, _scale_spec(leaf, spec), heads, head_dim),
             compute_dtype=leaf.compute_dtype,
         )
-    return NamedSharding(plan, spec)
+    return NamedSharding(plan, spec, heads, head_dim)
 
 
-def param_shardings(params: Dict[str, Any], plan: MeshPlan) -> Dict[str, Any]:
+def _scale_spec(leaf: QTensor, spec: P) -> P:
+    """The spec of an int8 weight's scale: the weight's, with None on every
+    size-1 axis."""
+    axes = tuple(spec) + (None,) * (leaf.scale.ndim - len(spec))
+    return P(*[None if dim == 1 else axis for axis, dim in zip(axes, leaf.scale.shape)])
+
+
+#: The layer leaves whose ``model`` columns are kv heads.
+KV_PROJECTIONS = ("wk", "wv")
+
+
+def _kv_heads(config: Optional[ModelConfig], tp: int):
+    """Per tp rank, the kv heads its ``wk``/``wv`` columns hold, where tp
+    does not divide the kv heads (None where it does: the even split)."""
+    if config is None or tp == 1 or config.n_kv_heads % tp == 0:
+        return None
+    from consensus_tpu_torch.parallel.tensor import kv_heads_of_rank
+
+    return tuple(kv_heads_of_rank(config, tp, t) for t in range(tp))
+
+
+def param_shardings(params: Dict[str, Any], plan: MeshPlan,
+                    config: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """A :class:`NamedSharding` (or a QTensor of two) per leaf of ``params``,
-    resolved through :data:`PARTITION_RULES` (``mesh.py:175-190``)."""
+    resolved through :data:`PARTITION_RULES` (``mesh.py:175-190``).  Where
+    tp does not divide the model's kv heads, ``config`` is required: each
+    rank's ``wk``/``wv`` columns (and their int8 scales) are then copies of
+    the kv heads its query heads read (``tensor.kv_heads_of_rank``), where
+    GSPMD splits them and gathers K and V."""
+    if config is not None:
+        from consensus_tpu_torch.parallel.tensor import check_tp
+
+        check_tp(config, plan.tp)
     specs = match_partition_rules(params)
+    kv_heads = _kv_heads(config, plan.tp)
+    hd = config.head_dim if config is not None else 0
     out: Dict[str, Any] = {}
     for name, value in params.items():
         if name == "layers":
             out[name] = [
-                {key: _leaf_sharding(leaf, specs["layers"][i][key], plan) for key, leaf in layer.items()}
+                {key: _leaf_sharding(leaf, specs["layers"][i][key], plan,
+                                     *((kv_heads, hd) if key in KV_PROJECTIONS else ()))
+                 for key, leaf in layer.items()}
                 for i, layer in enumerate(value)
             ]
         else:
@@ -298,17 +349,27 @@ def _place(tensor: torch.Tensor, sharding: NamedSharding, d: int, t: int, device
     itself where it already lies whole there, else a contiguous copy (a
     slice never keeps the whole tensor alive)."""
     index = sharding.index(tensor.shape, d, t)
-    if all(part == slice(None) for part in index):
+    if all(isinstance(part, slice) and part == slice(None) for part in index):
         return tensor.to(device)
+    columns = [(dim, part) for dim, part in enumerate(index) if isinstance(part, list)]
+    if columns:
+        # Heads repeated within a rank: a gather, which copies (and which
+        # autograd differentiates); a kv projection splits no other axis.
+        (dim, part), = columns
+        picked = torch.index_select(tensor, dim, torch.tensor(part, device=tensor.device))
+        return picked.to(device).contiguous()
     return tensor[index].to(device, copy=True).contiguous()
 
 
-def shard_params(params: Dict[str, Any], plan: MeshPlan) -> List[List[Dict[str, Any]]]:
+def shard_params(params: Dict[str, Any], plan: MeshPlan,
+                 config: Optional[ModelConfig] = None) -> List[List[Dict[str, Any]]]:
     """One parameter tree per grid position, ``trees[d][t]`` on
     ``plan.devices[d][t]`` (``mesh.py:230``).  dp shards are replicas: a
     device that repeats in the grid gets the same tree, and a leaf already
-    on its device is not copied.  tp shards hold the Megatron slices."""
-    shardings = param_shardings(params, plan)
+    on its device is not copied.  tp shards hold the Megatron slices; where
+    tp does not divide the kv heads, ``config`` places each rank's copies of
+    its kv heads' ``wk``/``wv`` columns (:func:`param_shardings`)."""
+    shardings = param_shardings(params, plan, config)
     trees: List[List[Dict[str, Any]]] = []
     made: Dict[Tuple[str, int], Dict[str, Any]] = {}
 
@@ -339,6 +400,53 @@ def shard_params(params: Dict[str, Any], plan: MeshPlan) -> List[List[Dict[str, 
                 made[key] = tree
             trees[-1].append(made[key])
     return trees
+
+
+def unshard_params(trees: Sequence[Dict[str, Any]], config: ModelConfig,
+                   device: Union[str, torch.device, None] = None) -> Dict[str, Any]:
+    """The whole parameter tree of one tp row's slice trees (``trees[t]``,
+    rank t's, as :func:`shard_params` or a sharded ``restore_params`` gives
+    them), on ``device`` (default: rank 0's): a ``model``-split leaf is its
+    ranks' pieces concatenated, and a kv projection whose heads repeat
+    across ranks takes one copy of each head."""
+    specs = match_partition_rules(trees[0])
+    kv_heads = _kv_heads(config, len(trees))
+    hd = config.head_dim
+
+    def whole(pieces: List[torch.Tensor], spec: P, heads) -> torch.Tensor:
+        target = device if device is not None else pieces[0].device
+        if MODEL_AXIS not in tuple(spec):
+            return pieces[0].to(target)
+        dim = tuple(spec).index(MODEL_AXIS)
+        if heads is None:
+            return torch.cat([x.to(target) for x in pieces], dim=dim)
+        first = {}
+        for t, local in enumerate(heads):
+            for i, head in enumerate(local):
+                first.setdefault(head, (t, i))
+        return torch.cat([pieces[t].narrow(dim, i * hd, hd).to(target)
+                          for _, (t, i) in sorted(first.items())], dim=dim)
+
+    def leaf(pieces: List[Any], spec: P, heads) -> Any:
+        if isinstance(pieces[0], QTensor):
+            return QTensor(q=whole([x.q for x in pieces], spec, heads),
+                           scale=whole([x.scale for x in pieces], _scale_spec(pieces[0], spec),
+                                       heads),
+                           compute_dtype=pieces[0].compute_dtype)
+        return whole(pieces, spec, heads)
+
+    out: Dict[str, Any] = {}
+    for name, value in trees[0].items():
+        if name == "layers":
+            out[name] = [
+                {key: leaf([tree["layers"][i][key] for tree in trees], specs["layers"][i][key],
+                           kv_heads if key in KV_PROJECTIONS else None)
+                 for key in layer}
+                for i, layer in enumerate(value)
+            ]
+        else:
+            out[name] = leaf([tree[name] for tree in trees], specs[name], None)
+    return out
 
 
 def batch_sharding(plan: MeshPlan) -> NamedSharding:

@@ -12,7 +12,10 @@ on full-vocab tensors, so no logic above the model layer changes.
 * Activations between layers are replicated: a list with one tensor per
   rank, bit-identical, since every collective sums in rank order.
 * KV state (caches, tails, page pools) is :class:`Ranked`: one contiguous
-  tensor per rank with that rank's ``n_kv_heads / tp`` heads.  Indexing,
+  tensor per rank with the kv heads that rank's query heads read
+  (:func:`kv_heads_of_rank`: ``n_kv_heads / tp`` of them where tp divides
+  the kv heads, else copies of a shared head, each computed from the
+  rank's own copy of its ``wk``/``wv`` columns).  Indexing,
   torch functions, tensor methods and arithmetic map over the ranks, so the
   cache bookkeeping (beam reorders, compaction, concatenation, int8
   quantization) runs unchanged on it; a plain tensor among the arguments is
@@ -78,22 +81,51 @@ def replicate(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Te
 
 def check_tp(config: ModelConfig, tp: int) -> None:
     """Raise ``ValueError`` naming the first count that ``tp`` does not
-    divide: heads, kv heads, FFN width or vocab."""
+    divide: query heads, FFN width or vocab.  The kv heads need not divide
+    (:func:`kv_heads_of_rank`)."""
     if tp < 1:
         raise ValueError(f"tp={tp} must be >= 1")
-    for name in ("n_heads", "n_kv_heads", "ffn_hidden", "vocab_size"):
+    if config.n_heads % tp:
+        raise ValueError(
+            f"tp={tp} does not divide n_heads={config.n_heads} of {config.name}: a rank "
+            "would hold part of a query head (tensor parallelism that splits a query "
+            "head is ROADMAP.md queue A's open item)"
+        )
+    for name in ("ffn_hidden", "vocab_size"):
         value = getattr(config, name)
         if value % tp:
             raise ValueError(
                 f"tp={tp} does not divide {name}={value} of {config.name}: "
-                "a tensor-parallel rank holds whole heads and equal slices"
+                "a tensor-parallel rank holds equal slices"
             )
+
+
+def kv_heads_of_rank(config: ModelConfig, tp: int, rank: int) -> Tuple[int, ...]:
+    """The kv heads rank ``rank`` holds, in its local order.  Its query
+    heads are ``[rank * Hl, (rank + 1) * Hl)`` with ``Hl = n_heads / tp``;
+    a query head ``q`` reads kv head ``q // (n_heads / n_kv_heads)``.
+
+    * tp divides the kv heads: ``n_kv_heads / tp`` whole groups, contiguous.
+    * the kv heads divide tp: one head, ``rank // (tp / n_kv_heads)``; its
+      query heads lie in its group.
+    * otherwise the rank's query heads straddle groups: one kv copy per
+      query head (``Hl`` of them), so the rank runs plain multi-head
+      attention."""
+    check_tp(config, tp)
+    heads, kv = config.n_heads, config.n_kv_heads
+    if kv % tp == 0:
+        per = kv // tp
+        return tuple(range(rank * per, (rank + 1) * per))
+    if tp % kv == 0:
+        return (rank // (tp // kv),)
+    local, group = heads // tp, heads // kv
+    return tuple((rank * local + i) // group for i in range(local))
 
 
 @functools.lru_cache(maxsize=None)
 def local_config(config: ModelConfig, tp: int) -> ModelConfig:
-    """The config one rank computes with: ``n_heads / tp`` query and
-    ``n_kv_heads / tp`` kv heads (contiguous blocks keep GQA groups whole),
+    """The config one rank computes with: ``n_heads / tp`` query heads, the
+    kv heads of :func:`kv_heads_of_rank` (the same count on every rank),
     ``ffn_hidden / tp`` FFN columns and ``vocab_size / tp`` vocab rows."""
     check_tp(config, tp)
     if tp == 1:
@@ -101,7 +133,7 @@ def local_config(config: ModelConfig, tp: int) -> ModelConfig:
     return dataclasses.replace(
         config,
         n_heads=config.n_heads // tp,
-        n_kv_heads=config.n_kv_heads // tp,
+        n_kv_heads=len(kv_heads_of_rank(config, tp, 0)),
         ffn_hidden=config.ffn_hidden // tp,
         vocab_size=config.vocab_size // tp,
     )
@@ -115,6 +147,9 @@ class TPParams:
 
     ranks: Tuple[Dict[str, Any], ...]
     devices: Tuple[torch.device, ...]
+    #: Each rank's kv-head count (``local_config(...).n_kv_heads``); None
+    #: stands for ``n_kv_heads / tp``.
+    kv_heads: Optional[int] = None
 
     @property
     def tp(self) -> int:
@@ -133,9 +168,17 @@ def tp_params(params: Dict[str, Any], config: ModelConfig,
     from consensus_tpu_torch.parallel.mesh import MeshPlan, shard_params
 
     devices = tuple(torch.device(d) for d in devices)
-    check_tp(config, len(devices))
-    trees = shard_params(params, MeshPlan(devices=(devices,)))[0]
-    return TPParams(ranks=tuple(trees), devices=devices)
+    trees = shard_params(params, MeshPlan(devices=(devices,)), config)[0]
+    return tp_group(trees, devices, config)
+
+
+def tp_group(trees: Sequence[Dict[str, Any]], devices: Sequence[torch.device],
+             config: ModelConfig) -> TPParams:
+    """A :class:`TPParams` of one tp row's slice trees (from ``shard_params``
+    or a sharded ``restore_params``)."""
+    tp = len(trees)
+    return TPParams(ranks=tuple(trees), devices=tuple(devices),
+                    kv_heads=local_config(config, tp).n_kv_heads)
 
 
 def is_tp(params: Any) -> bool:
@@ -290,12 +333,20 @@ class Ranked:
 def kv_zeros(params: Any, shape: Sequence[int], dtype: torch.dtype, device) -> Any:
     """Zeros for KV state of the full-model ``shape`` whose axis -2 is the
     kv-head axis (values (..., KV, hd), int8 scales (..., KV, 1)): a plain
-    tensor for a tp=1 model, else a :class:`Ranked` of ``KV / tp`` heads per
-    rank, each contiguous on its rank's card."""
+    tensor for a tp=1 model, else a :class:`Ranked` of each rank's kv heads
+    (``params.kv_heads``), each contiguous on its rank's card."""
     if not is_tp(params):
         return torch.zeros(tuple(shape), dtype=dtype, device=device)
     local = list(shape)
-    local[-2] //= params.tp
+    if params.kv_heads is not None:
+        local[-2] = params.kv_heads
+    elif local[-2] % params.tp:
+        raise ValueError(
+            f"{local[-2]} kv heads do not split {params.tp} ways: build the TPParams "
+            "with tp_group(), which records each rank's kv-head count"
+        )
+    else:
+        local[-2] //= params.tp
     return Ranked([torch.zeros(local, dtype=dtype, device=d) for d in params.devices])
 
 

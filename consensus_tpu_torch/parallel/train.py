@@ -33,7 +33,7 @@ from consensus_tpu_torch.models.config import ModelConfig
 from consensus_tpu_torch.models.quant import QTensor
 from consensus_tpu_torch.models.transformer import forward
 from consensus_tpu_torch.parallel.mesh import MeshPlan, shard_params
-from consensus_tpu_torch.parallel.tensor import TPParams
+from consensus_tpu_torch.parallel.tensor import tp_group
 
 Params = Dict[str, Any]
 
@@ -101,7 +101,9 @@ def shard_grads(
     are summed once each onto the master's devices.  At tp > 1 a shard's
     replica is its row's slices, and the gradients are taken through the
     placement, so they come back whole: a sharded leaf's in its slice, a
-    replicated leaf's summed over its copies."""
+    replicated leaf's summed over its copies, and a kv head that several
+    ranks hold copies of (tp not dividing the kv heads) gets the sum of its
+    copies' gradients in its columns."""
     dp = plan.dp if plan is not None else 1
     tp = plan.tp if plan is not None else 1
     if tokens.shape[0] % dp:
@@ -112,12 +114,11 @@ def shard_grads(
     mask_count = torch.clamp((valid[:, :-1] & valid[:, 1:]).to(torch.float32).sum(), min=1.0)
     master = _leaves(params)
     with torch.enable_grad():
-        placed = shard_params(params, plan)
+        placed = shard_params(params, plan, config)
     if tp == 1:
         replicas = [row[0] for row in placed]
     else:
-        replicas = [TPParams(ranks=tuple(row), devices=plan.devices[d])
-                    for d, row in enumerate(placed)]
+        replicas = [tp_group(row, plan.devices[d], config) for d, row in enumerate(placed)]
     block = tokens.shape[0] // dp
 
     def one_shard(s: int):

@@ -251,9 +251,25 @@ def _drain(stream):
             for i in range(len(results))], windows
 
 
+def _with_settled_lengths(prefill_chunk):
+    """``paged_prefill_chunk`` handed a NumPy copy of its ``lengths``
+    argument.  ``TPUBackend.generate_stream`` rewrites one NumPy ``lengths``
+    buffer chunk after chunk and passes ``jnp.asarray`` of it; on the CPU
+    that array aliases the buffer whenever it is 64-byte aligned, and under
+    async dispatch a chunk that has not run yet reads the NEXT chunk's
+    lengths (the stream's tokens then follow the machine's load)."""
+    def call(params, config, tokens, valid, state, tables, lengths, *args, **kwargs):
+        lengths = jnp.asarray(np.array(lengths, copy=True))
+        return prefill_chunk(params, config, tokens, valid, state, tables, lengths,
+                             *args, **kwargs)
+    return call
+
+
 @pytest.fixture(scope="module")
 def jax_stream(backends):
-    return _drain(backends[0].generate_stream(_requests(JaxRequest), decode_steps=4))[0]
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jstep, "paged_prefill_chunk", _with_settled_lengths(jstep.paged_prefill_chunk))
+        return _drain(backends[0].generate_stream(_requests(JaxRequest), decode_steps=4))[0]
 
 
 @pytest.mark.parametrize("k", [1, 4, 8])
