@@ -4,7 +4,7 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py sweep_path mcts_path concurrent_path serve_path
 fleet_path checkpoint_path parallel_path tensor_parallel_path
-tensor_parallel_replicated_kv`` runs any of
+tensor_parallel_replicated_kv tensor_parallel_split_heads`` runs any of
 those late phases alone, with no summary and no ``ok`` line; parallel_path
 alone also runs the kernels' per-card cases).  Phases, one JSON
 line each; any failure exits non-zero:
@@ -237,6 +237,17 @@ line each; any failure exits non-zero:
    device-busy ms at tp=8 against tp=1, recorded; (e) one ``train_step`` at tp=8
    (2 x 256 tokens): float32 gradients within 2e-2 of tp=1's, and the
    ranks that share a kv head bit-equal after the AdamW step.
+22. ``tensor_parallel_split_heads`` -- tensor parallelism that cuts a query
+   head: the same model, weights and steps (a)-(e) as phase 21 at tp=16,
+   cuda:0 sixteen times with one card, cuda:0-3 four times each with
+   four.  Rank t owns half of query head t // 2's columns, holds a copy of
+   that head's ``wq`` columns and of its kv head's ``wk``/``wv`` columns,
+   runs K1 and K2 on that whole head (1 q / 1 kv, hd 256) and keeps its own
+   half of the output for its ``wo`` rows.  Beyond phase 21's checks: the
+   restored ranks hold their query head's ``wq`` columns, each kernel is
+   launched 16x tp=1's count, and the two ranks that share a query head
+   hold bit-equal ``wq`` copies after the AdamW step; weight bytes per
+   card are recorded.
 
 Then a ``{"kernels": [...]}`` summary line (each kernel timed at the shapes
 and spans its path gave it), the nvidia-smi line, and last
@@ -5660,25 +5671,42 @@ TPR_TIMING_ROWS = (8,)
 #: The phase's own time budget on one card, reported beside its wall.
 TPR_BUDGET_S = 120.0
 
+#: tensor_parallel_split_heads: gemma2-2b at tp=16, so rank t owns half of
+#: query head t // 2's columns, holds a copy of that head and of its kv
+#: head, and keeps its own half of the head's output.  The plan is cuda:0
+#: sixteen times on one card, cuda:0-3 four times each on four; TPS_DEVICE
+#: "cpu" rehearses it on CPU ranks, cut by TPS_OVERRIDES.  Its other
+#: settings are tensor_parallel_replicated_kv's.
+TPS_DEVICE = "cuda"
+TPS_OVERRIDES = {}
+TPS_TP = 16
+TPS_BUDGET_S = 150.0
 
-def _tpr_plan():
+
+def _tpr_plan(device=None, tp=None):
     from consensus_tpu_torch.parallel.mesh import make_mesh
 
-    if TPR_DEVICE == "cpu":
-        return make_mesh(["cpu"] * TPR_TP, tp=TPR_TP)
+    device, tp = device or TPR_DEVICE, tp or TPR_TP
+    if device == "cpu":
+        return make_mesh(["cpu"] * tp, tp=tp)
     import torch
 
     cards = 4 if torch.cuda.device_count() >= 4 else 1
-    return make_mesh([f"cuda:{i * cards // TPR_TP}" for i in range(TPR_TP)], tp=TPR_TP)
+    return make_mesh([f"cuda:{i * cards // tp}" for i in range(tp)], tp=tp)
 
 
 def _tpr_kernel_cases(plan, config):
     """(a): K1 (scoring, B=8, S=384 ragged) and K2 (classic generation rows,
-    P=1, R=8, W0=128, Ts=32, write column 31) at one tp=8 rank's heads
-    (1 q / 1 kv, hd 256, softcap 50) on every card of the plan."""
+    P=1, R=8, W0=128, Ts=32, write column 31) at one rank's heads of the
+    plan (gemma2-2b at tp=8 or 16: 1 q / 1 kv, hd 256, softcap 50) on
+    every card of the plan."""
     import numpy as np
     import torch
+    from consensus_tpu_torch.parallel.tensor import local_config
 
+    local = local_config(config, plan.tp)
+    heads = [local.n_heads, local.n_kv_heads, config.head_dim]
+    label = f"{heads[0]} q / {heads[1]} kv heads"
     rng = np.random.default_rng(14)
     rows = []
     for device in _plan_devices(plan):
@@ -5687,19 +5715,19 @@ def _tpr_kernel_cases(plan, config):
         kw = dict(scale=config.q_scale, softcap=config.attn_softcap, window=config.sliding_window)
         with torch.cuda.device(index):
             cases = [
-                flash_case(f"gemma2-2b scoring, 1 q / 1 kv heads, {tag}", 8, 384, 1, 1, 256,
+                flash_case(f"gemma2-2b scoring, {label}, {tag}", 8, 384, *heads,
                            ragged(rng, 8, 384, 96), [0] * 8, seed=140 + index, **kw),
-                decode_case(f"gemma2-2b generation, 1 q / 1 kv heads, {tag}", 1, 8, 1, 1, 256,
+                decode_case(f"gemma2-2b generation, {label}, {tag}", 1, 8, *heads,
                             128, 32, [64, 40, 72, 52, 90, 90, 90, 90], 31, seed=144 + index,
                             **kw),
             ]
-        rows.append({"device": device, "heads": [1, 1, 256],
+        rows.append({"device": device, "heads": heads,
                      "flash_attention": cases[:1], "decode_attention": cases[1:],
                      "ok": all(c["ok"] for c in cases)})
     return rows
 
 
-def _tpr_kv_bytes(plan, config, wide):
+def _tpr_kv_bytes(plan, config, wide, on_card=True):
     """(d): each card's bytes of one TPR_KV_ROWS x TPR_KV_COLUMNS cache at
     tp against KV_local x the ranks on the card x the per-head bytes, and
     the most loaded card's against what the backend counts per column."""
@@ -5719,7 +5747,7 @@ def _tpr_kv_bytes(plan, config, wide):
     ranks = {d: sum(str(x) == d for x in plan.devices[0]) for d in _plan_devices(plan)}
     expected = {d: kv_local * n * per_head for d, n in ranks.items()}
     counted = wide._kv_bytes_per_column() * TPR_KV_ROWS * TPR_KV_COLUMNS
-    if TPR_DEVICE == "cpu":
+    if not on_card:
         expected = {"cpu": sum(expected.values())}
         counted *= plan.tp  # CPU ranks stand for separate devices
     del cache
@@ -5737,16 +5765,30 @@ def _tpr_kv_bytes(plan, config, wide):
     return info, checks
 
 
+def _head_holders(config, tp):
+    """Per head projection (``wq``, ``wk``, ``wv``), the groups of ranks
+    that hold the same heads of it: copies that must stay bit-equal."""
+    from consensus_tpu_torch.parallel.tensor import kv_heads_of_rank, q_heads_of_rank
+
+    holders = {}
+    for key, heads_of in (("wq", q_heads_of_rank), ("wk", kv_heads_of_rank),
+                          ("wv", kv_heads_of_rank)):
+        groups = {}
+        for t in range(tp):
+            groups.setdefault(heads_of(config, tp, t), []).append(t)
+        holders[key] = [g for g in groups.values() if len(g) > 1]
+    return holders
+
+
 def _tpr_train(plan, config, on_card):
-    """(e): ``train_step`` on gemma2-2b over the tp=8 plan: the first step's
+    """(e): ``train_step`` on gemma2-2b over the plan: the first step's
     gradients on float32 copies of the seeded bf16 weights against one
     device's (relative L2, TRAIN_GRAD_RTOL), then one AdamW step of the bf16
-    master at tp=8, after which the ranks that share a kv head hold
-    bit-equal ``wk``/``wv`` columns."""
+    master at tp, after which the ranks that share a head hold bit-equal
+    copies of its ``wq`` (split query heads) and ``wk``/``wv`` columns."""
     import torch
     from consensus_tpu_torch.models.transformer import init_params
     from consensus_tpu_torch.parallel.mesh import shard_params
-    from consensus_tpu_torch.parallel.tensor import kv_heads_of_rank
     from consensus_tpu_torch.parallel.train import init_train_state, shard_grads, train_step
 
     device = plan.data_devices[0]
@@ -5776,13 +5818,15 @@ def _tpr_train(plan, config, on_card):
     step_s = time.perf_counter() - t0
     with torch.no_grad():
         ranks = shard_params(params, plan, config)[0]
-    holders = {}
-    for t in range(plan.tp):
-        holders.setdefault(kv_heads_of_rank(config, plan.tp, t), []).append(t)
-    copies_equal = all(
-        torch.equal(ranks[group[0]]["layers"][i][key], ranks[t]["layers"][i][key])
-        for group in holders.values() for t in group[1:]
-        for i in range(config.n_layers) for key in ("wk", "wv"))
+    holders = _head_holders(config, plan.tp)
+
+    def copies_equal(keys):
+        return all(
+            torch.equal(ranks[group[0]]["layers"][i][key], ranks[t]["layers"][i][key])
+            for key in keys for group in holders[key] for t in group[1:]
+            for i in range(config.n_layers))
+
+    kv_equal, q_equal = copies_equal(("wk", "wv")), copies_equal(("wq",))
     del params, optimizer, opt_state, ranks
     if on_card:
         torch.cuda.empty_cache()
@@ -5790,28 +5834,50 @@ def _tpr_train(plan, config, on_card):
             "grad_rel_l2_err": grad_err, "grad_tolerance": TRAIN_GRAD_RTOL,
             "first_loss_tp_vs_tp1_diff": loss_diff, "step_loss": float(loss),
             "grads_s": grads_s, "step_s": step_s,
-            "ranks_sharing_a_head": [g for g in holders.values() if len(g) > 1]}
+            "ranks_sharing_a_head": holders["wk"],
+            "ranks_sharing_a_query_head": holders["wq"]}
     checks = {
         "e_tp_grads_match_tp1": grad_err <= TRAIN_GRAD_RTOL,
         "e_step_loss_finite": loss == loss and abs(float(loss)) < float("inf"),
-        "e_shared_head_copies_bit_equal_after_adamw": bool(holders) and copies_equal,
+        "e_shared_head_copies_bit_equal_after_adamw": bool(holders["wk"]) and kv_equal,
     }
+    if config.n_heads % plan.tp:
+        checks["e_shared_query_head_copies_bit_equal_after_adamw"] = (
+            bool(holders["wq"]) and q_equal)
     return info, checks
 
 
 def tensor_parallel_replicated_kv():
     """Tensor parallelism past the kv heads -> (row, launches): gemma2-2b at
     full width and its real vocab (26 layers, int8 weights, bf16) at tp=8,
-    where each rank holds one query head and a copy of the kv head it reads.
-    The seeded weights are written in the port's checkpoint format and
-    restored straight into the 8 ranks (and whole for tp=1).  (a) K1 and K2
-    at one rank's heads on every card of the plan; (b) TPR_TOKENS-token
-    seeded generations through K2 and scored cells through K1 at tp=8
-    against tp=1, with every count zeroed just before (b) and read after
-    (c); (c) a cut best-of-N and a cut beam-search request through
-    ``create_server(mesh=plan)`` against tp=1; (d) each card's KV bytes; then one decode step's timing
-    at tp=8 against tp=1 (``_tp_step_timing``, recorded, not judged); (e)
-    the tp=8 train step."""
+    where each rank holds one query head and a copy of the kv head it reads
+    (:func:`_tp_head_copies`)."""
+    return _tp_head_copies("tensor_parallel_replicated_kv", TPR_DEVICE, TPR_OVERRIDES, TPR_TP,
+                           TPR_BUDGET_S)
+
+
+def tensor_parallel_split_heads():
+    """Tensor parallelism that cuts a query head -> (row, launches):
+    gemma2-2b at full width and its real vocab at tp=16, where each rank
+    owns half of one query head's columns, holds a copy of that head and
+    of its kv head, and keeps its own half of the head's output
+    (:func:`_tp_head_copies`)."""
+    return _tp_head_copies("tensor_parallel_split_heads", TPS_DEVICE, TPS_OVERRIDES, TPS_TP,
+                           TPS_BUDGET_S)
+
+
+def _tp_head_copies(phase, device, overrides, tp, budget_s):
+    """One tensor-parallel phase whose ranks hold copies of shared heads
+    -> (row, launches).  The seeded weights are written in the port's
+    checkpoint format and restored straight into the tp ranks (and whole
+    for tp=1).  (a) K1 and K2 at one rank's heads on every card of the
+    plan; (b) TPR_TOKENS-token seeded generations through K2 and scored
+    cells through K1 at tp against tp=1, with every count zeroed just
+    before (b) and read after (c); (c) a cut best-of-N and a cut
+    beam-search request through ``create_server(mesh=plan)`` against tp=1;
+    (d) each card's KV bytes; then one decode step's timing at tp against
+    tp=1 (``_tp_step_timing``, recorded, not judged); (e) the tp train
+    step."""
     import shutil
     import tempfile
 
@@ -5826,13 +5892,18 @@ def tensor_parallel_replicated_kv():
     from consensus_tpu_torch.ops import decode_attention as da
     from consensus_tpu_torch.ops import flash_attention as fa
     from consensus_tpu_torch.parallel.mesh import unshard_params
-    from consensus_tpu_torch.parallel.tensor import TPParams, kv_heads_of_rank
+    from consensus_tpu_torch.parallel.tensor import (
+        TPParams,
+        kv_heads_of_rank,
+        q_columns_of_rank,
+        q_heads_of_rank,
+    )
     from consensus_tpu_torch.utils.checkpoint import FORMAT, save_params
 
-    on_card = TPR_DEVICE == "cuda"
-    plan = _tpr_plan()
+    on_card = device == "cuda"
+    plan = _tpr_plan(device, tp)
     lead = plan.data_devices[0]
-    config = get_model_config(CHECKPOINT_MODEL, **TPR_OVERRIDES)
+    config = get_model_config(CHECKPOINT_MODEL, **overrides)
     t0 = time.perf_counter()
     phase_s = {}
     kernels = _tpr_kernel_cases(plan, config) if on_card else []
@@ -5840,7 +5911,7 @@ def tensor_parallel_replicated_kv():
 
     t1 = time.perf_counter()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    root = pathlib.Path(tempfile.mkdtemp(prefix="tensor_parallel_replicated_kv_", dir=OUT_DIR))
+    root = pathlib.Path(tempfile.mkdtemp(prefix=f"{phase}_", dir=OUT_DIR))
     try:
         generator = torch.Generator(device=lead)
         generator.manual_seed(TPR_SEED)
@@ -5859,17 +5930,24 @@ def tensor_parallel_replicated_kv():
         phase_s["restore_tp1"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         wide = TorchBackend(**options, mesh=plan)
-        phase_s["restore_tp8"] = time.perf_counter() - t1
+        phase_s[f"restore_tp{plan.tp}"] = time.perf_counter() - t1
     finally:
         shutil.rmtree(root, ignore_errors=True)
     hd = config.head_dim
-    def head_columns(i, key, h, device):
-        return one.params["layers"][i][key].q[:, h * hd:(h + 1) * hd].to(device)
 
-    restored_slices = isinstance(wide.params, TPParams) and wide.params.kv_heads == 1 and all(
-        torch.equal(tree["layers"][i][key].q, head_columns(i, key, h, tree["embed"].q.device))
-        for t, tree in enumerate(wide.params.ranks) for h in kv_heads_of_rank(config, plan.tp, t)
-        for i in range(config.n_layers) for key in ("wk", "wv"))
+    def holds(heads_of, keys):
+        """Every rank holds its heads' columns of ``keys``, as in the file."""
+        return all(
+            torch.equal(tree["layers"][i][key].q[:, k * hd:(k + 1) * hd],
+                        one.params["layers"][i][key].q[:, h * hd:(h + 1) * hd].to(
+                            tree["embed"].q.device))
+            for t, tree in enumerate(wide.params.ranks)
+            for k, h in enumerate(heads_of(config, plan.tp, t))
+            for i in range(config.n_layers) for key in keys)
+
+    restored_kv = isinstance(wide.params, TPParams) and wide.params.kv_heads == 1 and holds(
+        kv_heads_of_rank, ("wk", "wv"))
+    restored_q = isinstance(wide.params, TPParams) and holds(q_heads_of_rank, ("wq",))
     gathered_equal = _params_equal(unshard_params(wide.params.ranks, config, lead), one.params)
 
     generate = [GenerationRequest(user_prompt=p, max_tokens=TPR_TOKENS, temperature=1.0,
@@ -5930,7 +6008,9 @@ def tensor_parallel_replicated_kv():
         for d, n in serve_info["windows"][_plan_name(plan)]["launches_by_device"][k].items():
             by_device[k][d] = by_device[k].get(d, 0) + n
 
-    kv_info, kv_checks = _tpr_kv_bytes(plan, config, wide)
+    kv_info, kv_checks = _tpr_kv_bytes(plan, config, wide, on_card)
+    weight_bytes = {"tp1": _weight_bytes_by_device(one.params),
+                    name: _weight_bytes_by_device(wide.params)}
     t1 = time.perf_counter()
     timing = _tp_step_timing(plan, one, wide, on_card, TPR_TIMING_ROWS)
     phase_s["timing"] = time.perf_counter() - t1
@@ -5946,7 +6026,7 @@ def tensor_parallel_replicated_kv():
         "a_kernels_within_tolerance_on_every_card": all(r["ok"] for r in kernels),
         "real_vocab_and_width": (config.vocab_size == 256128 and config.d_model == 2304
                                  and (config.n_heads, config.n_kv_heads, hd) == (8, 4, 256)),
-        "restored_ranks_hold_their_kv_head_columns": restored_slices,
+        "restored_ranks_hold_their_kv_head_columns": restored_kv,
         "gathered_ranks_eq_whole_tree": gathered_equal,
         "b_ids_equal_or_diverge_below_margin": (
             compare["only_one_mode"] == 0 and all(d["ok"] for d in compare["diverged"])),
@@ -5955,6 +6035,8 @@ def tensor_parallel_replicated_kv():
                                  for run in runs.values() for lp in run["logprobs"]),
         **serve_checks, **kv_checks, **train_checks,
     }
+    if config.n_heads % plan.tp:
+        checks["restored_ranks_hold_their_query_head_columns"] = restored_q
     if on_card:
         for k in KERNELS:
             # Every rank launches each kernel where tp=1 launches it once.
@@ -5965,20 +6047,23 @@ def tensor_parallel_replicated_kv():
                         for d in _plan_devices(plan)))
     else:
         del checks["a_kernels_within_tolerance_on_every_card"]
+    columns = [q_columns_of_rank(config, plan.tp, t) for t in range(plan.tp)]
     row = {
-        "phase": "tensor_parallel_replicated_kv", "model": CHECKPOINT_MODEL,
+        "phase": phase, "model": CHECKPOINT_MODEL,
         "n_layers": config.n_layers, "d_model": config.d_model, "vocab": config.vocab_size,
         "heads": [config.n_heads, config.n_kv_heads, hd], "tp": plan.tp,
         "plan": [[str(d) for d in r] for r in plan.devices],
+        "q_heads_of_rank": [q_heads_of_rank(config, plan.tp, t) for t in range(plan.tp)],
+        "q_columns_of_rank": [None if c is None else [c.start, c.stop] for c in columns],
         "kv_heads_of_rank": [kv_heads_of_rank(config, plan.tp, t) for t in range(plan.tp)],
-        "checkpoint_bytes": written, "kernels": kernels,
+        "checkpoint_bytes": written, "weight_bytes_by_device": weight_bytes, "kernels": kernels,
         "runs": {k: {key: v[key] for key in ("generate_s", "score_s", "launches",
                                              "launches_by_device", "flash_last_shapes")}
                  for k, v in runs.items()},
         "generation_compare": compare, "max_score_logprob_diff": score_err,
         "decode_shapes": decode_shapes, "serve": serve_info, "kv_bytes": kv_info,
         "step_timing": timing, "train": train_info, "launches": launches, "launches_by_device": by_device,
-        "phase_s": phase_s, "wall_s": wall, "budget_s": TPR_BUDGET_S,
+        "phase_s": phase_s, "wall_s": wall, "budget_s": budget_s,
         "checks": checks, "ok": all(checks.values()),
     }
     return row, launches
@@ -5987,14 +6072,16 @@ def tensor_parallel_replicated_kv():
 def late_phases_alone(names) -> int:
     """``python3 chip_smoke.py sweep_path mcts_path concurrent_path
     serve_path fleet_path checkpoint_path parallel_path
-    tensor_parallel_path tensor_parallel_replicated_kv`` (any of them):
+    tensor_parallel_path tensor_parallel_replicated_kv
+    tensor_parallel_split_heads`` (any of them):
     those phases alone, for iterating
     on them; concurrent_path runs on mcts_path's backend, and the others
     build their own weights.  Prints their lines, no summary and no ``ok``
     line; exits 1 if a phase failed."""
     unknown = set(names) - {"sweep_path", "mcts_path", "concurrent_path", "serve_path",
                             "fleet_path", "checkpoint_path", "parallel_path",
-                            "tensor_parallel_path", "tensor_parallel_replicated_kv"}
+                            "tensor_parallel_path", "tensor_parallel_replicated_kv",
+                            "tensor_parallel_split_heads"}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     rows = []
@@ -6006,7 +6093,7 @@ def late_phases_alone(names) -> int:
         if "concurrent_path" in names:
             rows.append(concurrent_path(mcts[4])[0])
     if {"serve_path", "fleet_path", "parallel_path", "tensor_parallel_path",
-            "tensor_parallel_replicated_kv"} & set(names):
+            "tensor_parallel_replicated_kv", "tensor_parallel_split_heads"} & set(names):
         from consensus_tpu_torch.ops import build
 
         # Built here, once: the server subprocesses and this process load it.
@@ -6029,6 +6116,8 @@ def late_phases_alone(names) -> int:
         rows.append(tensor_parallel_path()[0])
     if "tensor_parallel_replicated_kv" in names:
         rows.append(tensor_parallel_replicated_kv()[0])
+    if "tensor_parallel_split_heads" in names:
+        rows.append(tensor_parallel_split_heads()[0])
     for row in rows:
         emit(row)
     return 0 if all(row["ok"] for row in rows) else 1
@@ -6142,6 +6231,9 @@ def main() -> int:
     tpr_row, tpr_launches = tensor_parallel_replicated_kv()
     torch.cuda.empty_cache()
     emit(tpr_row)
+    tps_row, tps_launches = tensor_parallel_split_heads()
+    torch.cuda.empty_cache()
+    emit(tps_row)
     checkpoint_row, checkpoint_launches, checkpoint_shapes, checkpoint_case = checkpoint_path()
     emit(checkpoint_row)
     if checkpoint_case is None:
@@ -6157,6 +6249,7 @@ def main() -> int:
         "checkpoint_path": checkpoint_launches, "parallel_path": parallel_launches,
         "tensor_parallel_path": tp_launches,
         "tensor_parallel_replicated_kv": tpr_launches,
+        "tensor_parallel_split_heads": tps_launches,
     }
     flash_entry, flash_ok = summary_flash(
         {"flash_attention": sum(p["flash_attention"] for p in paths.values())},
@@ -6187,7 +6280,7 @@ def main() -> int:
     print(smi, flush=True)
     phases = [main_row, search_row, reference_row, route_row, generate_row, threefry_row,
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
-              serve_row, fleet_row, checkpoint_row, parallel_row, tp_row, tpr_row]
+              serve_row, fleet_row, checkpoint_row, parallel_row, tp_row, tpr_row, tps_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
             and flash_ok and decode_ok):
         fail("a phase failed (see its JSON line)")

@@ -348,8 +348,10 @@ def _run_layers(params, c: ModelConfig, x, attend):
     """The layer loop every forward shares: ``attend(layer, lp, attn_in,
     view)`` is the caller's attention half for one layer on one rank (its
     output (..., H_local * hd)); the projection, FFN and residuals follow.
-    Returns the final-norm hidden states: a tensor, or for a
-    tensor-parallel model a list with every rank's identical copy."""
+    A rank whose column range cuts a query head keeps its own columns of
+    that output (``view.columns``) for its slice of ``wo`` rows.  Returns
+    the final-norm hidden states: a tensor, or for a tensor-parallel model
+    a list with every rank's identical copy."""
     if not is_tp(params):
         (view,) = rank_views(params, c)
         for layer, lp in enumerate(params["layers"]):
@@ -363,6 +365,8 @@ def _run_layers(params, c: ModelConfig, x, attend):
             attend(layer, lp, rms_norm(xt, lp["attn_norm"], c.rms_eps, c.rmsnorm_style), view)
             for view, lp, xt in zip(views, lps, x)
         ]
+        attns = [a if view.columns is None else a[..., view.columns]
+                 for view, a in zip(views, attns)]
         x = _finish_layer_tp(c, lps, x, attns)
     return [rms_norm(xt, view.tree["final_norm"], c.rms_eps, c.rmsnorm_style)
             for view, xt in zip(views, x)]

@@ -16,6 +16,8 @@ from consensus_tpu_torch.parallel.tensor import (
     gather_vocab,
     kv_heads_of_rank,
     local_config,
+    q_columns_of_rank,
+    q_heads_of_rank,
     replicate,
     tp_group,
     tp_params,
@@ -61,6 +63,8 @@ __all__ = [
     "match_partition_rules",
     "param_shardings",
     "parse_mesh_spec",
+    "q_columns_of_rank",
+    "q_heads_of_rank",
     "replicate",
     "shard_batch",
     "shard_params",

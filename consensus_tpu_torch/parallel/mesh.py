@@ -208,9 +208,10 @@ class NamedSharding:
     ``(d, t)`` holds (a dim named ``model`` splits evenly over tp; ``data``
     over dp; None replicates).  With ``heads`` the ``model`` dim is instead
     a row of ``head_dim``-wide heads and tp rank t holds heads
-    ``heads[t]`` (``tensor.kv_heads_of_rank``: a head may repeat across
-    ranks and within one); the piece is then a slice where those heads are
-    contiguous and a list of columns where they are not."""
+    ``heads[t]`` (``tensor.q_heads_of_rank`` / ``tensor.kv_heads_of_rank``:
+    a head may repeat across ranks and within one); the piece is then a
+    slice where those heads are contiguous and a list of columns where they
+    are not."""
 
     plan: MeshPlan
     spec: P
@@ -272,37 +273,48 @@ def _scale_spec(leaf: QTensor, spec: P) -> P:
 KV_PROJECTIONS = ("wk", "wv")
 
 
-def _kv_heads(config: Optional[ModelConfig], tp: int):
-    """Per tp rank, the kv heads its ``wk``/``wv`` columns hold, where tp
-    does not divide the kv heads (None where it does: the even split)."""
-    if config is None or tp == 1 or config.n_kv_heads % tp == 0:
-        return None
-    from consensus_tpu_torch.parallel.tensor import kv_heads_of_rank
+def _projection_heads(config: Optional[ModelConfig], tp: int) -> Dict[str, Any]:
+    """Per projection, the heads each tp rank's columns hold, where tp does
+    not split its heads evenly: ``wq``'s query heads where tp does not
+    divide ``n_heads`` (``tensor.q_heads_of_rank``), ``wk``/``wv``'s kv
+    heads where it does not divide ``n_kv_heads``
+    (``tensor.kv_heads_of_rank``).  A projection left out splits evenly."""
+    if config is None or tp == 1:
+        return {}
+    from consensus_tpu_torch.parallel.tensor import kv_heads_of_rank, q_heads_of_rank
 
-    return tuple(kv_heads_of_rank(config, tp, t) for t in range(tp))
+    heads: Dict[str, Any] = {}
+    if config.n_heads % tp:
+        heads["wq"] = tuple(q_heads_of_rank(config, tp, t) for t in range(tp))
+    if config.n_kv_heads % tp:
+        kv = tuple(kv_heads_of_rank(config, tp, t) for t in range(tp))
+        heads.update({key: kv for key in KV_PROJECTIONS})
+    return heads
 
 
 def param_shardings(params: Dict[str, Any], plan: MeshPlan,
                     config: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """A :class:`NamedSharding` (or a QTensor of two) per leaf of ``params``,
     resolved through :data:`PARTITION_RULES` (``mesh.py:175-190``).  Where
-    tp does not divide the model's kv heads, ``config`` is required: each
-    rank's ``wk``/``wv`` columns (and their int8 scales) are then copies of
-    the kv heads its query heads read (``tensor.kv_heads_of_rank``), where
-    GSPMD splits them and gathers K and V."""
+    tp does not divide the model's query or kv heads, ``config`` is
+    required: each rank's ``wq`` columns (and their int8 scales) are then
+    copies of the query heads its column range touches
+    (``tensor.q_heads_of_rank``), and its ``wk``/``wv`` columns copies of
+    the kv heads those read (``tensor.kv_heads_of_rank``), where GSPMD
+    splits the columns evenly and gathers across the cut heads."""
     if config is not None:
         from consensus_tpu_torch.parallel.tensor import check_tp
 
         check_tp(config, plan.tp)
     specs = match_partition_rules(params)
-    kv_heads = _kv_heads(config, plan.tp)
+    heads = _projection_heads(config, plan.tp)
     hd = config.head_dim if config is not None else 0
     out: Dict[str, Any] = {}
     for name, value in params.items():
         if name == "layers":
             out[name] = [
                 {key: _leaf_sharding(leaf, specs["layers"][i][key], plan,
-                                     *((kv_heads, hd) if key in KV_PROJECTIONS else ()))
+                                     *((heads[key], hd) if key in heads else ()))
                  for key, leaf in layer.items()}
                 for i, layer in enumerate(value)
             ]
@@ -354,7 +366,7 @@ def _place(tensor: torch.Tensor, sharding: NamedSharding, d: int, t: int, device
     columns = [(dim, part) for dim, part in enumerate(index) if isinstance(part, list)]
     if columns:
         # Heads repeated within a rank: a gather, which copies (and which
-        # autograd differentiates); a kv projection splits no other axis.
+        # autograd differentiates); a head projection splits no other axis.
         (dim, part), = columns
         picked = torch.index_select(tensor, dim, torch.tensor(part, device=tensor.device))
         return picked.to(device).contiguous()
@@ -367,8 +379,9 @@ def shard_params(params: Dict[str, Any], plan: MeshPlan,
     ``plan.devices[d][t]`` (``mesh.py:230``).  dp shards are replicas: a
     device that repeats in the grid gets the same tree, and a leaf already
     on its device is not copied.  tp shards hold the Megatron slices; where
-    tp does not divide the kv heads, ``config`` places each rank's copies of
-    its kv heads' ``wk``/``wv`` columns (:func:`param_shardings`)."""
+    tp does not divide the query or kv heads, ``config`` places each rank's
+    copies of its heads' ``wq`` / ``wk`` / ``wv`` columns
+    (:func:`param_shardings`)."""
     shardings = param_shardings(params, plan, config)
     trees: List[List[Dict[str, Any]]] = []
     made: Dict[Tuple[str, int], Dict[str, Any]] = {}
@@ -407,10 +420,10 @@ def unshard_params(trees: Sequence[Dict[str, Any]], config: ModelConfig,
     """The whole parameter tree of one tp row's slice trees (``trees[t]``,
     rank t's, as :func:`shard_params` or a sharded ``restore_params`` gives
     them), on ``device`` (default: rank 0's): a ``model``-split leaf is its
-    ranks' pieces concatenated, and a kv projection whose heads repeat
-    across ranks takes one copy of each head."""
+    ranks' pieces concatenated, and a projection whose heads repeat across
+    ranks takes one copy of each head."""
     specs = match_partition_rules(trees[0])
-    kv_heads = _kv_heads(config, len(trees))
+    heads_of = _projection_heads(config, len(trees))
     hd = config.head_dim
 
     def whole(pieces: List[torch.Tensor], spec: P, heads) -> torch.Tensor:
@@ -440,7 +453,7 @@ def unshard_params(trees: Sequence[Dict[str, Any]], config: ModelConfig,
         if name == "layers":
             out[name] = [
                 {key: leaf([tree["layers"][i][key] for tree in trees], specs["layers"][i][key],
-                           kv_heads if key in KV_PROJECTIONS else None)
+                           heads_of.get(key))
                  for key in layer}
                 for i, layer in enumerate(value)
             ]

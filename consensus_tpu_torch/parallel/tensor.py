@@ -11,6 +11,13 @@ on full-vocab tensors, so no logic above the model layer changes.
   card (``mesh.shard_params``).  A tp=1 model keeps its plain dict.
 * Activations between layers are replicated: a list with one tensor per
   rank, bit-identical, since every collective sums in rank order.
+* Query heads: rank t owns columns ``[t * C, (t + 1) * C)`` of the
+  flattened ``n_heads * head_dim`` (``C = n_heads * head_dim / tp``), and
+  holds whole copies of the heads that range touches
+  (:func:`q_heads_of_rank`); it computes their attention in full and keeps
+  its own C columns (:func:`q_columns_of_rank`) for its even slice of
+  ``wo`` rows, so a tp that cuts a query head runs the kernels on whole
+  heads.
 * KV state (caches, tails, page pools) is :class:`Ranked`: one contiguous
   tensor per rank with the kv heads that rank's query heads read
   (:func:`kv_heads_of_rank`: ``n_kv_heads / tp`` of them where tp divides
@@ -81,18 +88,20 @@ def replicate(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Te
 
 def check_tp(config: ModelConfig, tp: int) -> None:
     """Raise ``ValueError`` naming the first count that ``tp`` does not
-    divide: query heads, FFN width or vocab.  The kv heads need not divide
-    (:func:`kv_heads_of_rank`)."""
+    divide: the query columns ``n_heads*head_dim``, the kv columns
+    ``n_kv_heads*head_dim``, the FFN width or the vocab, where the JAX
+    package's ``shard_params`` refuses the uneven split.  A rank's column
+    range may cut a query head (:func:`q_heads_of_rank`), and the kv heads
+    need not divide (:func:`kv_heads_of_rank`)."""
     if tp < 1:
         raise ValueError(f"tp={tp} must be >= 1")
-    if config.n_heads % tp:
-        raise ValueError(
-            f"tp={tp} does not divide n_heads={config.n_heads} of {config.name}: a rank "
-            "would hold part of a query head (tensor parallelism that splits a query "
-            "head is ROADMAP.md queue A's open item)"
-        )
-    for name in ("ffn_hidden", "vocab_size"):
-        value = getattr(config, name)
+    counts = (
+        ("n_heads*head_dim", config.n_heads * config.head_dim),
+        ("n_kv_heads*head_dim", config.n_kv_heads * config.head_dim),
+        ("ffn_hidden", config.ffn_hidden),
+        ("vocab_size", config.vocab_size),
+    )
+    for name, value in counts:
         if value % tp:
             raise ValueError(
                 f"tp={tp} does not divide {name}={value} of {config.name}: "
@@ -100,39 +109,89 @@ def check_tp(config: ModelConfig, tp: int) -> None:
             )
 
 
-def kv_heads_of_rank(config: ModelConfig, tp: int, rank: int) -> Tuple[int, ...]:
-    """The kv heads rank ``rank`` holds, in its local order.  Its query
-    heads are ``[rank * Hl, (rank + 1) * Hl)`` with ``Hl = n_heads / tp``;
-    a query head ``q`` reads kv head ``q // (n_heads / n_kv_heads)``.
-
-    * tp divides the kv heads: ``n_kv_heads / tp`` whole groups, contiguous.
-    * the kv heads divide tp: one head, ``rank // (tp / n_kv_heads)``; its
-      query heads lie in its group.
-    * otherwise the rank's query heads straddle groups: one kv copy per
-      query head (``Hl`` of them), so the rank runs plain multi-head
-      attention."""
+@functools.lru_cache(maxsize=None)
+def _q_layout(config: ModelConfig, tp: int) -> Tuple[int, Tuple[int, ...]]:
+    """(query heads per rank, each rank's first query head)."""
     check_tp(config, tp)
-    heads, kv = config.n_heads, config.n_kv_heads
-    if kv % tp == 0:
-        per = kv // tp
-        return tuple(range(rank * per, (rank + 1) * per))
-    if tp % kv == 0:
-        return (rank // (tp // kv),)
-    local, group = heads // tp, heads // kv
-    return tuple((rank * local + i) // group for i in range(local))
+    heads, hd = config.n_heads, config.head_dim
+    width = heads * hd // tp
+    count = max(((t + 1) * width - 1) // hd - t * width // hd + 1 for t in range(tp))
+    return count, tuple(min(t * width // hd, heads - count) for t in range(tp))
+
+
+def q_heads_of_rank(config: ModelConfig, tp: int, rank: int) -> Tuple[int, ...]:
+    """The query heads rank ``rank`` computes, contiguous.  The rank owns
+    columns ``[rank * C, (rank + 1) * C)`` of the flattened ``n_heads *
+    head_dim`` (``C = n_heads * head_dim / tp``: the JAX package's ``wq``
+    columns and ``wo`` rows) and holds whole copies of the query heads that
+    range touches, so attention runs on whole heads through the kernels.
+    Where tp divides the heads these are ``n_heads / tp`` of its own; else
+    two ranks may hold one head, and every rank is padded to the count the
+    busiest rank touches with the heads after its own (before them at the
+    top), so all ranks have one shape.  :func:`q_columns_of_rank` names the
+    columns of its output that are its own."""
+    count, firsts = _q_layout(config, tp)
+    return tuple(range(firsts[rank], firsts[rank] + count))
+
+
+def q_columns_of_rank(config: ModelConfig, tp: int, rank: int) -> Optional[slice]:
+    """Rank ``rank``'s own ``C`` columns of its heads' attention output
+    (..., len(q_heads_of_rank) * head_dim), which meet its even slice of
+    ``wo`` rows; None where they are all of it (tp divides the heads)."""
+    count, firsts = _q_layout(config, tp)
+    hd = config.head_dim
+    width = config.n_heads * hd // tp
+    if width == count * hd:
+        return None
+    offset = rank * width - firsts[rank] * hd
+    return slice(offset, offset + width)
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_layout(config: ModelConfig, tp: int) -> Tuple[Tuple[int, ...], ...]:
+    """Each rank's kv heads (:func:`kv_heads_of_rank`)."""
+    group = config.n_heads // config.n_kv_heads
+    ranks = [q_heads_of_rank(config, tp, t) for t in range(tp)]
+
+    def grouped(heads: Tuple[int, ...]) -> Optional[Tuple[int, ...]]:
+        first, last = heads[0] // group, heads[-1] // group
+        if first == last or (heads[0] % group == 0 and len(heads) == (last - first + 1) * group):
+            return tuple(range(first, last + 1))
+        return None
+
+    layouts = [grouped(heads) for heads in ranks]
+    if all(layouts) and len({len(kv) for kv in layouts}) == 1:
+        return tuple(layouts)
+    return tuple(tuple(q // group for q in heads) for heads in ranks)
+
+
+def kv_heads_of_rank(config: ModelConfig, tp: int, rank: int) -> Tuple[int, ...]:
+    """The kv heads rank ``rank`` holds, in its local order; the same count
+    on every rank.  Its query heads are :func:`q_heads_of_rank`'s, and a
+    query head ``q`` reads kv head ``q // (n_heads / n_kv_heads)``.
+
+    * Every rank's query heads lie in one group, or cover whole groups from
+      a group boundary: those kv heads once each (``n_kv_heads / tp`` of
+      them where tp divides the kv heads, else one shared head), and the
+      rank runs grouped attention.
+    * Otherwise some rank's query heads straddle groups: one kv copy per
+      query head on every rank, and the ranks run plain multi-head
+      attention."""
+    return _kv_layout(config, tp)[rank]
 
 
 @functools.lru_cache(maxsize=None)
 def local_config(config: ModelConfig, tp: int) -> ModelConfig:
-    """The config one rank computes with: ``n_heads / tp`` query heads, the
-    kv heads of :func:`kv_heads_of_rank` (the same count on every rank),
-    ``ffn_hidden / tp`` FFN columns and ``vocab_size / tp`` vocab rows."""
+    """The config one rank computes with: the query heads of
+    :func:`q_heads_of_rank` and the kv heads of :func:`kv_heads_of_rank`
+    (each the same count on every rank), ``ffn_hidden / tp`` FFN columns
+    and ``vocab_size / tp`` vocab rows."""
     check_tp(config, tp)
     if tp == 1:
         return config
     return dataclasses.replace(
         config,
-        n_heads=config.n_heads // tp,
+        n_heads=len(q_heads_of_rank(config, tp, 0)),
         n_kv_heads=len(kv_heads_of_rank(config, tp, 0)),
         ffn_hidden=config.ffn_hidden // tp,
         vocab_size=config.vocab_size // tp,
@@ -375,18 +434,21 @@ def lead_part(x: Any) -> Any:
 
 class RankView:
     """Rank ``index``'s side of one forward call: its parameter tree, its
-    local config and device, and ``view(obj)``, its part of ``obj`` (its own
-    tensor of a :class:`Ranked`, its copy of a replicated lead tensor,
+    local config and device, its own ``columns`` of its heads' attention
+    output (None: all of them), and ``view(obj)``, its part of ``obj`` (its
+    own tensor of a :class:`Ranked`, its copy of a replicated lead tensor,
     memoized for the call).  A tp=1 model has one view whose ``view(obj)``
     is ``obj``."""
 
-    __slots__ = ("index", "tree", "config", "device", "_memo")
+    __slots__ = ("index", "tree", "config", "device", "columns", "_memo")
 
-    def __init__(self, index: int, tree, config: ModelConfig, device: Optional[torch.device]):
+    def __init__(self, index: int, tree, config: ModelConfig, device: Optional[torch.device],
+                 columns: Optional[slice] = None):
         self.index = index
         self.tree = tree
         self.config = config
         self.device = device
+        self.columns = columns
         self._memo: Optional[dict] = {} if device is not None else None
 
     def __call__(self, obj: Any) -> Any:
@@ -400,5 +462,5 @@ def rank_views(params: Any, config: ModelConfig) -> List[RankView]:
     if not is_tp(params):
         return [RankView(0, params, config, None)]
     local = local_config(config, params.tp)
-    return [RankView(t, tree, local, device)
+    return [RankView(t, tree, local, device, q_columns_of_rank(config, params.tp, t))
             for t, (tree, device) in enumerate(zip(params.ranks, params.devices))]

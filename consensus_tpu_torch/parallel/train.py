@@ -101,9 +101,9 @@ def shard_grads(
     are summed once each onto the master's devices.  At tp > 1 a shard's
     replica is its row's slices, and the gradients are taken through the
     placement, so they come back whole: a sharded leaf's in its slice, a
-    replicated leaf's summed over its copies, and a kv head that several
-    ranks hold copies of (tp not dividing the kv heads) gets the sum of its
-    copies' gradients in its columns."""
+    replicated leaf's summed over its copies, and a query or kv head that
+    several ranks hold copies of (tp not dividing the query or kv heads)
+    gets the sum of its copies' gradients in its columns."""
     dp = plan.dp if plan is not None else 1
     tp = plan.tp if plan is not None else 1
     if tokens.shape[0] % dp:

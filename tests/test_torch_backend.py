@@ -338,11 +338,11 @@ def test_row_buckets_stay_fixed_while_free_memory_changes(monkeypatch):
 
 def test_unported_mesh_and_default_device():
     """tp=2 on the CPU builds the tensor-parallel backend over two CPU
-    ranks (queue A15, ported); a tp that does not divide the heads raises
-    naming them."""
+    ranks (queue A15, ported); a tp that does not divide the query columns
+    raises naming ``n_heads*head_dim``, as the JAX package's sharding does."""
     backend = TorchBackend(model=MODEL, device="cpu", tp=2)
     assert backend._tp == 2 and backend.mesh.devices == ((torch.device("cpu"),) * 2,)
-    with pytest.raises(ValueError, match="n_heads"):
+    with pytest.raises(ValueError, match=r"n_heads\*head_dim="):
         TorchBackend(model=MODEL, device="cpu", tp=3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

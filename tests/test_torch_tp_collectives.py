@@ -4,7 +4,7 @@ package's: the port of ``tests/test_parallel.py::
 test_sharded_scoring_matches_single_device`` (its inputs, atol 2e-4) at
 tp=2 and at dp=2 x tp=2, the streamed route against the materialised one,
 the collectives' determinism and gradients, and the divisibility check
-(a tp need not divide the kv heads)."""
+(a tp need not divide the query or kv heads)."""
 
 import jax
 import jax.numpy as jnp
@@ -194,10 +194,13 @@ def test_local_config_divides_heads_ffn_and_vocab():
     ("llama3-8b", 16, "n_kv_heads"), ("tiny-llama3", 8, "n_heads"),
 ])
 def test_a_tp_that_does_not_divide_raises(model, tp, divisor):
-    """A tp that does not divide the query heads raises naming them (a tp
-    that splits a query head is ROADMAP.md queue A's open item).  One that
-    does not divide the kv heads passes: each rank holds the one kv head
-    its query heads read (``kv_heads_of_rank``), and a tiny model builds."""
+    """A tp that does not divide the query columns ``n_heads*head_dim``
+    raises naming them; one that cuts a query head builds at the model
+    level (each rank holds a copy of the head it cuts, ``q_heads_of_rank``),
+    and the backend then raises where the byte tokenizer's vocab of 268
+    does not split, as ``TPUBackend`` does.  One that does not divide the
+    kv heads passes: each rank holds the one kv head its query heads read
+    (``kv_heads_of_rank``), and a tiny model builds."""
     config = get_model_config(model)
     from consensus_tpu_torch.backends.torch_backend import TorchBackend
 
@@ -212,11 +215,25 @@ def test_a_tp_that_does_not_divide_raises(model, tp, divisor):
                                    mesh_devices=["cpu"] * tp, tp=tp)
             assert backend._tp == tp and backend.params.kv_heads == 1
         return
-    with pytest.raises(ValueError, match=f"{divisor}=.*ROADMAP"):
-        check_tp(config, tp)
-    with pytest.raises(ValueError, match=divisor):
-        TorchBackend(model=model if model.startswith("tiny") else "tiny-llama3",
-                     config=config, device="cpu", mesh_devices=["cpu"] * tp, tp=tp)
+    if config.n_heads * config.head_dim % tp:
+        with pytest.raises(ValueError, match=r"n_heads\*head_dim=64"):
+            check_tp(config, tp)
+        with pytest.raises(ValueError, match=r"n_heads\*head_dim"):
+            TorchBackend(model=model, config=config, device="cpu",
+                         mesh_devices=["cpu"] * tp, tp=tp)
+        return
+    check_tp(config, tp)
+    assert config.n_heads % tp and local_config(config, tp).n_heads == 1
+    params = params_from_jax(
+        jax.tree.map(np.asarray, jax_init_params(jax_get_model_config(model),
+                                                 jax.random.PRNGKey(0))), config)
+    tokens = torch.randint(0, config.vocab_size, (2, 8), generator=torch.Generator().manual_seed(0))
+    valid = torch.ones_like(tokens, dtype=torch.bool)
+    np.testing.assert_allclose(
+        token_logprobs(tp_params(params, config, ["cpu"] * tp), config, tokens, valid).numpy(),
+        token_logprobs(params, config, tokens, valid).numpy(), atol=2e-4)
+    with pytest.raises(ValueError, match="vocab_size=268"):
+        TorchBackend(model=model, device="cpu", mesh_devices=["cpu"] * tp, tp=tp)
 
 
 def test_isolation_covers_the_tensor_module():
