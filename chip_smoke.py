@@ -14,7 +14,10 @@ line each; any failure exits non-zero:
    built from ``consensus_tpu_torch/csrc`` with nvcc, together with the
    three deliberately broken builds below: one nvcc process per source, all
    started together from threads.  Per kernel function: registers and
-   spill bytes from ptxas.
+   spill bytes from ptxas; each kernel's own build seconds, and
+   ``flash_attention_spill_free``: K1's four instantiations (hd 128 / 256
+   by one / two consumer warpgroups) spill nothing (a failed check fails
+   the run).
 3. ``kernels`` -- each kernel against its plain PyTorch version on the card,
    case by case, with kernel / plain / library (SDPA) / bound times and the
    least atol each case needed; kernel and SDPA are timed as calls captured
@@ -189,7 +192,7 @@ line each; any failure exits non-zero:
    time there: every statement equal to dp=1's or a near-tie under 0.1
    on dp=1's trajectory, dp=1 byte-identical to the plain engine,
    ``/healthz`` with one ``per_shard`` entry per dp shard, K1 and K2
-   launched on every card; (b) main_path's best-of-N config cut to 32
+   launched on every card; (b) main_path's best-of-N config cut to 16
    tokens on ``TorchBackend`` over the plan against dp=1: ids equal or
    first differing at a draw of margin under 0.1, scores within 0.1, K1 on
    every card; (c) ``parallel.train.train_step`` on gemma2-2b at full
@@ -204,7 +207,7 @@ line each; any failure exits non-zero:
    dp=2 x tp=2 too: (a) K1 (llama3-8b and gemma2-2b scoring) and K2
    (llama3-8b beam) at one rank's heads on every card against their plain
    versions, and launched there with cuda:0 current; (b) main_path's
-   best-of-N config with generation through K2, cut to 32 tokens, on
+   best-of-N config with generation through K2, cut to 16 tokens, on
    ``TorchBackend(mesh=plan)`` against tp=1: ids equal or first differing
    at a draw of margin under 0.1, scores within 0.1, K1 and K2 launched on
    every card, and with four cards each card's weight bytes within 5% of
@@ -217,7 +220,7 @@ line each; any failure exits non-zero:
    of 2 x 256 tokens): losses falling, the first step's gradients within a
    relative L2 of 2e-2 of tp=1's, peak per card; then, recorded and not
    judged, one decode step's wall and device-busy ms at tp against tp=1
-   (8 and 32 rows) and the share of its device time in memory copies.
+   (8 rows) and the share of its device time in memory copies.
 21. ``tensor_parallel_replicated_kv`` -- tensor parallelism past the kv
    heads: gemma2-2b at full width and its real vocab (int8, bf16) at tp=8,
    cuda:0 eight times with one card, cuda:0-3 twice each with four, every
@@ -226,7 +229,7 @@ line each; any failure exits non-zero:
    ranks (each holding its head's ``wk``/``wv`` columns; gathered back,
    the whole tree).  (a) K1 and K2 at one rank's heads (1 q / 1 kv, hd 256,
    softcap 50) on every card against their plain versions; (b) 4 seeded
-   32-token generations through K2 and 6 scored cells through K1 at tp=8
+   16-token generations through K2 and 6 scored cells through K1 at tp=8
    against tp=1: ids equal or first differing at a draw of margin under
    0.1, scores within 0.1, K1 and K2 on every card; (c) serve_path's first
    cut best-of-N request (the engine) and its cut beam search (a fused
@@ -518,6 +521,16 @@ def kernel_cases():
         ))
     rows.append(flash_case("S=700 not a tile multiple, one row of length 0", 4, 700, 32, 8, 128,
                            [700, 0, 350, 1], [0, 0, 0, 699], seed=4))
+    # parallel_path's per-card case (cuda:1-3 with four cards) on cuda:0.
+    rows.append(flash_case("llama3-8b scoring, the per-card case's lengths", 8, 768, 32, 8, 128,
+                           [768, 700, 512, 384, 300, 768, 200, 650], [0] * 8, seed=50))
+    # A TMA edge: S = 130 leaves the second 128-row query tile 2 rows deep
+    # and the K/V boxes past S (zero-filled on load, clipped on store);
+    # left-padded starts inside a tile, a row of length 0, hd 256, softcap 50.
+    lens = [130, 67, 0, 3, 129, 1, 64, 100]
+    rows.append(flash_case("S=130 TMA edge, left-padded, one row of length 0", 8, 130, 16, 8, 256,
+                           lens, [130 - n for n in lens], seed=7, scale=256 ** -0.5,
+                           softcap=50.0))
     # gemma2-2b (mcts_path's evaluation): 8 q / 4 kv heads, hd 256, scale
     # 256^-0.5, softcap 50; its 4096 window is wider than any row here.
     s = 512
@@ -531,13 +544,15 @@ def kernel_cases():
 #: it breaks).  Each line must occur exactly once in the source.
 MUTANTS = {
     "flash_skip_tile": (
-        "flash_attention", "if (!empty) {",
-        "if (!empty && !(k0 == 256 && kt_hi * BK > 512)) {",
-        "skip the key tile that starts at key 256 where the block's keys reach past 512",
+        "flash_attention",
+        "const bool empty = !has_rows || k0 >= hi_max || k0 + BN <= lo_min;",
+        "const bool empty = !has_rows || k0 >= hi_max || k0 + BN <= lo_min"
+        " || (k0 == 256 && end > 512);",
+        "skip the key tile that starts at key 256 where the row's span reaches past 512",
     ),
     "flash_no_mask": (
         "flash_attention",
-        "const bool interior = full_rows && k0 >= lo_max && k0 + BK <= hi_min;",
+        "const bool interior = full_rows && k0 >= lo_max && k0 + BN <= hi_min;",
         "const bool interior = true;",
         "every key tile taken as interior: no span, causal or window mask",
     ),
@@ -988,7 +1003,7 @@ def decode_route_check(backend, config):
 
 #: token_search_path's finite lookahead at seed 43: cut from the config's
 #: 200 tokens for time.
-LOOKAHEAD_SEED_TOKENS = 32
+LOOKAHEAD_SEED_TOKENS = 16
 
 
 def token_search_path():
@@ -1758,8 +1773,8 @@ HABERMAS_TOKENS = 128
 #: 107-151 s of the phase).  Both cut to this for the time limit (not
 #: HABERMAS_TOKENS, whose routes the phase checks), and best-of-N's 200
 #: tokens to HABERMAS_BEST_OF_N_TOKENS.
-JUDGE_TOKENS = 96
-HABERMAS_BEST_OF_N_TOKENS = 64
+JUDGE_TOKENS = 48
+HABERMAS_BEST_OF_N_TOKENS = 32
 
 
 class _CappedGenerate:
@@ -2845,7 +2860,7 @@ CONCURRENT_ROOT = "configs/north_star"
 #: scenario 1's beam_search config for the time limit; widths unchanged.
 CONCURRENT_CUTS = {
     "num_seeds": 1,
-    "best_of_n": {"n": [1, 3, 5, 10], "max_tokens": 64},
+    "best_of_n": {"n": [1, 3, 5, 10], "max_tokens": 32},
     "habermas_machine": {"num_candidates": [1, 3], "max_tokens": 32},
 }
 CONCURRENT_BEAM_CUTS = {"num_seeds": 1, "beam_search": {"beam_width": [2, 4], "max_tokens": 8}}
@@ -3341,7 +3356,7 @@ SERVE_REQUESTS = (
 )
 #: Depth cut of (b) and (c) for the time limit: max_tokens per method, and
 #: no evaluation ((a) evaluates every response).
-SERVE_CUT_TOKENS = {"best_of_n": 16, "beam_search": 8, "zero_shot": 16}
+SERVE_CUT_TOKENS = {"best_of_n": 8, "beam_search": 8, "zero_shot": 8}
 #: (c): one transient error on the first generate call, one NaN in row 0
 #: of the first score call, under ``supervise``.
 SERVE_FAULT_PLAN = {"seed": 3, "faults": [
@@ -4535,7 +4550,7 @@ def checkpoint_path():
 PARALLEL_DEVICE = "cuda"
 PARALLEL_MAX_DP = 4
 #: (b): main_path's best-of-N config with every method's budget cut to this.
-PARALLEL_TOKENS = 32
+PARALLEL_TOKENS = 16
 #: (c): gemma2-2b at full width, TRAIN_ROWS rows x TRAIN_SEQ tokens per
 #: shard, TRAIN_STEPS AdamW steps on one seeded batch at optax's default
 #: rate (1e-3 overshot: 12.91, 9.50, 10.96 on the card).
@@ -5329,9 +5344,9 @@ def parallel_path(params=None):
 #: tensor_parallel_path: the device of its plans ("cpu" rehearses it with
 #: tiny configs), the decode-step timing's rows, steps and trunk.
 TP_DEVICE = "cuda"
-TP_TIMING_ROWS = (8, 32)
-TP_TIMING_STEPS = 8
-TP_PROFILED_STEPS = 3
+TP_TIMING_ROWS = (8,)
+TP_TIMING_STEPS = 4
+TP_PROFILED_STEPS = 1
 TP_TIMING_TRUNK = 512
 #: With four cards, each card's weight bytes within this share of 1/tp of
 #: the tp=1 tree's.
@@ -5578,7 +5593,7 @@ def tensor_parallel_path(params=None):
     """Tensor parallelism -> (row, launches): (a) K1 and K2 at each tp
     rank's heads on every card against their plain versions, and launched
     with the lead current; (b) main_path's best-of-N config (llama3-8b,
-    int8, full width and depth, generation through K2) cut to 32 tokens on
+    int8, full width and depth, generation through K2) cut to 16 tokens on
     ``TorchBackend(mesh=plan)`` against tp=1; (c) serve_path's cut requests
     through ``create_server(mesh=plan)`` against tp=1, and a search session
     step by step; (d) ``train_step`` on gemma2-2b at full width over the
@@ -6144,23 +6159,37 @@ def main() -> int:
     if len(sys.argv) > 1:
         return late_phases_alone(sys.argv[1:])
 
+    def timed_build(name):
+        started = time.perf_counter()
+        log = build.build(name)
+        return log, time.perf_counter() - started
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS) + len(MUTANTS)) as pool:
-        builds = {name: pool.submit(build.build, name) for name in KERNELS}
+        builds = {name: pool.submit(timed_build, name) for name in KERNELS}
         mutant_builds = {
             tag: pool.submit(build_mutant, tag, *spec[:3]) for tag, spec in MUTANTS.items()
         }
-        ptxas = {name: ptxas_report(job.result()) for name, job in builds.items()}
+        logs = {name: job.result() for name, job in builds.items()}
         mutant_libs = {tag: job.result() for tag, job in mutant_builds.items()}
-    emit({
+    ptxas = {name: ptxas_report(log) for name, (log, _) in logs.items()}
+    build_row = {
         "phase": "build", "kernels": list(KERNELS), "mutants": list(MUTANTS),
-        "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+        "seconds": time.perf_counter() - t0,
+        "seconds_by_kernel": {name: s for name, (_, s) in logs.items()}, "ptxas": ptxas,
         "hd128_spill_free": all(
             any("ILi128E" in f["function"] for f in functions)
             and all(f.get("spill_bytes") == 0 for f in functions if "ILi128E" in f["function"])
             for functions in ptxas.values()
         ),
-    })
+        # Every instantiation of K1's kernel (hd 128 / 256 x 1 / 2 consumer
+        # warpgroups): registers at entry (setmaxnreg moves them later) and
+        # no spills.
+        "flash_attention_spill_free": len(ptxas["flash_attention"]) == 4 and all(
+            f.get("spill_bytes") == 0 for f in ptxas["flash_attention"]
+        ),
+    }
+    emit(build_row)
 
     flash_cases = kernel_cases()
     decode_cases_ = decode_cases()
@@ -6282,7 +6311,7 @@ def main() -> int:
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
               serve_row, fleet_row, checkpoint_row, parallel_row, tp_row, tpr_row, tps_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
-            and flash_ok and decode_ok):
+            and flash_ok and decode_ok and build_row["flash_attention_spill_free"]):
         fail("a phase failed (see its JSON line)")
     emit({
         "ok": True,

@@ -212,14 +212,27 @@ def _card_shares(devices: Sequence[torch.device]) -> List[int]:
     return [names.count(n) if d.type == "cuda" else 1 for n, d in zip(names, devices)]
 
 
+def _most_ranks_on_a_card(group: Sequence[torch.device]) -> int:
+    """The most ranks of a tp group that any one card holds (CPU entries
+    stand for separate devices, as in :func:`_card_shares`)."""
+    names = [str(d) for d in group if d.type == "cuda"]
+    return max([names.count(n) for n in names] or [1])
+
+
 def _kv_heads_per_card(config: ModelConfig, group: Sequence[torch.device]) -> int:
     """The kv heads whose KV state one card of a tp group holds: each
     rank's kv heads (``local_config``; copies of a shared head count once
-    for every rank that holds one) times the most ranks any one card holds
-    (CPU entries stand for separate devices, as in :func:`_card_shares`)."""
-    names = [str(d) for d in group if d.type == "cuda"]
-    most = max([names.count(n) for n in names] or [1])
-    return local_config(config, len(group)).n_kv_heads * most
+    for every rank that holds one) times the most ranks any one card
+    holds."""
+    return local_config(config, len(group)).n_kv_heads * _most_ranks_on_a_card(group)
+
+
+def _q_heads_per_card(config: ModelConfig, group: Sequence[torch.device]) -> int:
+    """The query heads whose prefill logits one card of a tp group holds:
+    each rank's query heads (``local_config``; a head that tp splits is
+    copied whole to every rank that owns part of it) times the most ranks
+    any one card holds."""
+    return local_config(config, len(group)).n_heads * _most_ranks_on_a_card(group)
 
 
 def _session_budget_for(device_budget: int) -> _SessionBudget:
@@ -497,6 +510,9 @@ class TorchBackend:
         #: them, else each rank holds copies of the heads its query heads
         #: read; a card that repeats in the group holds every rank on it.
         self._kv_heads_per_card = _kv_heads_per_card(self.config, self._tp_devices)
+        #: The query heads whose fp32 prefill logits one card holds, copies
+        #: of a split head included: the row buckets' logit bytes count them.
+        self._q_heads_per_card = _q_heads_per_card(self.config, self._tp_devices)
         if self.mesh_plan is not None:
             budgets = {str(self.device): (self._device_budget, self._session_budget)}
             shares = _card_shares(self.mesh_plan.data_devices)
@@ -792,7 +808,7 @@ class TorchBackend:
         columns per row plus the prefill's per-layer fp32 logits and their
         softmax over that cache."""
         columns = prompt_width + max_new
-        prefill_row = 2 * self.config.n_heads * prompt_width * columns * 4
+        prefill_row = 2 * self._q_heads_per_card * prompt_width * columns * 4
         return self._rows_for(columns * self._kv_bytes_per_column() + prefill_row)
 
     def _segmented_rows_allowed(self, prompt_width: int, max_new: int, seg_len: int) -> int:
@@ -812,7 +828,7 @@ class TorchBackend:
             )
         else:
             effective = prompt_width + gen_cols
-        prefill_row = 2 * self.config.n_heads * prompt_width * prompt_width * 4
+        prefill_row = 2 * self._q_heads_per_card * prompt_width * prompt_width * 4
         return self._rows_for(effective * self._kv_bytes_per_column() + prefill_row)
 
     def _seg_len_for(self, max_new: int) -> Optional[int]:
@@ -1160,16 +1176,9 @@ class TorchBackend:
             ctx_ids = prepared[idxs[0]][1]
             conts = [prepared[i][2] for i in idxs]
             max_cont = max(len(c) for c in conts)
-            cont_width = self._shared_cont_width(max_cont)
-            rows_cap = max(self.max_batch_rows, 128)
-            while rows_cap >= 8:
-                attn_bytes = (
-                    rows_cap * self.config.n_heads * cont_width
-                    * (self.max_context + cont_width) * 4
-                )
-                if attn_bytes <= _SHARED_SCORE_ATTN_BYTES_CAP:
-                    break
-                rows_cap //= 2
+            rows_cap, attn_bytes = self._shared_score_rows_cap(
+                self._shared_cont_width(max_cont)
+            )
             fits = (
                 len(idxs) >= 4
                 and all(conts)
@@ -1198,6 +1207,22 @@ class TorchBackend:
             for i, result in zip(chunk, chunk_results):
                 results[i] = result
         return results  # type: ignore[return-value]
+
+    def _shared_score_rows_cap(self, cont_width: int) -> Tuple[int, int]:
+        """(rows, bytes): the row chunk of a shared-context score, from
+        ``max(max_batch_rows, 128)`` halved until the suffix attention's fp32
+        logits over the query heads one card holds fit
+        ``_SHARED_SCORE_ATTN_BYTES_CAP`` (or 8 to 15 rows are reached), and
+        those logits' bytes at that chunk."""
+        rows_cap = max(self.max_batch_rows, 128)
+        while True:
+            attn_bytes = (
+                rows_cap * self._q_heads_per_card * cont_width
+                * (self.max_context + cont_width) * 4
+            )
+            if attn_bytes <= _SHARED_SCORE_ATTN_BYTES_CAP or rows_cap < 16:
+                return rows_cap, attn_bytes
+            rows_cap //= 2
 
     def _shared_cont_width(self, max_cont: int) -> int:
         """Continuation-width bucket of a shared-context group: powers of two

@@ -19,7 +19,9 @@ grouped K/V without repeating them.
 
 Dispatch: a CPU tensor runs :func:`flash_attention_reference`, the plain
 PyTorch version; a CUDA tensor launches the kernel (bf16 only, head_dim
-128 or 256) or raises.  There is no fallback from one to the other.
+128 or 256, each of q, k, v contiguous from a 16-byte aligned address: a
+contiguous view at an odd storage offset raises) or raises.  There is no
+fallback from one to the other.
 
 What bounds the kernel on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s):
 the larger of its causal FLOPs over the bf16 rate and its bytes over the
@@ -41,6 +43,9 @@ import torch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128, 256)
+#: The kernel reads q, k, v and writes o through TMA tensor maps, whose base
+#: address must be a multiple of 16 bytes.
+TMA_ALIGN = 16
 
 
 class LaunchCounter:
@@ -198,6 +203,13 @@ def _check_cuda_inputs(q, k, v, lengths, starts) -> None:
     for name, t in (("lengths", lengths), ("starts", starts)):
         if t.shape != (batch,) or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be ({batch},) on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % TMA_ALIGN:
+            raise ValueError(
+                f"flash_attention kernel: {name} must be contiguous from a "
+                f"{TMA_ALIGN}-byte aligned address (its TMA tensor map's rule); it has "
+                f"strides {t.stride()} and a storage offset of {t.storage_offset()} elements"
+            )
 
 
 def flash_attention(
@@ -237,8 +249,8 @@ def flash_attention(
         scale = head_dim ** -0.5
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
-    _check_cuda_inputs(q, k, v, lengths, starts)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_cuda_inputs(q, k, v, lengths, starts)
     out = torch.empty_like(q)
     if batch == 0 or seq == 0:
         return out

@@ -62,3 +62,36 @@ def test_both_kernels_include_the_shared_header():
     for name in ("flash_attention", "decode_attention"):
         source = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert '#include "sm90_mma.cuh"' in source
+
+
+def test_flash_attention_includes_the_wgmma_header_and_hashes_it(tmp_path, monkeypatch):
+    """K1 includes ``sm90_wgmma.cuh`` (its wgmma, TMA and mbarrier PTX), so
+    an edit of that header renames K1's library."""
+    source = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    assert '#include "sm90_wgmma.cuh"' in source
+    root = tmp_path / "csrc"
+    root.mkdir()
+    for path in build.CSRC_DIR.iterdir():
+        if path.suffix in (".cu", ".cuh"):
+            (root / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", root)
+    before = build.library_path("flash_attention")
+    header = root / "sm90_wgmma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert build.library_path("flash_attention") != before
+
+
+def test_flash_attention_runs_on_wgmma_and_tma_only():
+    """K1's kernel multiplies with wgmma (both products) and copies with
+    TMA under mbarriers; none of the mma.sync, ldmatrix or cp.async helpers
+    of ``sm90_mma.cuh`` is called from it."""
+    source = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    for call in ("wgmma_ss_m64n", "wgmma_rs_m64n", "tma_load_4d(", "tma_store_4d(",
+                 "mbar_wait(", "setmaxnreg_dec<", "setmaxnreg_inc<"):
+        assert call in source, call
+    for call in ("mma_bf16(", "ldmatrix", "cp_async", "load_rows<", "mma.sync"):
+        assert call not in source, call
+    header = (build.CSRC_DIR / "sm90_wgmma.cuh").read_text()
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
+                "setmaxnreg"):
+        assert ptx in header, ptx

@@ -97,6 +97,43 @@ def test_cpu_wrapper_does_not_count_launches():
     assert fa.launches.count == before
 
 
+def _bf16_at_offset(shape, offset):
+    """A contiguous bf16 CPU view of ``shape`` that starts ``offset``
+    elements into its storage."""
+    numel = int(np.prod(shape))
+    return torch.zeros(numel + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset, message", [(0, None), (8, None), (1, "aligned"), (4, "aligned")])
+def test_cuda_input_check_takes_only_tma_aligned_addresses(offset, message):
+    """The kernel's tensor maps need each of q, k, v contiguous from a
+    16-byte aligned address: a view at a storage offset of 1 or 4 bf16
+    (2 or 8 bytes) raises, 0 or 8 (16 bytes) passes.  The wrapper never
+    copies such a tensor quietly; ``contiguous()`` keeps the view."""
+    shape_q, shape_kv = (2, 130, 8, 256), (2, 130, 4, 256)
+    lengths = torch.tensor([130, 3], dtype=torch.int32)
+    starts = torch.tensor([0, 127], dtype=torch.int32)
+    for name in ("q", "k", "v"):
+        tensors = {
+            "q": _bf16_at_offset(shape_q, offset if name == "q" else 0),
+            "k": _bf16_at_offset(shape_kv, offset if name == "k" else 0),
+            "v": _bf16_at_offset(shape_kv, offset if name == "v" else 0),
+        }
+        assert tensors[name].contiguous().data_ptr() == tensors[name].data_ptr()
+        if message is None:
+            fa._check_cuda_inputs(tensors["q"], tensors["k"], tensors["v"], lengths, starts)
+        else:
+            with pytest.raises(ValueError, match=f"{name} must be contiguous from a 16-byte {message}"):
+                fa._check_cuda_inputs(tensors["q"], tensors["k"], tensors["v"], lengths, starts)
+
+
+def test_cuda_input_check_refuses_strided_views():
+    q = _bf16_at_offset((2, 8, 130, 128), 0).transpose(1, 2)
+    k = v = _bf16_at_offset((2, 130, 2, 128), 0)
+    with pytest.raises(ValueError, match="q must be contiguous"):
+        fa._check_cuda_inputs(q, k, v, torch.tensor([130, 3]), torch.tensor([0, 127]))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -113,6 +150,10 @@ def cuda_device():
         # Causal tile boundaries: S = 200 is not a multiple of the 128-query
         # tile, and left-padded spans start inside a tile.
         (128, None, None, 200, [200, 73, 130, 1], [0, 127, 70, 199]),
+        # A TMA edge: S = 130 puts the second query tile 2 rows deep and the
+        # K/V boxes past S (zero-filled on load, clipped on store);
+        # left-padded starts inside a tile and a row of length 0.
+        (256, 50.0, None, 130, [130, 67, 0, 3], [0, 63, 130, 127]),
     ],
 )
 def test_kernel_matches_plain_version_on_card(cuda_device, head_dim, softcap, window, seq,
