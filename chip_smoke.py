@@ -14,21 +14,23 @@ line each; any failure exits non-zero:
    built from ``consensus_tpu_torch/csrc`` with nvcc, together with the
    three deliberately broken builds below: one nvcc process per source, all
    started together from threads.  Per kernel function: registers and
-   spill bytes from ptxas; each kernel's own build seconds, and
+   spill bytes from ptxas; each kernel's own build seconds,
    ``flash_attention_spill_free``: K1's four instantiations (hd 128 / 256
-   by one / two consumer warpgroups) spill nothing (a failed check fails
-   the run).
+   by one / two consumer warpgroups) spill nothing, and
+   ``decode_attention_spill_free``: K2's six (hd 128 / 256 by 1, 2 or 4
+   16-row tiles) spill nothing (a failed check fails the run).
 3. ``kernels`` -- each kernel against its plain PyTorch version on the card,
    case by case, with kernel / plain / library (SDPA) / bound times and the
    least atol each case needed; kernel and SDPA are timed as calls captured
    in a CUDA graph.  ``per_card``: on each card beyond the first, one K1
    and one K2 case, and both kernels launched on that card's tensors
    while cuda:0 is current (their shared-memory limit is set per device).
-   Three ``mutant`` lines follow: the same comparison
+   Four ``mutant`` lines follow: the same comparison
    must catch each broken build (flash_attention with one middle key tile
    skipped; flash_attention with every key tile taken as interior, so no
    mask is applied; decode_attention with every tail row reading the
-   neighbouring slot's tail).
+   neighbouring slot's tail; decode_attention with its cluster merge
+   dropping the last split's partial).
 4. ``main_path`` -- the best-of-N config (llama3-8b at full width, random
    weights, bf16 + int8) through ``consensus_tpu_torch.experiment.Experiment``:
    best_of_n, zero_shot and predefined to a results.csv, with every kernel
@@ -117,8 +119,8 @@ line each; any failure exits non-zero:
    ``configs/north_star/gemma/scenario_1/habermas_vs_best_of_n.yaml`` as
    ``run_sweep`` finds it, through ``run_pipeline`` with its evaluation
    under gemma2-2b, in the timing mode (``timing_pin_budget``), cut to one
-   seed of 5, best_of_n n in {1, 3, 5, 10} and 64 of its 150 tokens,
-   habermas num_candidates in {1, 3} and 32 of its 700 tokens; then the
+   seed of 5, best_of_n n in {1, 3, 5, 10} and 16 of its 150 tokens,
+   habermas num_candidates in {1, 3} and 16 of its 700 tokens; then the
    same runs one after another; (b)
    scenario 1's beam_search config, widths {2, 4}, 8 of 50 tokens, pinned,
    with brushup, concurrent then sequential: every session fused and opened
@@ -207,7 +209,7 @@ line each; any failure exits non-zero:
    dp=2 x tp=2 too: (a) K1 (llama3-8b and gemma2-2b scoring) and K2
    (llama3-8b beam) at one rank's heads on every card against their plain
    versions, and launched there with cuda:0 current; (b) main_path's
-   best-of-N config with generation through K2, cut to 16 tokens, on
+   best-of-N config with generation through K2, cut to 8 tokens, on
    ``TorchBackend(mesh=plan)`` against tp=1: ids equal or first differing
    at a draw of margin under 0.1, scores within 0.1, K1 and K2 launched on
    every card, and with four cards each card's weight bytes within 5% of
@@ -557,9 +559,15 @@ MUTANTS = {
         "every key tile taken as interior: no span, causal or window mask",
     ),
     "decode_neighbour_tail": (
-        "decode_attention", "const size_t tail_row = (size_t)p * a.R + r;",
-        "const size_t tail_row = (size_t)((p + 1) % a.P) * a.R + r;",
+        "decode_attention", "const size_t tail_row = (size_t)slot * a.R + s.r;",
+        "const size_t tail_row = (size_t)((slot + 1) % a.P) * a.R + s.r;",
         "tail rows of slot p read slot (p + 1) % P's tail",
+    ),
+    "decode_drop_last_split": (
+        "decode_attention",
+        "for (int j = 0; j < n_parts; ++j) {  // every block's partial of the chunk",
+        "for (int j = 0; j < n_parts - 1; ++j) {  // every block's partial of the chunk",
+        "the cluster merge leaves out the last split's partial",
     ),
 }
 
@@ -750,13 +758,21 @@ def decode_cases():
     rows.append(decode_case("gemma2-2b MCTS trunk advance (P=1, R=5)", 1, 5, 8, 4, 256, 1024, 8,
                             DECODE_STARTS[:5], 5, seed=33, scale=256 ** -0.5, softcap=50.0,
                             window=4096))
+    # A tp rank's one query head over one kv head (gemma2-2b at tp=8 / 16,
+    # the classic rows of tensor_parallel_*): 8 groups of one row each.
+    rows.append(decode_case("tp rank, one head (H=1, KV=1, hd 256), softcap 50", 1, 8, 1, 1, 256,
+                            128, 32, [0] * 8, 31, seed=35, scale=256 ** -0.5, softcap=50.0))
+    # Every role's trunk span empty at write_col 0: one valid key a row (its
+    # own tail column 0), every split of a cluster but one without keys.
+    rows.append(decode_case("empty trunk spans, write_col 0 (one key a row)", 1, 6, 32, 8, 128,
+                            1024, 200, [1024] * 6, 0, seed=36))
     return rows
 
 
-def decode_mutant_check(library, build_s):
-    """Hold the neighbour-tail decode_attention build against the plain
-    version as the real kernel is held, at the beam shape: the comparison
-    must fail."""
+def decode_mutant_check(tag, library, build_s):
+    """Hold a broken decode_attention build against the plain version as
+    the real kernel is held, at the beam shape (four slots, two key splits
+    a group): the comparison must fail."""
     import ctypes
 
     import torch
@@ -772,8 +788,7 @@ def decode_mutant_check(library, build_s):
                      4, 6, 128 ** -0.5, None, None)
     plain = da.decode_attention_reference(q, tk, tv, lk, lv, sts, qps, write_col, 4, 6,
                                           128 ** -0.5)
-    row = mutant_row("decode_neighbour_tail", build_s, [4, 6, 32, 8, 128, 1024, 200], out,
-                     plain)
+    row = mutant_row(tag, build_s, [4, 6, 32, 8, 128, 1024, 200], out, plain)
     del q, tk, tv, lk, lv, out, plain
     torch.cuda.empty_cache()
     return row
@@ -1773,7 +1788,7 @@ HABERMAS_TOKENS = 128
 #: 107-151 s of the phase).  Both cut to this for the time limit (not
 #: HABERMAS_TOKENS, whose routes the phase checks), and best-of-N's 200
 #: tokens to HABERMAS_BEST_OF_N_TOKENS.
-JUDGE_TOKENS = 48
+JUDGE_TOKENS = 32
 HABERMAS_BEST_OF_N_TOKENS = 32
 
 
@@ -2860,8 +2875,8 @@ CONCURRENT_ROOT = "configs/north_star"
 #: scenario 1's beam_search config for the time limit; widths unchanged.
 CONCURRENT_CUTS = {
     "num_seeds": 1,
-    "best_of_n": {"n": [1, 3, 5, 10], "max_tokens": 32},
-    "habermas_machine": {"num_candidates": [1, 3], "max_tokens": 32},
+    "best_of_n": {"n": [1, 3, 5, 10], "max_tokens": 16},
+    "habermas_machine": {"num_candidates": [1, 3], "max_tokens": 16},
 }
 CONCURRENT_BEAM_CUTS = {"num_seeds": 1, "beam_search": {"beam_width": [2, 4], "max_tokens": 8}}
 #: A concurrent row differing from its sequential twin passes when the
@@ -4550,7 +4565,7 @@ def checkpoint_path():
 PARALLEL_DEVICE = "cuda"
 PARALLEL_MAX_DP = 4
 #: (b): main_path's best-of-N config with every method's budget cut to this.
-PARALLEL_TOKENS = 16
+PARALLEL_TOKENS = 8
 #: (c): gemma2-2b at full width, TRAIN_ROWS rows x TRAIN_SEQ tokens per
 #: shard, TRAIN_STEPS AdamW steps on one seeded batch at optax's default
 #: rate (1e-3 overshot: 12.91, 9.50, 10.96 on the card).
@@ -5593,7 +5608,7 @@ def tensor_parallel_path(params=None):
     """Tensor parallelism -> (row, launches): (a) K1 and K2 at each tp
     rank's heads on every card against their plain versions, and launched
     with the lead current; (b) main_path's best-of-N config (llama3-8b,
-    int8, full width and depth, generation through K2) cut to 16 tokens on
+    int8, full width and depth, generation through K2) cut to 8 tokens on
     ``TorchBackend(mesh=plan)`` against tp=1; (c) serve_path's cut requests
     through ``create_server(mesh=plan)`` against tp=1, and a search session
     step by step; (d) ``train_step`` on gemma2-2b at full width over the
@@ -6188,6 +6203,11 @@ def main() -> int:
         "flash_attention_spill_free": len(ptxas["flash_attention"]) == 4 and all(
             f.get("spill_bytes") == 0 for f in ptxas["flash_attention"]
         ),
+        # Every instantiation of K2's kernel (hd 128 / 256 x 1, 2 or 4 row
+        # tiles): no spills.
+        "decode_attention_spill_free": len(ptxas["decode_attention"]) == 6 and all(
+            f.get("spill_bytes") == 0 for f in ptxas["decode_attention"]
+        ),
     }
     emit(build_row)
 
@@ -6195,7 +6215,8 @@ def main() -> int:
     decode_cases_ = decode_cases()
     mutants = [
         mutant_check(tag, *mutant_libs[tag]) for tag in ("flash_skip_tile", "flash_no_mask")
-    ] + [decode_mutant_check(*mutant_libs["decode_neighbour_tail"])]
+    ] + [decode_mutant_check(tag, *mutant_libs[tag])
+         for tag in ("decode_neighbour_tail", "decode_drop_last_split")]
     per_card = parallel_kernel_cases()
     kernels_ok = all(c["ok"] for c in flash_cases + decode_cases_ + per_card)
     emit({"phase": "kernels", "flash_attention": flash_cases,
@@ -6311,7 +6332,8 @@ def main() -> int:
               greedy_row, habermas_row, fallback_row, sweep_row, mcts_row, concurrent_row,
               serve_row, fleet_row, checkpoint_row, parallel_row, tp_row, tpr_row, tps_row]
     if not (kernels_ok and all(m["ok"] for m in mutants) and all(p["ok"] for p in phases)
-            and flash_ok and decode_ok and build_row["flash_attention_spill_free"]):
+            and flash_ok and decode_ok and build_row["flash_attention_spill_free"]
+            and build_row["decode_attention_spill_free"]):
         fail("a phase failed (see its JSON line)")
     emit({
         "ok": True,

@@ -134,7 +134,7 @@ def profile_steps(name: str, loop, steps: int, warmup: int) -> Dict:
         "device_idle_share": 1.0 - busy_ms / wall_ms if kernels else None,
         "kernels_per_step": len(kernels) / steps,
         "decode_attention_ms_per_step": sum(
-            ms for k, ms in by_name.items() if "decode_partial" in k or "decode_combine" in k
+            ms for k, ms in by_name.items() if "decode_attention_kernel" in k
         ) / steps,
         "top_kernels": [
             {"name": k, "ms_per_step": ms / steps, "share_of_busy": ms / busy_ms if busy_ms else None}

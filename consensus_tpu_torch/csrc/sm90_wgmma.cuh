@@ -1,5 +1,6 @@
-// Hopper (sm_90a) helpers for the flash-attention kernel (flash_attention.cu),
-// as inline PTX: mbarriers, TMA copies, wgmma and register reallocation.
+// Hopper (sm_90a) helpers for the attention kernels, as inline PTX:
+// mbarriers, TMA copies, wgmma and register reallocation (flash_attention.cu);
+// mbarriers, TMA copies and thread-block clusters (decode_attention.cu).
 //
 // * mbarrier: init, arrive, arrive with an expected transaction count, and
 //   a wait on a phase's parity (the wait passes once the barrier's phase
@@ -25,6 +26,12 @@
 //   wgmma_wait.
 // * setmaxnreg moves registers between warpgroups; every warp of a
 //   warpgroup runs it.
+// * An mbarrier arrival when all of a thread's earlier cp.async copies have
+//   landed (cp.async.mbarrier.arrive).
+// * Clusters: a block's rank in its cluster, a barrier over every thread of
+//   the cluster (release / acquire: shared-memory writes before it are seen
+//   by the cluster's blocks after it), and stores to another block's
+//   shared memory through mapa (distributed shared memory).
 
 #pragma once
 
@@ -66,6 +73,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// Arrive on `bar` once every cp.async this thread issued before has landed;
+// the barrier's count includes this arrival (no increment).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // -- TMA ------------------------------------------------------------------------
@@ -252,6 +265,50 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// -- clusters -------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of cluster_sync, apart: a relaxed arrival (no ordering of
+// earlier writes), and the wait for every thread of the cluster's blocks.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `addr` (this block's shared memory) in the
+// block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster_f2(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 }  // namespace sm90

@@ -35,21 +35,157 @@ against ``4 * hd * H`` FLOPs per (row, key).  At the llama3-8b beam shape
 (P=4, R=6, H=32, KV=8, hd=128, W0=1024, Ts=200) that is ~10-20 MB, a few
 microseconds; ``chip_smoke.py`` computes it from each run's spans and the
 figures are in PERF.md.
+
+The kernel is one launch: the blocks that split one (role, kv head) group's
+keys form a thread-block cluster and merge their partial softmax sums in
+distributed shared memory (the design is in the ``.cu`` file's header).
+:func:`launch_plan` sizes the split on the host from the grid and how many
+clusters the card holds at once; :func:`split_units` is the key tiles each
+block of a cluster walks, as the kernel computes them on the device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128, 256)
-#: Keys per block of the kernel's first pass: the trunk and each slot's
-#: tail columns 0..write_col split into chunks of this many keys.
-KEY_CHUNK = 256
+#: Keys per pipeline stage of the kernel, by head_dim (its K and V ~34 KB
+#: either way); a group's keys are cut into tiles of this many.
+STAGE_KEYS = {128: 64, 256: 32}
+#: Query rows one block holds: four 16-row tiles of the tensor-core product.
+BLOCK_ROWS = 64
+#: Blocks of one cluster, the most that split one group's keys: 8, the
+#: largest portable cluster size.
+MAX_SPLITS = 8
+#: A block's fixed time -- its start, Q's and its first tile's latency, the
+#: cluster's merge -- in key tiles' time, for weighing splits against waves
+#: (on an H100: ~5-6 us against ~1-1.5 us a tile, per-block traces of the
+#: kernel).
+FIXED_TILES = 4
+#: CUDA's limit on grid dims y and z (the (role, kv head) groups and the row
+#: blocks).
+MAX_GRID_YZ = 65535
+
+
+class LaunchPlan(NamedTuple):
+    """How one call is cut: ``splits`` blocks (one cluster) share each
+    (role, kv head, row block) group's keys; a block holds the query rows of
+    ``slots_per_block`` slots, and ``row_blocks`` blocks cover the slots."""
+
+    splits: int
+    slots_per_block: int
+    row_blocks: int
+
+    def grid(self, n_roles: int, kv: int) -> Tuple[int, int, int]:
+        return (self.splits, n_roles * kv, self.row_blocks)
+
+
+def block_rows(n_slots: int, heads: int, kv: int) -> int:
+    """Query rows one block holds: whole slots, at most ``BLOCK_ROWS``."""
+    reps = heads // kv
+    if reps > BLOCK_ROWS:
+        raise ValueError(f"decode_attention kernel holds at most {BLOCK_ROWS} query heads "
+                         f"per kv head, got {reps}")
+    return min(n_slots, BLOCK_ROWS // reps) * reps
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(n_slots: int, n_roles: int, heads: int, kv: int, head_dim: int, w0: int,
+                write_col: int, sms: int, max_splits: int = MAX_SPLITS,
+                capacity: Optional[Tuple[int, ...]] = None) -> LaunchPlan:
+    """The split of one call, from what the host knows: the groups of the
+    grid, a group's key tiles (the trunk in full -- its valid span is read
+    on the device -- and the tail columns ``0..write_col`` of each slot a
+    block holds), and how many clusters of each size the card holds at once
+    (``capacity[s - 1]`` for clusters of s blocks; ``None`` takes ``sms //
+    s``, a card whose clusters pack perfectly).  Each candidate split costs
+    its waves times a block's tiles plus ``FIXED_TILES``; the cheapest wins,
+    the smaller on a tie."""
+    reps = heads // kv
+    slots_per_block = block_rows(n_slots, heads, kv) // reps
+    row_blocks = -(-n_slots // slots_per_block)
+    if n_roles * kv > MAX_GRID_YZ or row_blocks > MAX_GRID_YZ:
+        raise ValueError(f"decode_attention: grid y {n_roles * kv} or z {row_blocks} "
+                         f"exceeds CUDA's limit of {MAX_GRID_YZ}")
+    keys = STAGE_KEYS[head_dim]
+    tiles = -(-w0 // keys) + slots_per_block * -(-(write_col + 1) // keys)
+    groups = n_roles * kv * row_blocks
+    best = None
+    for splits in range(1, min(max_splits, tiles) + 1):
+        held = capacity[splits - 1] if capacity is not None else sms // splits
+        if held < 1:
+            continue
+        cost = -(-groups // held) * (-(-tiles // splits) + FIXED_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return LaunchPlan(best[1] if best else 1, slots_per_block, row_blocks)
+
+
+def _slot_in_turn(q: int, slots: int, tile_slots: int) -> int:
+    """The q-th slot in the order that takes the row tiles in turn
+    (``slot_in_turn`` in the ``.cu`` file)."""
+    tiles = -(-slots // tile_slots)
+    last = slots - (tiles - 1) * tile_slots
+    if q < last * tiles:
+        return (q % tiles) * tile_slots + q // tiles
+    q -= last * tiles
+    return (q % (tiles - 1)) * tile_slots + last + q // (tiles - 1)
+
+
+def split_units(plan: LaunchPlan, n_slots: int, reps: int, head_dim: int, w0: int, start: int,
+                qpos: int, write_col: int, window: Optional[int], row_block: int = 0
+                ) -> List[List[Tuple[Optional[int], int, int]]]:
+    """The key tiles each block of one group's cluster walks, as the kernel
+    computes them on the device (``span_of`` / ``unit_of`` in the ``.cu``
+    file): per split, a list of ``(slot or None for the trunk, lo, hi)``.
+    The trunk's valid span ``[lo, W0)`` in tiles first, then the row block's
+    slots' tail spans, tile j of every slot (row tiles in turn) before tile
+    j + 1; block b takes tiles ``[b*U/splits, (b+1)*U/splits)``."""
+    keys = STAGE_KEYS[head_dim]
+    p0 = row_block * plan.slots_per_block
+    slots = min(n_slots, p0 + plan.slots_per_block) - p0
+    lo = max(start, 0)
+    if window is not None:
+        lo = max(lo, qpos + start - window + 1)
+    tiles: List[Tuple[Optional[int], int, int]] = [
+        (None, k, min(k + keys, w0)) for k in range(lo, w0, keys)
+    ]
+    tail_lo = 0 if window is None else max(0, write_col - window + 1)
+    tile_slots = max(1, 16 // reps)
+    for k in range(tail_lo, write_col + 1, keys):
+        tiles += [(p0 + _slot_in_turn(q, slots, tile_slots), k, min(k + keys, write_col + 1))
+                  for q in range(slots)]
+    n = len(tiles)
+    return [tiles[b * n // plan.splits:(b + 1) * n // plan.splits] for b in range(plan.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_capacity(lib: ctypes.CDLL, device_index: int, head_dim: int,
+                      rows: int) -> Tuple[int, ...]:
+    """How many clusters of 1..MAX_SPLITS blocks ``lib``'s kernel fits on
+    the card at once, for blocks of ``rows`` query rows: asked once per
+    (library, card, instantiation)."""
+    fn = lib.consensus_decode_attention_max_clusters
+    with _SIGNATURE_LOCK:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3
+    with torch.cuda.device(device_index):
+        held = tuple(fn(head_dim, rows, splits) for splits in range(1, MAX_SPLITS + 1))
+    if any(n < 0 for n in held):
+        raise RuntimeError(f"decode_attention: cudaOccupancyMaxActiveClusters failed: "
+                           f"cudaError {-min(held)}")
+    return held
 
 
 class LaunchCounter:
@@ -276,8 +412,8 @@ def _kernel_call(lib: ctypes.CDLL):
             if fn.argtypes is None:
                 fn.restype = ctypes.c_int
                 fn.argtypes = (
-                    [ctypes.c_void_p] * 10
-                    + [ctypes.c_int] * 11
+                    [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 10
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
                 )
     return fn
@@ -285,35 +421,27 @@ def _kernel_call(lib: ctypes.CDLL):
 
 def launch_kernel(lib: ctypes.CDLL, q, trunk_k, trunk_v, tail_k, tail_v, starts, qpos,
                   write_col: int, out, n_slots: int, n_roles: int, scale: float,
-                  softcap, window) -> None:
+                  softcap, window, max_splits: int = MAX_SPLITS) -> None:
     """One launch of ``lib``'s kernel on checked CUDA tensors, writing
-    ``out``; raises on a launch error.  The first pass splits the trunk and
-    the tail columns ``0..write_col`` into ``KEY_CHUNK``-key chunks and
-    writes fp32 partials to scratch allocated here; the second pass merges
-    them.  Counts nothing: callers other than :func:`decode_attention` (a
-    check of a deliberately broken build) must not move the launch
-    counter."""
-    rows, heads, hd = q.shape
+    ``out``; raises on a launch error (a cluster size or shared-memory size
+    the card refuses included).  The split comes from :func:`launch_plan`;
+    the kernel allocates nothing and the wrapper no scratch.  Counts
+    nothing: callers other than :func:`decode_attention` (a check of a
+    deliberately broken build) must not move the launch counter."""
+    _, heads, hd = q.shape
     _, w0, kv, _ = trunk_k.shape
     ts = tail_k.shape[1]
-    group_rows = n_slots * (heads // kv)
-    n_trunk = -(-w0 // KEY_CHUNK)
-    n_tail = -(-(write_col + 1) // KEY_CHUNK)
-    n_splits = n_trunk + n_tail
-    part_ml = torch.empty(
-        (n_roles * kv, n_splits, group_rows, 2), dtype=torch.float32, device=q.device
-    )
-    part_acc = torch.empty(
-        (n_roles * kv, n_splits, group_rows, hd), dtype=torch.float32, device=q.device
-    )
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    capacity = _cluster_capacity(lib, index, hd, block_rows(n_slots, heads, kv))
+    plan = launch_plan(n_slots, n_roles, heads, kv, hd, w0, write_col, _sm_count(index),
+                       max_splits, capacity)
     # The launch runs in q's device context (see flash_attention.launch_kernel).
     with torch.cuda.device(q.device):
         err = _kernel_call(lib)(
             q.data_ptr(), trunk_k.data_ptr(), trunk_v.data_ptr(), tail_k.data_ptr(),
-            tail_v.data_ptr(), starts.data_ptr(), qpos.data_ptr(), part_ml.data_ptr(),
-            part_acc.data_ptr(), out.data_ptr(),
-            n_slots, n_roles, heads, kv, hd, w0, ts, write_col, n_trunk, n_tail, KEY_CHUNK,
-            float(scale), float(softcap or 0.0), int(window or 0),
+            tail_v.data_ptr(), starts.data_ptr(), qpos.data_ptr(), out.data_ptr(),
+            n_slots, n_roles, heads, kv, hd, w0, ts, write_col, plan.splits,
+            plan.slots_per_block, float(scale), float(softcap or 0.0), int(window or 0),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

@@ -95,3 +95,53 @@ def test_flash_attention_runs_on_wgmma_and_tma_only():
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
                 "setmaxnreg"):
         assert ptx in header, ptx
+
+
+def test_decode_attention_includes_the_wgmma_header_and_hashes_it(tmp_path, monkeypatch):
+    """K2 includes ``sm90_wgmma.cuh`` (its mbarrier, TMA and cluster PTX),
+    so an edit of that header renames K2's library."""
+    source = (build.CSRC_DIR / "decode_attention.cu").read_text()
+    assert '#include "sm90_wgmma.cuh"' in source
+    root = tmp_path / "csrc"
+    root.mkdir()
+    for path in build.CSRC_DIR.iterdir():
+        if path.suffix in (".cu", ".cuh"):
+            (root / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", root)
+    before = build.library_path("decode_attention")
+    header = root / "sm90_wgmma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert build.library_path("decode_attention") != before
+
+
+def test_decode_attention_loads_by_tma_and_merges_in_a_cluster():
+    """K2 fills its ring by TMA under mbarriers and merges its key splits
+    through another block's shared memory behind a cluster barrier,
+    launched with a cluster dimension; the PTX it calls is in the header."""
+    source = (build.CSRC_DIR / "decode_attention.cu").read_text()
+    for call in ("tma_load_4d(", "mbar_expect_tx(", "mbar_wait(", "mbar_arrive(",
+                 "mbar_arrive_cp_async(", "cluster_arrive_relaxed(", "cluster_wait(",
+                 "cluster_sync(", "cluster_map(", "st_cluster_f4(",
+                 "cudaLaunchKernelEx(", "cudaLaunchAttributeClusterDimension",
+                 "cudaOccupancyMaxActiveClusters("):
+        assert call in source, call
+    header = (build.CSRC_DIR / "sm90_wgmma.cuh").read_text()
+    for ptx in ("cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
+                "cp.async.mbarrier.arrive.noinc", "barrier.cluster.arrive.release",
+                "barrier.cluster.wait.acquire", "mapa.shared::cluster", "st.shared::cluster",
+                "%cluster_ctarank"):
+        assert ptx in header, ptx
+
+
+def test_decode_attention_is_one_kernel_without_scratch():
+    """One kernel a call: no second (combine) kernel in K2's source, and no
+    device scratch allocated by its launch wrapper."""
+    import inspect
+
+    from consensus_tpu_torch.ops import decode_attention as da
+
+    source = (build.CSRC_DIR / "decode_attention.cu").read_text()
+    assert "decode_combine_kernel" not in source
+    assert source.count("__global__") == 1
+    launch = inspect.getsource(da.launch_kernel)
+    assert "torch.empty" not in launch and "torch.zeros" not in launch
